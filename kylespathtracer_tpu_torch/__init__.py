@@ -1,0 +1,34 @@
+"""kylespathtracer_tpu_torch — the path tracer on PyTorch and CUDA.
+
+A port of kylespathtracer_tpu (JAX + Pallas for the TPU) to PyTorch, with
+hand-written CUDA C++ kernels for NVIDIA Hopper (sm_90a) in place of the
+Pallas kernels. Same layout and names as the JAX package:
+
+  core/    math, sampler, color
+  scene/   scene tables and builders
+  render/  camera, reprojection, temporal tail, composite, pipeline
+  ops/     kernel wrappers (CUDA on CUDA tensors, plain tensor code on the
+           CPU) and the nvcc build/loader
+  csrc/    the CUDA sources
+  app/     frame-loop driver
+
+Imports torch only; never jax or the JAX package.
+"""
+
+from kylespathtracer_tpu_torch.utils.config import RenderConfig
+from kylespathtracer_tpu_torch.scene.scene import default_scene, sphere_scene
+from kylespathtracer_tpu_torch.scene.types import BSDF, OBJ, Materials, Scene
+from kylespathtracer_tpu_torch.render.camera import Camera
+from kylespathtracer_tpu_torch.render.pipeline import (
+    History,
+    init_history,
+    render_frame,
+    render_image,
+    render_sequence,
+)
+
+__all__ = [
+    "RenderConfig", "default_scene", "sphere_scene", "BSDF", "OBJ",
+    "Materials", "Scene", "Camera", "History", "init_history",
+    "render_frame", "render_image", "render_sequence",
+]

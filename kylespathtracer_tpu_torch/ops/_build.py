@@ -1,0 +1,116 @@
+"""Build and load the port's CUDA kernels.
+
+The sources in `csrc/` compile with `nvcc` into one shared library with a
+plain C interface, loaded with ctypes. The build runs at first use, into
+`build/kernels/` at the root of the checkout (git-ignored), under a name
+that carries a hash of the sources, so an edited source rebuilds and an
+unchanged one is reused. Nothing here runs at import time. The port
+therefore runs from a checkout, not from an installed package.
+
+Flags: `-gencode arch=compute_90a,code=sm_90a -std=c++17 -O3`, and no
+`--use_fast_math` (it would change sqrt, rsqrt and division).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+SOURCES = ("frame_kernel.cu", "reproject_kernel.cu")
+HEADERS = ("shade_core.cuh",)
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC",
+)
+
+_lock = threading.Lock()
+_lib = None
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+_SIGNATURES = {
+    # ftab, itab, nP, nS, nB, nK, width, height, fov, frame, row_base, rows,
+    # smp, decorrelate, biased, soft_beta, gloss, out_f, out_oid, stream
+    "kpt_frame_forward": (
+        _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I,
+        _I, _I, _I, _F, _I, _P, _P, _P,
+    ),
+    # ho, dyrel, dxrel, wy0, wy1, wx0, wx1, hist_rgb, hist_cnt, hist_oid,
+    # out_rgb, out_cnt, H, W, K, stream
+    "kpt_reproject_window": (
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P,
+    ),
+}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = Path(home) / "bin" / "nvcc"
+    if not path.exists():
+        raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
+    return str(path)
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES + HEADERS:
+        h.update((CSRC / name).read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build(verbose: bool = False) -> Path:
+    """Compile `csrc/` into build/kernels/libkpt_kernels_<hash>.so unless
+    that file exists; return its path. `verbose` adds `-Xptxas -v` and
+    prints the compiler's report (registers, shared memory, spills)."""
+    out = BUILD_DIR / f"libkpt_kernels_{_digest()}.so"
+    if out.exists() and not verbose:
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+           "-o", str(tmp), *(str(CSRC / s) for s in SOURCES)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+            f"{proc.stdout}\n{proc.stderr}"
+        )
+    if verbose:
+        print(proc.stdout + proc.stderr)
+    os.replace(tmp, out)
+    return out
+
+
+def load():
+    """The loaded kernel library (built on first call), with every entry
+    point's argtypes and restype declared."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = list(argtypes)
+                fn.restype = ctypes.c_int
+            lib.kpt_error_string.argtypes = [ctypes.c_int]
+            lib.kpt_error_string.restype = ctypes.c_char_p
+            _lib = lib
+        return _lib
+
+
+def check(err: int, name: str) -> None:
+    """Raise if a C entry point returned a CUDA error code."""
+    if err != 0:
+        msg = load().kpt_error_string(err).decode()
+        raise RuntimeError(f"{name}: CUDA error {err}: {msg}")
