@@ -10,10 +10,16 @@ Pallas kernels. Same layout and names as the JAX package:
   ops/     kernel wrappers (CUDA on CUDA tensors, plain tensor code on the
            CPU) and the nvcc build/loader
   csrc/    the CUDA sources
+  diff/    inverse rendering (fit, run_recovery)
   app/     frame-loop driver
 
-Imports torch only; never jax or the JAX package.
+Every entry point that makes tensors runs on the card unless the caller
+passes `device=` (DEFAULT_DEVICE); without a card such a call raises, as
+torch does. Imports torch only; never jax or the JAX package.
 """
+
+# The device the entry points make their tensors on unless told otherwise.
+DEFAULT_DEVICE = "cuda"
 
 from kylespathtracer_tpu_torch.utils.config import RenderConfig
 from kylespathtracer_tpu_torch.scene.scene import default_scene, sphere_scene

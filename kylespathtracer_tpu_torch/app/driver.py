@@ -10,12 +10,13 @@ from __future__ import annotations
 
 import torch
 
+from kylespathtracer_tpu_torch import DEFAULT_DEVICE
 from kylespathtracer_tpu_torch.render.camera import Camera, camera_pose_spline
 from kylespathtracer_tpu_torch.render.pipeline import History, init_history, render_frame
 from kylespathtracer_tpu_torch.scene.types import Scene
 
 
-def spline_cameras(num_frames: int, fps: float = 60.0, device="cpu") -> Camera:
+def spline_cameras(num_frames: int, fps: float = 60.0, device=DEFAULT_DEVICE) -> Camera:
     """Stacked cameras along the reference's scripted spline
     (t = iTime·0.5 with iTime in seconds)."""
     times = torch.arange(num_frames, dtype=torch.float32) / fps

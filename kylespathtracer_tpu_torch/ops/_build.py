@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
 The sources in `csrc/` compile with `nvcc` into one shared library with a
-plain C interface, loaded with ctypes. The build runs at first use, into
+plain C interface, loaded with ctypes: one `nvcc -c` per source, all
+started together, then one link. The build runs at first use, into
 `build/kernels/` at the root of the checkout (git-ignored), under a name
 that carries a hash of the sources, so an edited source rebuilds and an
 unchanged one is reused. Nothing here runs at import time. The port
@@ -23,12 +24,16 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("frame_kernel.cu", "reproject_kernel.cu")
-HEADERS = ("shade_core.cuh",)
+SOURCES = ("frame_kernel.cu", "reproject_kernel.cu", "frame_grad.cu", "loss_kernel.cu")
+HEADERS = ("dual.cuh", "shade_core.cuh", "frame_core.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 )
+# The gradient kernels round every operation on its own, as their plain
+# versions (one tensor op at a time) do. With nvcc's default contraction, K5
+# no longer meets chip_smoke.py phase 8's bar on the default scene.
+SOURCE_FLAGS = {"frame_grad.cu": ("-fmad=false",), "loss_kernel.cu": ("-fmad=false",)}
 
 _lock = threading.Lock()
 _lib = None
@@ -48,6 +53,19 @@ _SIGNATURES = {
     "kpt_reproject_window": (
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P,
     ),
+    # ftab, itab, seeds, n_seeds, nP, nS, nB, nK, width, height, fov, frame,
+    # smp, decorrelate, biased, soft_beta, gloss, g, present, out_g, stream
+    "kpt_frame_backward": (
+        _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I,
+        _I, _I, _I, _F, _I, _P, _I, _P, _P,
+    ),
+    # ftab, itab, seeds, n_seeds, nP, nS, nB, nK, width, height, fov, frame,
+    # smp, decorrelate, biased, soft_beta, gloss, brightness, mse, target,
+    # out_loss, out_g, stream
+    "kpt_loss_grad": (
+        _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I,
+        _I, _I, _I, _F, _I, _F, _I, _P, _P, _P, _P,
+    ),
 }
 
 
@@ -63,7 +81,7 @@ def _nvcc() -> str:
 
 
 def _digest() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode() + repr(SOURCE_FLAGS).encode())
     for name in SOURCES + HEADERS:
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]
@@ -71,23 +89,41 @@ def _digest() -> str:
 
 def build(verbose: bool = False) -> Path:
     """Compile `csrc/` into build/kernels/libkpt_kernels_<hash>.so unless
-    that file exists; return its path. `verbose` adds `-Xptxas -v` and
-    prints the compiler's report (registers, shared memory, spills)."""
+    that file exists; return its path. The sources compile in parallel, one
+    nvcc each. `verbose` adds `-Xptxas -v` and prints the compiler's report
+    (registers, stack frame, spills) of every kernel."""
     out = BUILD_DIR / f"libkpt_kernels_{_digest()}.so"
     if out.exists() and not verbose:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{out.stem}.{os.getpid()}"
+    nvcc = _nvcc()
+    ptxas = ["-Xptxas", "-v"] if verbose else []
+    objs, procs = [], []
+    for src in SOURCES:
+        obj = BUILD_DIR / f"{tag}.{Path(src).stem}.o"
+        cmd = [nvcc, *NVCC_FLAGS, *SOURCE_FLAGS.get(src, ()), *ptxas, "-c", "-o", str(obj),
+               str(CSRC / src)]
+        procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.STDOUT, text=True)))
+        objs.append(obj)
+    reports = [(cmd, proc.communicate()[0], proc.returncode) for cmd, proc in procs]
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", str(tmp), *(str(CSRC / s) for s in SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}"
-        )
+    try:
+        for cmd, text, rc in reports:
+            if rc != 0:
+                raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{text}")
+        link = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(link, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                               f"{' '.join(link)}\n{proc.stdout}\n{proc.stderr}")
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     if verbose:
-        print(proc.stdout + proc.stderr)
+        for (_, text, _), src in zip(reports, SOURCES):
+            print(f"--- {src}\n{text}")
     os.replace(tmp, out)
     return out
 

@@ -97,13 +97,14 @@ def _raygen(shape, cam, orient, width, height, fov, row0, device):
     (geometry.frag:38-39,67): aspect-scaled NDC → rsqrt normalize →
     pitch/yaw rotation. Returns (px, py, ro, rd) component planes."""
     rows, cols = shape
+    dt = orient.dtype  # float32; float64 for a float64 witness of the frame
     px = torch.arange(cols, dtype=torch.int32, device=device).expand(rows, cols)
     py = (torch.arange(rows, dtype=torch.int32, device=device) + row0)[:, None]
     py = py.expand(rows, cols)
     asp = float(width) / float(height)
-    xf = (2.0 * (px.to(torch.float32) + 0.5) / float(width) - 1.0) * asp
-    yf = 2.0 * (py.to(torch.float32) + 0.5) / float(height) - 1.0
-    zf = torch.full(shape, float(fov), dtype=torch.float32, device=device)
+    xf = (2.0 * (px.to(dt) + 0.5) / float(width) - 1.0) * asp
+    yf = 2.0 * (py.to(dt) + 0.5) / float(height) - 1.0
+    zf = torch.full(shape, float(fov), dtype=dt, device=device)
     inv = torch.rsqrt(xf * xf + yf * yf + zf * zf)
     dx, dy, dz = xf * inv, yf * inv, zf * inv
     cx, sx = torch.cos(orient[0, 0]), torch.sin(orient[0, 0])
@@ -111,7 +112,7 @@ def _raygen(shape, cam, orient, width, height, fov, row0, device):
     y2 = dy * cx + dz * sx
     z1 = -dy * sx + dz * cx
     rd = (dx * cy + z1 * sy, y2, -dx * sy + z1 * cy)
-    zero = torch.zeros(shape, dtype=torch.float32, device=device)
+    zero = torch.zeros(shape, dtype=dt, device=device)
     ro = tuple(zero + cam[0, k] for k in range(3))
     return px, py, ro, rd
 
@@ -232,14 +233,15 @@ def assemble_planes(outs, H):
     }
 
 
-def frame_forward_plain(scene: Scene, camera, frame, config, row_base: int = 0,
-                        rows: int | None = None):
-    """`frame_block` over image rows [row_base, row_base+rows) as plain
-    tensor ops, on the scene's device → the frame dict."""
+def frame_planes(ops, scene: Scene, frame, config, row_base: int = 0,
+                 rows: int | None = None):
+    """`frame_block` over image rows [row_base, row_base+rows) on the 20
+    small operands `ops` (`small_operands` order) → the 14 planes. The
+    gradient plain versions (ops/frame_grad.py, ops/loss_kernel.py) pass
+    operands that require grad."""
     H = config.height if rows is None else rows
-    ops = small_operands(scene, camera, frame)
     sc = dict(zip(SC_KEYS, ops[:17]))
-    outs = frame_block(
+    return frame_block(
         sc, ops[17], ops[18], int(frame), int(row_base),
         counts=_counts(scene), nK=int(scene.materials.s0.shape[0]),
         gloss=config.gloss, width=config.width, height=config.height,
@@ -247,7 +249,15 @@ def frame_forward_plain(scene: Scene, camera, frame, config, row_base: int = 0,
         smp=smp_of(config), decorrelate=bool(config.decorrelate_samples),
         biased=bool(config.biased),
     )
-    return assemble_planes(outs, H)
+
+
+def frame_forward_plain(scene: Scene, camera, frame, config, row_base: int = 0,
+                        rows: int | None = None):
+    """`frame_block` over image rows [row_base, row_base+rows) as plain
+    tensor ops, on the scene's device → the frame dict."""
+    H = config.height if rows is None else rows
+    ops = small_operands(scene, camera, frame)
+    return assemble_planes(frame_planes(ops, scene, frame, config, row_base, H), H)
 
 
 # The 13 float planes of the frame dict, one (key, channel) per plane.
@@ -290,6 +300,23 @@ def disagreement(out: dict, ref: dict) -> dict:
     stats["median"] = d.median().item()
     stats["max_abs"] = d.max().item()
     return stats
+
+
+# Relative forward disagreement beyond which `ill_conditioned` flags a pixel.
+ILL = 4e-6
+
+
+def ill_conditioned(out: dict, ref: dict) -> torch.Tensor:
+    """bool[H,W]: pixels where two frame dicts of the same inputs part by
+    more than ILL·(1+|ref|) on some float plane, or on oid. There a ray
+    grazes a surface or a sampling decision sits on a rounding boundary, so
+    f32 rounding decides the derivative: a comparison of two gradient
+    computations gives these pixels no cotangent."""
+    bad = out["oid"] != ref["oid"]
+    for key in ("add_d", "add_s", "alb", "ene", "depth", "curv"):
+        d = (out[key] - ref[key]).abs() > ILL * (1.0 + ref[key].abs())
+        bad = bad | (d.any(-1) if d.ndim == 3 else d)
+    return bad
 
 
 def check_agreement(out: dict, ref: dict, what: str) -> dict:
@@ -351,6 +378,28 @@ def _check_scene(scene: Scene, camera, device):
         raise ValueError(f"the frame kernel takes at most {MAX_PLANES} planes")
 
 
+def kernel_args(scene: Scene, camera, config) -> tuple:
+    """Raise on what the frame-body kernels (K1 here, K5 in frame_grad.py,
+    K6 in loss_kernel.py) do not take; else → their scene and shading
+    arguments (nP, nS, nB, nK, width, height, fov) and (smp, decorrelate,
+    biased, soft_beta, gloss), in the C entry points' order."""
+    _check_scene(scene, camera, scene.device)
+    gloss = float(config.gloss)
+    if gloss != int(gloss) or gloss < 1:
+        raise ValueError(f"the frame kernel needs an integral gloss >= 1 (got {gloss})")
+    counts = (*_counts(scene), int(scene.materials.s0.shape[0]),
+              int(config.width), int(config.height), float(config.fov))
+    shading = (smp_of(config), int(bool(config.decorrelate_samples)),
+               int(bool(config.biased)), float(config.soft_shadows), int(gloss))
+    return counts, shading
+
+
+def check_planes_for_biased(scene: Scene, config) -> None:
+    """The plane-strategy roulettes need a plane (the JAX code fails too)."""
+    if config.biased and scene.planes.shape[0] == 0:
+        raise ValueError("the biased estimators need at least one plane")
+
+
 def frame_forward(scene: Scene, camera, frame, config, row_base: int = 0,
                   rows: int | None = None):
     """Run the fused forward frame → dict of full-frame planes:
@@ -362,36 +411,23 @@ def frame_forward(scene: Scene, camera, frame, config, row_base: int = 0,
     `config.height` image. The scene's device picks the route: CUDA
     launches the kernel (or raises), CPU runs `frame_forward_plain`."""
     global LAUNCHES
-    if config.biased and scene.planes.shape[0] == 0:
-        # The plane-strategy roulettes need a plane (the JAX code fails too).
-        raise ValueError("the biased estimators need at least one plane")
+    check_planes_for_biased(scene, config)
     device = scene.device
     if device.type == "cpu":
         return frame_forward_plain(scene, camera, frame, config, row_base, rows)
     if device.type != "cuda":
         raise ValueError(f"frame_forward: unsupported device {device}")
-    _check_scene(scene, camera, device)
-    H = config.height if rows is None else int(rows)
-    W = config.width
-    if H < 1 or W < 1 or row_base < 0 or row_base + H > config.height:
+    (nP, nS, nB, nK, W, height, fov), shading = kernel_args(scene, camera, config)
+    H = height if rows is None else int(rows)
+    if H < 1 or W < 1 or row_base < 0 or row_base + H > height:
         raise ValueError(f"rows [{row_base}, {row_base + H}) outside the "
-                         f"{config.height}-row image")
-    gloss = float(config.gloss)
-    if gloss != int(gloss) or gloss < 1:
-        raise ValueError(f"the frame kernel needs an integral gloss >= 1 (got {gloss})")
-    smp = smp_of(config)
+                         f"{height}-row image")
     ftab, itab = pack_tables(scene, camera)
     out_f = torch.empty((13, H, W), dtype=torch.float32, device=device)
     out_oid = torch.empty((H, W), dtype=torch.int32, device=device)
-    lib = _build.load()
-    err = lib.kpt_frame_forward(
-        ftab.data_ptr(), itab.data_ptr(),
-        int(scene.planes.shape[0]), int(scene.spheres.shape[0]),
-        int(scene.boxes.shape[0]), int(scene.materials.s0.shape[0]),
-        W, int(config.height), float(config.fov),
-        _wrap32(int(frame)), int(row_base), H, smp,
-        int(bool(config.decorrelate_samples)), int(bool(config.biased)),
-        float(config.soft_shadows), int(gloss),
+    err = _build.load().kpt_frame_forward(
+        ftab.data_ptr(), itab.data_ptr(), nP, nS, nB, nK, W, height, fov,
+        _wrap32(int(frame)), int(row_base), H, *shading,
         out_f.data_ptr(), out_oid.data_ptr(),
         torch.cuda.current_stream(device).cuda_stream,
     )

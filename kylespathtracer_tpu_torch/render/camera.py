@@ -11,6 +11,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from kylespathtracer_tpu_torch import DEFAULT_DEVICE
 from kylespathtracer_tpu_torch.core import gmath
 
 
@@ -20,7 +21,7 @@ class Camera:
     orient: torch.Tensor  # f32[2] (pitch, yaw)
 
     @classmethod
-    def create(cls, loc=(3.0, 2.0, -3.0), orient=(0.0, 0.0), device="cpu"
+    def create(cls, loc=(3.0, 2.0, -3.0), orient=(0.0, 0.0), device=DEFAULT_DEVICE
                ) -> "Camera":
         return cls(
             loc=torch.tensor(loc, dtype=torch.float32, device=device),
@@ -38,7 +39,7 @@ class Camera:
         return self.loc.shape[0]
 
 
-def camera_from_numpy(tree: dict, device="cpu") -> Camera:
+def camera_from_numpy(tree: dict, device=DEFAULT_DEVICE) -> Camera:
     """The port's `Camera` from a JAX `Camera` given as numpy arrays."""
     return Camera(
         loc=torch.as_tensor(np.array(tree["loc"], np.float32), device=device),
@@ -46,7 +47,7 @@ def camera_from_numpy(tree: dict, device="cpu") -> Camera:
     )
 
 
-def ndc_grid(width: int, height: int, device="cpu") -> torch.Tensor:
+def ndc_grid(width: int, height: int, device=DEFAULT_DEVICE) -> torch.Tensor:
     """Aspect-scaled NDC coords of pixel centers; f32[H, W, 2]."""
     asp = width / height
     ar = lambda n: torch.arange(n, dtype=torch.float32, device=device)

@@ -12,6 +12,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from kylespathtracer_tpu_torch import DEFAULT_DEVICE
+
 
 @dataclasses.dataclass(frozen=True)
 class Channel:
@@ -23,7 +25,7 @@ class Channel:
     oid: torch.Tensor  # i32[H,W] object ID at accumulation time
 
     @classmethod
-    def zeros(cls, height: int, width: int, device="cpu") -> "Channel":
+    def zeros(cls, height: int, width: int, device=DEFAULT_DEVICE) -> "Channel":
         return cls(
             rgb=torch.zeros((height, width, 3), dtype=torch.float32, device=device),
             cnt=torch.zeros((height, width), dtype=torch.float32, device=device),
@@ -34,7 +36,7 @@ class Channel:
         return Channel(self.rgb.to(device), self.cnt.to(device), self.oid.to(device))
 
 
-def channel_from_numpy(tree: dict, device="cpu") -> Channel:
+def channel_from_numpy(tree: dict, device=DEFAULT_DEVICE) -> Channel:
     """The port's `Channel` from a JAX `Channel` given as numpy arrays."""
     t = lambda k, dt: torch.as_tensor(np.array(tree[k], dt), device=device)
     return Channel(rgb=t("rgb", np.float32), cnt=t("cnt", np.float32),

@@ -1,15 +1,17 @@
 """The frame pipeline.
 
-Port of kylespathtracer_tpu/render/pipeline.py for the fused temporal
-frame (`pipeline="fused"`, `reproject_backend="window"`,
-`temporal_fusion="split"`):
+Port of kylespathtracer_tpu/render/pipeline.py for the fused pipeline
+(`pipeline="fused"`):
 
     render_frame(scene, camera, history, frame, config) → (image, history)
 
-Each frame is one frame-kernel launch (K1), one windowed-reprojection
-launch per channel set (K2), and a short tail of tensor ops (count floor,
-velocity clamp, accumulate, ACES composite). Everything runs on the
-scene's device. Forward-only, as the JAX path is.
+The temporal frame (`reproject_backend="window"`, `temporal_fusion="split"`)
+is one frame-kernel launch (K1), one windowed-reprojection launch per
+channel set (K2), and a short tail of tensor ops (count floor, velocity
+clamp, accumulate, ACES composite); forward-only, as the JAX path is. The
+differentiable frame (`no_history=True`, or `reproject_backend="xla"`)
+runs K1 through ops/frame_grad.py, whose backward is K5, and the exact
+gather of render/reproject.py. Everything runs on the scene's device.
 
 The stages are `torch.profiler` spans (STAGES), so a profiler trace splits
 the frame's device time by stage; outside a profiler they cost a few
@@ -23,11 +25,14 @@ import dataclasses
 import torch
 from torch.profiler import record_function
 
+from kylespathtracer_tpu_torch import DEFAULT_DEVICE
 from kylespathtracer_tpu_torch.core import gmath
+from kylespathtracer_tpu_torch.ops import frame_grad as fg
 from kylespathtracer_tpu_torch.ops import frame_kernel as fk
 from kylespathtracer_tpu_torch.ops import reproject_kernel as rk
 from kylespathtracer_tpu_torch.render import camera as cam_mod
 from kylespathtracer_tpu_torch.render import composite as comp_mod
+from kylespathtracer_tpu_torch.render import reproject as rep_mod
 from kylespathtracer_tpu_torch.render.camera import Camera, camera_from_numpy
 from kylespathtracer_tpu_torch.render.passes import (
     Channel,
@@ -61,7 +66,7 @@ class History:
                        self.camera.to(device))
 
 
-def history_from_numpy(tree: dict, device="cpu") -> History:
+def history_from_numpy(tree: dict, device=DEFAULT_DEVICE) -> History:
     """The port's `History` from a JAX `History` given as numpy arrays
     (dicts for `diffuse`, `specular` and `camera`)."""
     return History(
@@ -71,26 +76,29 @@ def history_from_numpy(tree: dict, device="cpu") -> History:
     )
 
 
-def init_history(config, camera: Camera | None = None, device="cpu") -> History:
+def init_history(config, camera: Camera | None = None, device=DEFAULT_DEVICE) -> History:
     return History.zeros(config, camera or Camera.create(device=device))
 
 
 def _check_supported(config) -> None:
-    """The port serves the fused temporal frame only; the other branches of
-    the JAX `render_frame` are still to be ported (ROADMAP.md Queue 1)."""
+    """The port serves the fused pipeline's split temporal frame and its
+    differentiable frame; the other branches of the JAX `render_frame` are
+    still to be ported (ROADMAP.md Queue 1)."""
     unported = (
         (config.pipeline != "fused",
          f"pipeline={config.pipeline!r} (ROADMAP Queue 1 #11, the pass pipeline)"),
-        (config.no_history,
-         "no_history=True (ROADMAP Queue 1 #9, the differentiable frame)"),
-        (config.reproject_backend != "window",
-         f"reproject_backend={config.reproject_backend!r} (ROADMAP Queue 1 #9)"),
-        (config.temporal_fusion != "split",
+        (_temporal_window(config) and config.temporal_fusion != "split",
          f"temporal_fusion={config.temporal_fusion!r} (ROADMAP Queue 1 #12)"),
     )
     for bad, what in unported:
         if bad:
             raise NotImplementedError(f"the PyTorch port does not serve {what} yet")
+
+
+def _temporal_window(config) -> bool:
+    """The forward-only temporal frame (windowed reprojection); every other
+    fused frame is the differentiable one."""
+    return not config.no_history and config.reproject_backend == "window"
 
 
 def render_frame(
@@ -100,11 +108,61 @@ def render_frame(
     frame,
     config,
 ) -> tuple[torch.Tensor, History]:
-    """One temporal frame → (sRGB image f32[H,W,3], new history)."""
+    """One frame → (sRGB image f32[H,W,3], new history)."""
     _check_supported(config)
+    if not _temporal_window(config):
+        return differentiable_frame(scene, camera, history, frame, config)
     with record_function("frame.ray_dirs"):
         rd = cam_mod.ray_dirs(camera, config.width, config.height, config.fov)
     return split_temporal_frame(scene, camera, history, frame, config, rd)
+
+
+def differentiable_frame(scene: Scene, camera: Camera, history: History, frame, config):
+    """The frame kernel with its backward kernel (ops/frame_grad.py) plus
+    the exact reprojection gather: differentiable in the scene, the camera
+    and the history. `no_history` renders a fresh single frame and skips
+    the gather of an all-zero history (the same image)."""
+    out = fg.frame_forward(scene, camera, frame, config)
+    ho = out["oid"]
+
+    if config.no_history:
+        ones = torch.ones(ho.shape, dtype=torch.float32, device=ho.device)
+        d = Channel(rgb=out["add_d"], cnt=ones, oid=ho)
+        s = Channel(rgb=out["add_s"], cnt=ones, oid=ho)
+        image = comp_mod.composite_from(out["alb"], out["ene"], d, s, config)
+        return image, History(diffuse=d, specular=s, camera=camera)
+
+    rd = cam_mod.ray_dirs(camera, config.width, config.height, config.fov)
+    hl, sl = _anchors(scene, camera, rd, out)
+    vv = gmath.length(camera.loc - history.camera.loc)
+    prev = history.camera
+
+    # reproject_backend="xla": the exact arbitrary-motion gather.
+    def accum(anchor, hist, add):
+        rgb, cnt = rep_mod.reproject(prev.loc, prev.orient, anchor, ho, hist.rgb, hist.cnt,
+                                     hist.oid, config.fov)
+        return _accumulate(rgb, cnt, add, vv, ho, config)
+
+    d = accum(hl, history.diffuse, out["add_d"])
+    s = accum(sl, history.specular, out["add_s"])
+    image = comp_mod.composite_from(out["alb"], out["ene"], d, s, config)
+    return image, History(diffuse=d, specular=s, camera=camera)
+
+
+def _anchors(scene: Scene, camera: Camera, rd: torch.Tensor, out: dict):
+    """The reprojection anchors: the hit point and the curvature-pushed
+    specular anchor (specular.frag:45-49)."""
+    hl = camera.loc + rd * out["depth"][..., None]
+    light_dist = gmath.length(hl - scene.light[:3])
+    fac = gmath.EPS / torch.sqrt(torch.clamp(out["curv"], min=gmath.EPS))
+    return hl, hl + rd * (light_dist * fac)[..., None]
+
+
+def _accumulate(rgb, cnt, add, vv, oid, config) -> Channel:
+    """Reprojected history → count floor, velocity clamp, plus this frame's
+    sample (diffuse.frag:46-56)."""
+    rgb, cnt = _temporal_clamp(rgb, count_floor(cnt), vv, config)
+    return Channel(rgb=rgb + add, cnt=cnt + 1.0, oid=oid)
 
 
 def split_temporal_frame(
@@ -120,11 +178,7 @@ def split_temporal_frame(
     with record_function("frame.k1"):
         out = fk.frame_forward(scene, camera, frame, config)
     with record_function("frame.anchors"):
-        # Hit point + curvature-pushed specular anchor (specular.frag:45-49).
-        hl = camera.loc + rd * out["depth"][..., None]
-        light_dist = gmath.length(hl - scene.light[:3])
-        fac = gmath.EPS / torch.sqrt(torch.clamp(out["curv"], min=gmath.EPS))
-        sl = hl + rd * (light_dist * fac)[..., None]
+        hl, sl = _anchors(scene, camera, rd, out)
         vv = gmath.length(camera.loc - prev_hist.camera.loc)
     with record_function("frame.reproject"):
         (rgb_d, cnt_d), (rgb_s, cnt_s) = rk.reproject_window(
@@ -133,14 +187,9 @@ def split_temporal_frame(
             window=config.reproject_window,
         )
 
-    def accum(rgb, cnt, add):
-        cnt = count_floor(cnt)
-        rgb, cnt = _temporal_clamp(rgb, cnt, vv, config)
-        return Channel(rgb=rgb + add, cnt=cnt + 1.0, oid=out["oid"])
-
     with record_function("frame.tail"):
-        d = accum(rgb_d, cnt_d, out["add_d"])
-        s = accum(rgb_s, cnt_s, out["add_s"])
+        d = _accumulate(rgb_d, cnt_d, out["add_d"], vv, out["oid"], config)
+        s = _accumulate(rgb_s, cnt_s, out["add_s"], vv, out["oid"], config)
         image = comp_mod.composite_from(out["alb"], out["ene"], d, s, config)
     return image, History(diffuse=d, specular=s, camera=camera)
 

@@ -3,7 +3,7 @@
 Port of kylespathtracer_tpu/scene/scene.py: `default_scene` is the
 reference's Cornell-style room (common.glsl:220-273); `sphere_scene` the
 parameterized N-sphere scenes. Tables are built in numpy (f32) and moved
-to `device` once.
+to `device` (default: the card) once.
 """
 
 from __future__ import annotations
@@ -13,6 +13,7 @@ import math
 import numpy as np
 import torch
 
+from kylespathtracer_tpu_torch import DEFAULT_DEVICE
 from kylespathtracer_tpu_torch.scene.types import OBJ, Materials, Scene
 
 
@@ -47,7 +48,7 @@ def _materials(m: dict, device) -> Materials:
     return Materials(**{k: torch.as_tensor(v, device=device) for k, v in m.items()})
 
 
-def default_materials(light_color=(10.0, 10.0, 10.0), device="cpu") -> Materials:
+def default_materials(light_color=(10.0, 10.0, 10.0), device=DEFAULT_DEVICE) -> Materials:
     """Material table reproducing `getSurface` (common.glsl:237-262), rows
     indexed by object ID 0..7, the global ×0.7 energy scale folded in."""
     m = _material_arrays(8, light_color)
@@ -67,7 +68,7 @@ def default_materials(light_color=(10.0, 10.0, 10.0), device="cpu") -> Materials
     return _materials(m, device)
 
 
-def default_scene(device="cpu") -> Scene:
+def default_scene(device=DEFAULT_DEVICE) -> Scene:
     """The reference's room: 4 planes + sphere light + rounded box."""
     f32 = lambda a: torch.tensor(a, dtype=torch.float32, device=device)
     i32 = lambda a: torch.tensor(a, dtype=torch.int32, device=device)
@@ -100,7 +101,7 @@ def sphere_scene(
     specular_energy: float = 0.35,
     kinds=None,
     iors=None,
-    device="cpu",
+    device=DEFAULT_DEVICE,
 ) -> Scene:
     """N spheres (+ floor plane + sphere light). Sphere i gets object ID
     3+i with constant albedo `albedos[i]`."""

@@ -14,6 +14,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from kylespathtracer_tpu_torch import DEFAULT_DEVICE
+
 
 class OBJ:
     """Reference object IDs (common.glsl:220-226)."""
@@ -110,7 +112,7 @@ def _tensor(a, dtype, device) -> torch.Tensor:
     return torch.as_tensor(np.array(a, dtype=dtype), device=device)
 
 
-def materials_from_numpy(tree: dict, device="cpu") -> Materials:
+def materials_from_numpy(tree: dict, device=DEFAULT_DEVICE) -> Materials:
     kw = {}
     for k in _MAT_F32 + ("bsdf",):
         v = tree.get(k)
@@ -119,7 +121,7 @@ def materials_from_numpy(tree: dict, device="cpu") -> Materials:
     return Materials(**kw)
 
 
-def scene_from_numpy(tree: dict, device="cpu") -> Scene:
+def scene_from_numpy(tree: dict, device=DEFAULT_DEVICE) -> Scene:
     """The port's `Scene` from a JAX `Scene` given as numpy arrays: every
     geometry field, `materials` as a dict of its fields, and `light_index`."""
     kw = {k: _tensor(tree[k], np.float32, device) for k in _F32}

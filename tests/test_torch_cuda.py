@@ -7,11 +7,16 @@ fixture, never at import). Run on a GPU machine with
 imports jax, which a GPU machine need not have).
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
+from kylespathtracer_tpu_torch.diff import inverse
+from kylespathtracer_tpu_torch.ops import frame_grad as fg
 from kylespathtracer_tpu_torch.ops import frame_kernel as fk
+from kylespathtracer_tpu_torch.ops import loss_kernel as lk
 from kylespathtracer_tpu_torch.ops import reproject_kernel as rk
 from kylespathtracer_tpu_torch.render import pipeline
 from kylespathtracer_tpu_torch.render.camera import Camera
@@ -109,3 +114,101 @@ def test_temporal_frame_on_card_matches_cpu(dev):
     assert d.median().item() <= 1e-5
     assert (d > 1e-3).float().mean().item() <= 1e-3
     assert (hists["cuda"].diffuse.oid == hists["cpu"].diffuse.oid).float().mean() >= 0.999
+
+
+# The gradient kernels against their plain versions, as chip_smoke.py phases
+# 8-9 hold them: at 256×128 with every pixel, and at 96×64 with the
+# ill-conditioned pixels (frame_kernel.ill_conditioned) left out. At 96×64 the
+# sphere case has a pixel whose ray grazes a sphere: there the kernel and its
+# plain version round the ray direction an ulp or two apart, which moves the
+# hit, and that pixel's share of one table, past 1e-4·max.
+GRAD_CASES = {
+    "default_hard": ({}, False),
+    "spheres_soft_smp2": (dict(soft_shadows=0.05, **SMP2), True),
+    "unbiased": (dict(biased=False), False),
+}
+
+
+def _grad_case(dev, case, width=256, height=128):
+    kw, spheres = GRAD_CASES[case]
+    scene = _spheres(dev) if spheres else default_scene(device=dev)
+    cam = Camera.create(loc=(3.0, 2.0, -3.0), orient=(0.0, 0.7), device=dev)
+    return scene, cam, RenderConfig(width=width, height=height, **kw)
+
+
+def _randn(shape, dev, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randn(tuple(shape), generator=g, device=dev)
+
+
+def _tables_agree(got, ref):
+    for a, b in zip(got, ref):
+        assert (a is None) == (b is None)
+        if a is not None:
+            torch.testing.assert_close(a, b, rtol=0, atol=max(1e-4 * b.abs().max().item(), 1e-10))
+
+
+@pytest.mark.parametrize("case", list(GRAD_CASES))
+def test_backward_kernel_matches_plain(dev, case):
+    scene, cam, cfg = _grad_case(dev, case)
+    out = fk.frame_forward(scene, cam, 3, cfg)
+    g = {k: _randn(out[k].shape, dev, i) for i, k in enumerate(fg.OUT_KEYS[:6])}
+    before = fg.LAUNCHES
+    got = fg.frame_backward(scene, cam, 3, g, cfg)
+    torch.cuda.synchronize()
+    assert fg.LAUNCHES == before + 1
+    _tables_agree(got, fg.frame_backward_plain(scene, cam, 3, g, cfg))
+
+
+@pytest.mark.parametrize("loss", ["mse", "mean"])
+@pytest.mark.parametrize("case", list(GRAD_CASES))
+def test_loss_kernel_matches_plain(dev, case, loss):
+    scene, cam, cfg = _grad_case(dev, case)
+    target = _randn((cfg.height, cfg.width, 3), dev).sigmoid()
+    before = lk.LAUNCHES
+    la, got = lk.render_loss_and_grad(scene, cam, 3, cfg, target, loss)
+    torch.cuda.synchronize()
+    assert lk.LAUNCHES == before + 1
+    lb, ref = lk.render_loss_and_grad_plain(scene, cam, 3, cfg, target, loss)
+    torch.testing.assert_close(la, lb, rtol=1e-5, atol=0)
+    _tables_agree(got, ref)
+
+
+@pytest.mark.parametrize("case", list(GRAD_CASES))
+def test_gradient_kernels_match_plain_on_well_conditioned_pixels(dev, case):
+    """At 96×64: K5 with no cotangent on the ill-conditioned pixels, and K6
+    (mse) with the plain image as the target there, which zeroes their
+    residual, match their plain versions."""
+    scene, cam, cfg = _grad_case(dev, case, 96, 64)
+    out, ref = fk.frame_forward(scene, cam, 3, cfg), fk.frame_forward_plain(scene, cam, 3, cfg)
+    bad = fk.ill_conditioned(out, ref)
+    keep = (~bad).float()
+    g = {k: _randn(out[k].shape, dev, i) * (keep[..., None] if out[k].ndim == 3 else keep)
+         for i, k in enumerate(fg.OUT_KEYS[:6])}
+    _tables_agree(fg.frame_backward(scene, cam, 3, g, cfg), fg.frame_backward_plain(scene, cam, 3, g, cfg))
+    image = torch.stack(lk._composite_planes(
+        [ref["alb"][..., c] for c in range(3)], [ref["ene"][..., c] for c in range(2)],
+        [ref["add_d"][..., c] for c in range(3)], [ref["add_s"][..., c] for c in range(3)],
+        float(cfg.brightness)), dim=-1)
+    target = torch.where(bad[..., None], image, _randn((cfg.height, cfg.width, 3), dev).sigmoid())
+    la, got = lk.render_loss_and_grad(scene, cam, 3, cfg, target, "mse")
+    lb, want = lk.render_loss_and_grad_plain(scene, cam, 3, cfg, target, "mse")
+    torch.testing.assert_close(la, lb, rtol=1e-5, atol=0)
+    _tables_agree(got, want)
+
+
+def test_generic_and_fused_gradients_agree(dev):
+    """Autograd through the differentiable frame (K1, K5) and the fused
+    step (K6) give the same loss and gradients."""
+    scene, cam, cfg = _grad_case(dev, "spheres_soft_smp2")
+    cfg = dataclasses.replace(cfg, pipeline="fused")
+    target = _randn((cfg.height, cfg.width, 3), dev).sigmoid()
+    params = {k: v.clone().requires_grad_() for k, v in inverse.extract_params(scene).items()}
+    before = (fk.LAUNCHES, fg.LAUNCHES)
+    loss = inverse.loss_fn(params, scene, cam, target, 3, cfg)
+    grads = torch.autograd.grad(loss, list(params.values()))
+    assert (fk.LAUNCHES, fg.LAUNCHES) == (before[0] + 1, before[1] + 1)
+    lf, (d_scene, _) = lk.loss_and_grad(scene, cam, 3, cfg, target=target, keys=tuple(params))
+    torch.testing.assert_close(lf, loss.detach(), rtol=1e-5, atol=0)
+    for k, g in zip(params, grads):
+        torch.testing.assert_close(d_scene[k], g, rtol=0, atol=1e-4 * g.abs().max().item())

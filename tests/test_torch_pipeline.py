@@ -161,11 +161,20 @@ def test_render_sequence_and_animation_equal_the_frame_loop():
     ],
 )
 def test_unported_branches_raise(kw, item):
+    """The branches of render_frame the port does not serve raise, naming
+    their ROADMAP item; the #9 branches (the differentiable frame) are
+    ported now and render (tests/test_torch_frame_grad.py holds them to
+    JAX)."""
     cfg = to_torch_config(RenderConfig(width=8, height=8, **kw))
     scene_t = to_torch_scene(default_scene())
     cam = to_torch_camera(CAM0)
+    hist = pipeline.init_history(cfg, cam)
+    if item == "#9":
+        img, _ = pipeline.render_frame(scene_t, cam, hist, 0, cfg)
+        assert img.shape == (8, 8, 3) and torch.isfinite(img).all()
+        return
     with pytest.raises(NotImplementedError, match=item):
-        pipeline.render_frame(scene_t, cam, pipeline.init_history(cfg, cam), 0, cfg)
+        pipeline.render_frame(scene_t, cam, hist, 0, cfg)
 
 
 def test_driver_unported_options_raise():

@@ -45,15 +45,15 @@ def _assert_scene_bitwise(a: Scene, b: Scene):
 @pytest.mark.parametrize(
     "build",
     [
-        lambda m: m.default_scene(),
-        lambda m: m.sphere_scene(**SPHERES),
-        lambda m: m.sphere_scene(**SPHERES, with_floor=False, kinds=[0, 1, 3],
-                                 iors=[1.5, 1.5, 1.33]),
+        lambda m, **dev: m.default_scene(**dev),
+        lambda m, **dev: m.sphere_scene(**SPHERES, **dev),
+        lambda m, **dev: m.sphere_scene(**SPHERES, with_floor=False, kinds=[0, 1, 3],
+                                        iors=[1.5, 1.5, 1.33], **dev),
     ],
     ids=["default", "spheres", "spheres_nofloor_bsdf"],
 )
 def test_native_scene_equals_converted_jax_scene(build):
-    native = build(scene)
+    native = build(scene, device="cpu")
     converted = to_torch_scene(build(jscene))
     _assert_scene_bitwise(native, converted)
     assert native.planes.dtype == torch.float32
@@ -93,7 +93,7 @@ def test_ray_dirs_match_jax(size):
     W, H = size
     cam = jcam.Camera.create(loc=(3.0, 2.0, -3.0), orient=(0.05, 0.7))
     np.testing.assert_array_equal(
-        np_(camera.ndc_grid(W, H)), np.asarray(jcam.ndc_grid(W, H))
+        np_(camera.ndc_grid(W, H, device="cpu")), np.asarray(jcam.ndc_grid(W, H))
     )
     np.testing.assert_allclose(
         np_(camera.ray_dirs(to_torch_camera(cam), W, H, 1.5)),
@@ -102,7 +102,7 @@ def test_ray_dirs_match_jax(size):
 
 
 def test_spline_cameras_match_jax():
-    ours = driver.spline_cameras(400)
+    ours = driver.spline_cameras(400, device="cpu")
     ref = jdriver.spline_cameras(400)
     np.testing.assert_allclose(np_(ours.loc), np.asarray(ref.loc), atol=2e-5)
     np.testing.assert_allclose(np_(ours.orient), np.asarray(ref.orient), atol=2e-6)
