@@ -12,7 +12,14 @@ it and read just after:
   the backward kernel K5; phase 10);
 - inverse rendering (`diff.inverse.run_recovery`, the JAX package's
   RECOVERY recipe, K1 + the fused loss-and-gradient kernel K6; phase 11),
-  held to its error bounds.
+  held to its error bounds;
+- the primary-visibility raycast (`ops.geometry_kernel.geometry_pass` at
+  1920×1080, K3; phase 13, held against its plain version and the G-buffer
+  module);
+- the multi-bounce path tracer (`render.wavefront.render_pathtraced` and
+  the `pathtrace` CLI at 1920×1080, 4 spp, depth 6, K7; phase 16), after
+  K7 is held against its plain version (phase 14) and against the port's
+  XLA-style integrator on the JAX package's config 3 (phase 15).
 
 Gradient tables are held to max|Δ| <= 1e-4·max|ref| of their plain
 versions: K5 and K6 at 256×128 with every pixel (phases 8-9), K6 (mean) at
@@ -34,12 +41,18 @@ of the path; the last line is `{"ok": true, "device": {...}}`.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
+import re
 import statistics
+import struct
 import subprocess
 import sys
+import tempfile
 import time
+import zlib
 
 import numpy as np
 import torch
@@ -93,18 +106,15 @@ def bound(flops: float, nbytes: float) -> tuple[float, str]:
 
 def frame_ops(scene, config, oid) -> float:
     """f32 operations of the fused frame (csrc/frame_core.cuh) on this
-    frame's data, counted from the source: raygen, the primary trace, normal
-    and material per pixel; per shaded pixel (a hit other than the light)
-    and sample, the direct light with its visibility test, the two plane
-    strategies per plane, and four roulettes, each a march to its plane and
-    a light test. A trace costs 12 per plane, 20 per sphere and 584 per
-    rounded box (6 faces × 8, 12 edges × 26, 8 corners × 28); an occlusion
-    test 20 + 12 per plane + 20 per sphere + 160 per box."""
+    frame's data, counted from the source: raygen, the primary trace
+    (`trace_ops`), normal and material per pixel; per shaded pixel (a hit
+    other than the light) and sample, the direct light with its visibility
+    test (`occlusion_ops`), the two plane strategies per plane, and four
+    roulettes, each a march to its plane and a light test."""
     from kylespathtracer_tpu_torch.ops import frame_kernel as fk
 
     nP, nS, nB = fk._counts(scene)
-    trace = 12 * nP + 20 * nS + 584 * nB
-    occl = 20 + 12 * nP + 20 * nS + 160 * nB
+    trace, occl = trace_ops(scene), occlusion_ops(scene)
     shaded = int(((oid > 0) & (oid != scene.light_id)).sum().item())
     smp = fk.smp_of(config)
     if config.biased:
@@ -113,6 +123,64 @@ def frame_ops(scene, config, oid) -> float:
     else:
         sample = 40 + occl + (occl + 10) / smp
     return oid.numel() * (65 + trace) + shaded * smp * sample
+
+
+def occlusion_ops(scene) -> int:
+    """f32 operations of one occlusion test toward the light
+    (csrc/shade_core.cuh:light_visible): 20 + 12 per plane + 20 per sphere
+    + 160 per rounded box."""
+    from kylespathtracer_tpu_torch.ops import frame_kernel as fk
+
+    nP, nS, nB = fk._counts(scene)
+    return 20 + 12 * nP + 20 * nS + 160 * nB
+
+
+def trace_ops(scene, inside_hits: bool = False) -> int:
+    """f32 operations of one nearest-hit trace (csrc/shade_core.cuh): 12 per
+    plane, 20 per sphere (23 with the far root of the path kernel's
+    inside-hit trace), 584 per rounded box (6 faces × 8, 12 edges × 26, 8
+    corners × 28)."""
+    from kylespathtracer_tpu_torch.ops import frame_kernel as fk
+
+    nP, nS, nB = fk._counts(scene)
+    return 12 * nP + (23 if inside_hits else 20) * nS + 584 * nB
+
+
+def geometry_ops(scene, pixels: int) -> int:
+    """K3 (csrc/geometry_kernel.cu): per pixel the raygen (~25), the trace
+    and the normal with the hit point (~40)."""
+    return pixels * (65 + trace_ops(scene))
+
+
+def path_ops(scene, pixel_samples: int, tally: dict) -> int:
+    """K7 (csrc/path_kernel.cu) on this run's data, from the plain version's
+    tally of the work (path_kernel.path_block): per pixel and sample the
+    raygen (~25); per traced segment the inside-hit trace; per segment that
+    hits, the vertex: the occlusion test toward the light (counted at
+    every vertex, though NEE skips the light itself), the normal (~25), the
+    material (~20), three R2 pairs (~78 integer operations), the light
+    sample (~60), the NEE pdf (~15), the BSDF evaluation (~20) and sample
+    (~50), and the path bookkeeping (~50)."""
+    return (pixel_samples * 25 + tally["traced"] * trace_ops(scene, inside_hits=True)
+            + tally["hits"] * (occlusion_ops(scene) + 318))
+
+
+def ptxas_lines(report: str, source: str) -> str:
+    """The registers/stack/spill lines of `source` in a verbose build report."""
+    part = report.split(f"--- {source}\n", 1)[1].split("\n--- ", 1)[0]
+    return "; ".join(ln.strip() for ln in part.splitlines()
+                     if re.search(r"Used \d+ registers|bytes stack frame", ln))
+
+
+def png_pixels(path) -> tuple[int, int, int]:
+    """(width, height, bytes of the decompressed IDAT) of a PNG written by
+    utils/image_io.save_png."""
+    data = open(path, "rb").read()
+    w, h = struct.unpack(">II", data[16:24])
+    n = struct.unpack(">I", data[33:37])[0]
+    if data[37:41] != b"IDAT":
+        raise AssertionError(f"{path}: no IDAT chunk after IHDR")
+    return w, h, len(zlib.decompress(data[41:41 + n]))
 
 
 def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
@@ -229,17 +297,20 @@ def main() -> int:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; this smoke run needs a GPU")
 
-    from kylespathtracer_tpu_torch.app import driver
+    from kylespathtracer_tpu_torch.app import cli, driver
     from kylespathtracer_tpu_torch.diff import inverse
     from kylespathtracer_tpu_torch.ops import _build
     from kylespathtracer_tpu_torch.ops import frame_grad as fg
     from kylespathtracer_tpu_torch.ops import frame_kernel as fk
+    from kylespathtracer_tpu_torch.ops import geometry_kernel as geo_k
     from kylespathtracer_tpu_torch.ops import loss_kernel as lk
+    from kylespathtracer_tpu_torch.ops import path_kernel as pk
     from kylespathtracer_tpu_torch.ops import reproject_kernel as rk
-    from kylespathtracer_tpu_torch.render import pipeline
+    from kylespathtracer_tpu_torch.render import gbuffer, pipeline, wavefront
     from kylespathtracer_tpu_torch.render.camera import Camera
     from kylespathtracer_tpu_torch.render.passes import Channel
     from kylespathtracer_tpu_torch.scene.scene import default_scene, sphere_scene
+    from kylespathtracer_tpu_torch.scene.types import BSDF
     from kylespathtracer_tpu_torch.utils.config import RenderConfig
 
     dev = torch.device("cuda")
@@ -251,9 +322,14 @@ def main() -> int:
 
     # Phase 1: build the kernels from the sources in the checkout.
     t0 = time.perf_counter()
-    path = _build.build(verbose=True)
+    report = io.StringIO()
+    with contextlib.redirect_stdout(report):
+        path = _build.build(verbose=True)
+    log(report.getvalue())
     _build.load()
     log(f"phase 1: built {path.name} in {time.perf_counter() - t0:.1f} s")
+    for label, source in (("K1", "frame_kernel.cu"), ("K3", "geometry_kernel.cu"), ("K7", "path_kernel.cu")):
+        log(f"  ptxas {label} ({source}): {ptxas_lines(report.getvalue(), source)}")
 
     def camera(yaw_step=0, device=dev):
         return Camera.create(
@@ -622,6 +698,99 @@ def main() -> int:
     log(f"  at {GW}x{GH}: K5 {k5_ms_s:.4f} ms, plain {k5_plain_ms_s:.4f} ms; K6 {k6_ms_s:.4f} ms, "
         f"plain {k6_plain_ms_s:.4f} ms [{card}]")
 
+    # Phase 13: the raycast (K3) at 1920x1080 against its plain version and
+    # the G-buffer module, then its time.
+    log(f"phase 13: geometry pass (K3), the raycast at {W}x{H} on the card")
+    geo_k.LAUNCHES = 0
+    geo = geo_k.geometry_pass(scene, camera(), 0, cfg)
+    torch.cuda.synchronize()
+    raycast_launches = geo_k.LAUNCHES
+    if raycast_launches != 1:
+        raise AssertionError(f"the raycast did not run through K3: {raycast_launches} launches")
+    geo_plain = geo_k.geometry_pass_plain(scene, camera(), 0, cfg)
+    k3_stats = geo_k.check_agreement(geo, geo_plain, f"K3 vs plain {W}x{H}")
+    log(f"  K3 vs plain: {k3_stats}")
+    gbuf = gbuffer.geometry_pass(scene, camera(), cfg)
+    gb_stats = geo_k.check_agreement(
+        geo, {"depth": gbuf.depth, "curv": gbuf.curv, "normal": gbuf.normal, "oid": gbuf.obj_id},
+        f"K3 vs gbuffer.geometry_pass {W}x{H}")
+    log(f"  K3 vs gbuffer.geometry_pass: {gb_stats}; hit share {(geo['oid'] > 0).float().mean().item():.4f}")
+    k3_err = max((geo[k] - geo_plain[k]).abs().max().item() for k in ("depth", "curv", "normal"))
+    k3_ms = cuda_ms(lambda: geo_k.geometry_pass(scene, camera(), 0, cfg), reps=20, warmup=2)
+    k3_plain_ms = cuda_ms(lambda: geo_k.geometry_pass_plain(scene, camera(), 0, cfg), reps=3)
+    log(f"  K3 {W}x{H}: {k3_ms:.4f} ms, plain {k3_plain_ms:.4f} ms; raycast_rays_per_s_1080p "
+        f"{W * H / k3_ms * 1e3:.1f} [{card}]")
+
+    # Phase 14: K7 against its plain version on the card.
+    log("phase 14: path kernel (K7) vs plain, on the card")
+    config3 = sphere_scene(  # bench_configs.py:282-289
+        [[-1.5, 1.0, 6.0], [1.5, 1.2, 6.5], [0.0, 0.8, 4.5]], [1.0, 1.2, 0.8],
+        [[0.9, 0.9, 0.9], [0.7, 0.8, 0.9], [0.9, 0.6, 0.5]],
+        kinds=[BSDF.MIRROR, BSDF.DIELECTRIC, BSDF.DIFFUSE], iors=[1.5, 1.5, 1.5], device=dev,
+    )
+    cam3 = Camera.create(loc=(0.0, 2.0, -2.0), orient=(-0.1, 0.0), device=dev)
+    cfg3 = RenderConfig(width=512, height=512, spp=4, max_depth=6)
+    k7_err, k7_images = 0.0, {}
+    for label, sc, cm, c in (("default_scene 256x128 spp 2", scene, camera(), RenderConfig(
+            width=256, height=128, spp=2, max_depth=6)), ("config 3 512x512 spp 4", config3, cam3, cfg3)):
+        pk.LAUNCHES = 0
+        img = pk.pathtrace(sc, cm, c, 0)
+        torch.cuda.synchronize()
+        if pk.LAUNCHES != 1:
+            raise AssertionError(f"K7 {label}: {pk.LAUNCHES} launches")
+        stats = pk.check_agreement(img, pk.pathtrace_plain(sc, cm, c, 0), f"K7 vs plain, {label}, depth 6")
+        tight = stats["median"] < 1e-6 and stats["beyond_1e-3"] < 0.002
+        log(f"  {label}, depth 6: {stats}; tests/test_path_kernel.py's bar (median < 1e-6, "
+            f"< 0.2% beyond 1e-3) {'met' if tight else 'not met'} (logged)")
+        k7_err, k7_images[label] = max(k7_err, stats["max"]), img
+
+    # Phase 15: config 3, K7 against the port's XLA-style integrator.
+    log("phase 15: config 3, K7 vs wavefront.pathtrace(path_backend='xla'), 512x512 spp 4 depth 6")
+    ref3 = wavefront.pathtrace(config3, cam3, dataclasses.replace(cfg3, path_backend="xla"), 0)
+    stats = pk.check_agreement(k7_images["config 3 512x512 spp 4"], ref3, "K7 vs xla, config 3", median=1e-4)
+    log(f"  bench_configs.py:306's criterion (finite, median < 1e-4, < 2% beyond 3e-2): {stats}")
+
+    # Phase 16: the slice at full width: bench.py's wavefront cell.
+    cfg_pt = RenderConfig(width=W, height=H, spp=4, max_depth=6)
+    log(f"phase 16: render_pathtraced and the pathtrace CLI at {W}x{H}, 4 spp, depth 6 (cell: "
+        "bench.py's wavefront cell, default scene, camera (3,2,-3) orient (0,0.7), frame 0)")
+    pk.LAUNCHES = 0
+    img = wavefront.render_pathtraced(scene, camera(), cfg_pt, 0)
+    torch.cuda.synchronize()
+    path_launches = pk.LAUNCHES
+    log(f"  render_pathtraced: launches {path_launches}; image {tuple(img.shape)} range "
+        f"[{img.min().item():.4f}, {img.max().item():.4f}], mean {img.mean().item():.4f}")
+    if path_launches != 1:
+        raise AssertionError(f"render_pathtraced did not run through K7 once: {path_launches}")
+    if img.shape != (H, W, 3) or not torch.isfinite(img).all() or img.min() < 0 or img.max() > 1:
+        raise AssertionError("render_pathtraced: image not finite in [0, 1] or of the wrong shape")
+    with tempfile.TemporaryDirectory() as tmp:
+        out_png = f"{tmp}/pathtrace.png"
+        pk.LAUNCHES = 0
+        said = io.StringIO()
+        with contextlib.redirect_stdout(said):
+            cli.main(["pathtrace", "--width", str(W), "--height", str(H), "--out", out_png])
+        cli_launches = pk.LAUNCHES
+        rec = json.loads(said.getvalue().strip().splitlines()[-1])
+        pw, ph, idat = png_pixels(out_png)
+    log(f"  cli pathtrace: launches {cli_launches}; said {rec}; PNG {pw}x{ph}, IDAT {idat} bytes")
+    if cli_launches != 1 or (rec["depth"], rec["spp"]) != (6, 4):
+        raise AssertionError(f"the pathtrace CLI did not run through K7 at depth 6, 4 spp: {cli_launches}, {rec}")
+    if (pw, ph, idat) != (W, H, H * (1 + W * 3)):
+        raise AssertionError(f"the pathtrace CLI's PNG is {pw}x{ph} with {idat} IDAT bytes")
+    k7_ms = cuda_ms(lambda: pk.pathtrace(scene, camera(), cfg_pt, 0), reps=5)
+    k7_plain_ms = cuda_ms(lambda: pk.pathtrace_plain(scene, camera(), cfg_pt, 0), reps=1)
+    tally = {}
+    ref_pt = pk.pathtrace_plain(scene, camera(), cfg_pt, 0, tally=tally)
+    stats = pk.check_agreement(pk.pathtrace(scene, camera(), cfg_pt, 0), ref_pt, f"K7 vs plain {W}x{H}")
+    log(f"  K7 vs plain, {W}x{H} 4 spp depth 6: {stats}")
+    k7_err = max(k7_err, stats["max"])
+    segments = W * H * cfg_pt.spp * cfg_pt.max_depth
+    log(f"  K7 {W}x{H} 4 spp depth 6: {k7_ms:.4f} ms, plain {k7_plain_ms:.4f} ms; "
+        f"wavefront_segments_per_s_1080p {segments / k7_ms * 1e3:.1f} [{card}]")
+    log(f"  path work on this data: {tally['traced']} segments traced ({tally['traced'] / segments:.4f} "
+        f"of W·H·spp·depth = {segments}), {tally['hits']} vertices shaded")
+
     # Bounds, from this run's inputs (frame_ops, bound).
     ops1 = frame_ops(scene, cfg, ref["oid"])
     tab_bytes = sum(t.numel() * t.element_size() for t in fk.pack_tables(scene, camera()))
@@ -632,9 +801,16 @@ def main() -> int:
     # (reverse mode); K6 adds the composite and the loss (~120 per pixel).
     k5_bound = bound(3 * ops1, tab_bytes + sum(v.numel() * 4 for v in g_all.values()))
     k6_bound = bound(3 * (ops1 + 120 * W * H), tab_bytes)
+    ops3 = geometry_ops(scene, W * H)
+    k3_bound = bound(ops3, tab_bytes + W * H * (5 * 4 + 4))
+    ops7 = path_ops(scene, W * H * cfg_pt.spp, tally)
+    k7_bound = bound(ops7, tab_bytes + sum(t.numel() * t.element_size() for t in pk._tables(scene))
+                     + W * H * 3 * 4)
     log(f"  bounds at {W}x{H}: K1 {k1_bound[0]:.4f} ms ({k1_bound[1]}, {ops1 / 1e9:.3f} GFLOP), "
         f"K2 {k2_bound[0]:.4f} ms ({k2_bound[1]}), K5 {k5_bound[0]:.4f} ms ({k5_bound[1]}), "
-        f"K6 {k6_bound[0]:.4f} ms ({k6_bound[1]})")
+        f"K6 {k6_bound[0]:.4f} ms ({k6_bound[1]}), K3 {k3_bound[0]:.4f} ms ({k3_bound[1]}, "
+        f"{ops3 / 1e9:.3f} GFLOP, {(W * H * 24) / 1e6:.1f} MB out), K7 {k7_bound[0]:.4f} ms "
+        f"({k7_bound[1]}, {ops7 / 1e9:.3f} GFLOP on this data's segments)")
 
     def entry(name, source, replaces, launches, err, ms, plain_ms, bnd):
         return {"name": name, "route": "cuda", "source": f"kylespathtracer_tpu_torch/csrc/{source}",
@@ -651,6 +827,10 @@ def main() -> int:
               k5_err, k5_ms, k5_plain_ms, k5_bound),
         entry("render_loss_and_grad", "loss_kernel.cu", "loss_kernel.py:216",
               rec_launches["loss"], k6_err, k6_ms, k6_plain_ms, k6_bound),
+        entry("geometry_pass", "geometry_kernel.cu", "frame_kernel.py:494", raycast_launches,
+              k3_err, k3_ms, k3_plain_ms, k3_bound),
+        entry("pathtrace", "path_kernel.cu", "path_kernel.py:469", path_launches,
+              k7_err, k7_ms, k7_plain_ms, k7_bound),
     ]
     log(card_line())
     log(json.dumps({"kernels": kernels}))

@@ -40,8 +40,25 @@ def normalize_fast(v: torch.Tensor) -> torch.Tensor:
     return v * torch.reciprocal(torch.sqrt((v * v).sum(-1, keepdim=True)))
 
 
+def reflect(i: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
+    """GLSL reflect: i - 2*dot(n,i)*n."""
+    return i - 2.0 * (n * i).sum(-1, keepdim=True) * n
+
+
 def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.linalg.cross(a, b, dim=-1)
+
+
+def basis(n: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Branchless orthonormal basis around unit n → (f, r)
+    (reference: common.glsl:53-59)."""
+    nx, ny, nz = n[..., 0], n[..., 1], n[..., 2]
+    s = torch.where(nz >= 0.0, 1.0, -1.0)
+    a = 1.0 / (s + nz)
+    b = -nx * ny * a
+    f = torch.stack([1.0 - nx * nx * a * s, b * s, -nx * s], dim=-1)
+    r = torch.stack([b, s - ny * ny * a, -ny], dim=-1)
+    return f, r
 
 
 def rotate_xy(p: torch.Tensor, angle: torch.Tensor) -> torch.Tensor:
@@ -57,6 +74,28 @@ def rotate_xy(p: torch.Tensor, angle: torch.Tensor) -> torch.Tensor:
     x2 = x * cy + z1 * sy
     z2 = -x * sy + z1 * cy
     return torch.stack([x2, y2, z2], dim=-1)
+
+
+def powi(x: torch.Tensor, n: int) -> torch.Tensor:
+    """x**n by squaring for a static integer n, in the JAX package's
+    multiplication order."""
+    n = int(n)
+    acc = None
+    base = x
+    while n:
+        if n & 1:
+            acc = base if acc is None else acc * base
+        n >>= 1
+        if n:
+            base = base * base
+    return acc if acc is not None else torch.ones_like(x)
+
+
+def pow_static(x: torch.Tensor, e) -> torch.Tensor:
+    """x**e, using `powi` when e is a static integral number."""
+    if isinstance(e, (int, float)) and float(e).is_integer():
+        return powi(x, int(e))
+    return x ** e
 
 
 def mix(a, b, t):

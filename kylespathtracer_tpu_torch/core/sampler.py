@@ -2,8 +2,10 @@
 
 Port of kylespathtracer_tpu/core/sampler.py (reference: common.glsl:39-51).
 int32 `*`, `+` and `<<` wrap in two's complement on torch tensors exactly
-as in jnp. torch has no uint32 `>>` on the CPU, so the PCG hash runs in
-int64 with `& 0xFFFFFFFF` after every step that can leave 32 bits.
+as in jnp. torch has no uint32 `>>` on the CPU, so the PCG hash and the R2
+sampler run in int64 with `& 0xFFFFFFFF` after every step that can leave
+32 bits; a product of two 32-bit words goes through `_mul32`, which never
+leaves int64's range.
 """
 
 from __future__ import annotations
@@ -33,6 +35,19 @@ def weyl3(v: torch.Tensor) -> torch.Tensor:
     return prod - torch.floor(prod)
 
 
+# R2 lattice constants round(2^32 / phi2^k), phi2 the plastic constant.
+_R2_A1 = 3242174889
+_R2_A2 = 2447445413
+
+
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """(x·c) mod 2^32 for x in [0, 2^32) held in int64 and a constant c in
+    [0, 2^32), in two 16-bit halves of c so no product passes 2^48."""
+    lo = x * (c & 0xFFFF)
+    hi = ((x * (c >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & _M32
+
+
 def pcg_hash(x: torch.Tensor) -> torch.Tensor:
     """PCG-RXS-M-XS over uint32, carried in int64 → int64 in [0, 2^32)."""
     x = x.to(torch.int64) & _M32
@@ -56,3 +71,24 @@ def fold_seed(seed: torch.Tensor, i: int, decorrelate: bool = False
         return seed + i
     mixed = (seed.to(torch.int64) & _M32) ^ ((i * 0x9E3779B9) & _M32)
     return _to_int32(pcg_hash(mixed))
+
+
+def r2_pair(n: torch.Tensor, stream: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The n-th point of the 2D R2 sequence, PCG-rotated per stream → two
+    f32 uniforms in [0, 1). n and stream hold uint32 bit patterns (any
+    integer dtype; int32 is reinterpreted). The low 8 bits are dropped
+    before the exact 24-bit conversion, so u never reaches 1."""
+    n = n.to(torch.int64) & _M32
+    rot1 = pcg_hash(stream)
+    rot2 = pcg_hash(rot1 ^ 0x9E3779B9)
+    u1 = ((_mul32(n, _R2_A1) + rot1) & _M32) >> 8
+    u2 = ((_mul32(n, _R2_A2) + rot2) & _M32) >> 8
+    return u1.to(torch.float32) * 2.0**-24, u2.to(torch.float32) * 2.0**-24
+
+
+def pixel_stream(px: torch.Tensor, py: torch.Tensor, width: int, pair) -> torch.Tensor:
+    """Stream id of (pixel, dimension pair): (py·width + px)·0x85EBCA6B +
+    pair in uint32, held in int64."""
+    pid = (_mul32(py.to(torch.int64) & _M32, int(width) & _M32)
+           + (px.to(torch.int64) & _M32)) & _M32
+    return (_mul32(pid, 0x85EBCA6B) + (int(pair) & _M32)) & _M32

@@ -93,12 +93,12 @@ __device__ void normal_curv(const Tables& T, V3T<S> hl, int ho, V3T<S>& n, S& c)
   }
 }
 
-// The 13 float planes (add_d 3, add_s 3, alb 3, ene 2, depth, curv) and the
-// object ID of image pixel (px, py); py counts from the image bottom.
+// The primary ray of image pixel (px, py), py counting from the image
+// bottom (geometry.frag:38-39,67): aspect-scaled NDC, rsqrt normalize,
+// pitch/yaw rotation.
 template <typename S>
-__device__ void frame_pixel(const Tables& T, const FrameParams& P, int px, int py, S out[13], int& oid_out) {
-  // Raygen (geometry.frag:38-39,67): aspect-scaled NDC, rsqrt normalize,
-  // pitch/yaw rotation.
+__device__ __forceinline__ void primary_ray(const Tables& T, const FrameParams& P, int px, int py, V3T<S>& ro,
+                                            V3T<S>& rd) {
   const float asp = (float)((double)P.width / (double)P.height);
   const float xf = (2.0f * ((float)px + 0.5f) / (float)P.width - 1.0f) * asp;
   const float yf = 2.0f * ((float)py + 0.5f) / (float)P.height - 1.0f;
@@ -110,8 +110,16 @@ __device__ void frame_pixel(const Tables& T, const FrameParams& P, int px, int p
   const S cy = cosf(o1), sy = sinf(o1);
   const S y2 = dy * cx + dz * sx;
   const S z1 = -dy * sx + dz * cx;
-  const V3T<S> rd = mk(dx * cy + z1 * sy, y2, -dx * sy + z1 * cy);
-  const V3T<S> ro = mk(tab<S>(T, T.cam), tab<S>(T, T.cam + 1), tab<S>(T, T.cam + 2));
+  rd = mk(dx * cy + z1 * sy, y2, -dx * sy + z1 * cy);
+  ro = mk(tab<S>(T, T.cam), tab<S>(T, T.cam + 1), tab<S>(T, T.cam + 2));
+}
+
+// The 13 float planes (add_d 3, add_s 3, alb 3, ene 2, depth, curv) and the
+// object ID of image pixel (px, py); py counts from the image bottom.
+template <typename S>
+__device__ void frame_pixel(const Tables& T, const FrameParams& P, int px, int py, S out[13], int& oid_out) {
+  V3T<S> ro, rd;
+  primary_ray(T, P, px, py, ro, rd);
 
   // Per-pixel Weyl seed (common.glsl:39-41), int32 wraparound via uint32.
   const uint32_t upx = (uint32_t)px, upy = (uint32_t)py;

@@ -136,14 +136,18 @@ __device__ __forceinline__ void weyl3(int seed, float u[3]) {
   }
 }
 
+// core/sampler.pcg_hash: PCG-RXS-M-XS over a 32-bit LCG state.
+__device__ __forceinline__ uint32_t pcg_hash(uint32_t x) {
+  uint32_t state = x * 747796405u + 2891336453u;
+  uint32_t shift = (state >> 28) + 4u;
+  uint32_t word = ((state >> shift) ^ state) * 277803737u;
+  return (word >> 22) ^ word;
+}
+
 // core/sampler.fold_seed: seed + i, or the PCG hash of (seed, i).
 __device__ __forceinline__ int fold_seed(int seed, int i, bool decorrelate) {
   if (!decorrelate || i == 0) return (int)((uint32_t)seed + (uint32_t)i);
-  uint32_t mixed = (uint32_t)seed ^ ((uint32_t)i * 0x9E3779B9u);
-  uint32_t state = mixed * 747796405u + 2891336453u;
-  uint32_t shift = (state >> 28) + 4u;
-  uint32_t word = ((state >> shift) ^ state) * 277803737u;
-  return (int)((word >> 22) ^ word);
+  return (int)pcg_hash((uint32_t)seed ^ ((uint32_t)i * 0x9E3779B9u));
 }
 
 struct Pre {
@@ -235,8 +239,24 @@ __device__ __forceinline__ S sphere_t(const Tables& T, int s, V3T<S> o, V3T<S> d
   return -b - sqrtf(fmaxf(ds, 1e-12f));
 }
 
-// Nearest hit → (t, oid) over planes, spheres and rounded boxes.
-template <typename S>
+// sphere_t with the far root where the near one is not ahead of the ray:
+// a ray starting inside the sphere exits through its far surface.
+__device__ __forceinline__ float sphere_t_far(const Tables& T, int s, V3 o, V3 d, float& disc) {
+  const float* C = T.f + T.spheres + s * 4;
+  V3 oc = mk(o.x - C[0], o.y - C[1], o.z - C[2]);
+  float b = dot(oc, d);
+  float c2 = dot(oc, oc) - C[3] * C[3];
+  disc = b * b - c2;
+  float sq = sqrtf(fmaxf(disc, 1e-12f));
+  float t = -b - sq;
+  return t > 0.0f ? t : -b + sq;
+}
+
+// Nearest hit → (t, oid) over planes, spheres and rounded boxes. With
+// INSIDE_HITS (float only: the path kernel's dielectric continuation rays)
+// a sphere is hit at its far root from inside; the default instantiation is
+// the frame kernels' trace.
+template <typename S, bool INSIDE_HITS = false>
 __device__ void trace(const Tables& T, V3T<S> ro, V3T<S> rd, int excl, S& t_out, int& id_out) {
   S best_t = INF_T;
   int best_id = 0;
@@ -253,7 +273,12 @@ __device__ void trace(const Tables& T, V3T<S> ro, V3T<S> rd, int excl, S& t_out,
   }
   for (int s = 0; s < T.nS; ++s) {
     float disc;
-    S t = sphere_t(T, s, ro, rd, disc);
+    S t;
+    if constexpr (INSIDE_HITS) {
+      t = sphere_t_far(T, s, ro, rd, disc);
+    } else {
+      t = sphere_t(T, s, ro, rd, disc);
+    }
     consider(t, T.sphere_ids[s], disc > 0.0f);
   }
   for (int bx = 0; bx < T.nB; ++bx) {

@@ -24,16 +24,20 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("frame_kernel.cu", "reproject_kernel.cu", "frame_grad.cu", "loss_kernel.cu")
+SOURCES = ("frame_kernel.cu", "reproject_kernel.cu", "frame_grad.cu", "loss_kernel.cu",
+           "geometry_kernel.cu", "path_kernel.cu")
 HEADERS = ("dual.cuh", "shade_core.cuh", "frame_core.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC",
 )
-# The gradient kernels round every operation on its own, as their plain
-# versions (one tensor op at a time) do. With nvcc's default contraction, K5
-# no longer meets chip_smoke.py phase 8's bar on the default scene.
-SOURCE_FLAGS = {"frame_grad.cu": ("-fmad=false",), "loss_kernel.cu": ("-fmad=false",)}
+# These kernels round every operation on its own, as their plain versions
+# (one tensor op at a time) do. With nvcc's default contraction, K5 no
+# longer meets chip_smoke.py phase 8's bar on the default scene; in the path
+# kernel a contracted multiply-add can flip a sampling decision, which
+# changes the whole path after it.
+SOURCE_FLAGS = {name: ("-fmad=false",) for name in (
+    "frame_grad.cu", "loss_kernel.cu", "geometry_kernel.cu", "path_kernel.cu")}
 
 _lock = threading.Lock()
 _lib = None
@@ -65,6 +69,13 @@ _SIGNATURES = {
     "kpt_loss_grad": (
         _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I,
         _I, _I, _I, _F, _I, _F, _I, _P, _P, _P, _P,
+    ),
+    # ftab, itab, nP, nS, nB, nK, width, height, fov, out_f, out_oid, stream
+    "kpt_geometry_pass": (_P, _P, _I, _I, _I, _I, _I, _I, _F, _P, _P, _P),
+    # ftab, itab, kinds, iors, nP, nS, nB, nK, width, height, fov, frame,
+    # spp, max_depth, gloss, out, stream
+    "kpt_pathtrace": (
+        _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _I, _P, _P,
     ),
 }
 

@@ -126,9 +126,11 @@ def _powi(x, n: int):
 
 # ----------------------------------------------------------- intersection
 
-def _trace(sc, ro, rd, excl, nP, nS, nB):
+def _trace(sc, ro, rd, excl, nP, nS, nB, inside_hits=False):
     """Nearest hit → (t, oid) over planes, spheres and rounded boxes
-    (26 candidates each: 6 faces, 12 edge cylinders, 8 corner spheres)."""
+    (26 candidates each: 6 faces, 12 edge cylinders, 8 corner spheres).
+    `inside_hits`: a ray that starts inside a sphere hits its far surface
+    instead of missing (the path kernel's dielectric continuation rays)."""
     best_t = torch.full_like(ro[0], _INF)
     best_id = torch.zeros_like(excl)
 
@@ -143,7 +145,7 @@ def _trace(sc, ro, rd, excl, nP, nS, nB):
         consider(t, sc["plane_ids"][p, 0], valid)
 
     for s in range(nS):
-        t, disc = _sphere_t(sc, s, ro, rd)
+        t, disc = _sphere_t(sc, s, ro, rd, inside_hits)
         consider(t, sc["sphere_ids"][s, 0], disc > 0)
 
     for bx in range(nB):
@@ -209,14 +211,19 @@ def _plane_t(sc, p, o, d):
     return t, denom < -1e-7
 
 
-def _sphere_t(sc, s, o, d):
-    """Raw near-root t of sphere s and its discriminant."""
+def _sphere_t(sc, s, o, d, far=False):
+    """Raw near-root t of sphere s and its discriminant; with `far`, the far
+    root where the near one is not ahead of the ray."""
     oc = tuple(o[k] - sc["spheres"][s, k] for k in range(3))
     r = sc["spheres"][s, 3]
     b = _dot(oc, d)
     c2 = _dot(oc, oc) - r * r
     disc = b * b - c2
-    return -b - torch.sqrt(torch.clamp(disc, min=1e-12)), disc
+    sq = torch.sqrt(torch.clamp(disc, min=1e-12))
+    t = -b - sq
+    if far:
+        t = torch.where(t > 0, t, -b + sq)
+    return t, disc
 
 
 # ------------------------------------------------- occlusion-only tests

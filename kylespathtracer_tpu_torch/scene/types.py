@@ -70,6 +70,19 @@ class Materials:
         return _map_tensors(self, lambda t: t.to(device))
 
 
+def bsdf_table(materials: Materials) -> tuple[torch.Tensor, torch.Tensor]:
+    """(bsdf[K] i32, ior[K] f32) with all-diffuse / ior-1.5 defaults."""
+    k = materials.num_ids
+    dev = materials.s0.device
+    b = materials.bsdf
+    if b is None:
+        b = torch.zeros((k,), dtype=torch.int32, device=dev)
+    i = materials.ior
+    if i is None:
+        i = torch.full((k,), 1.5, dtype=torch.float32, device=dev)
+    return b, i
+
+
 @dataclasses.dataclass(frozen=True)
 class Scene:
     """Analytic scene: P planes, S spheres, B rounded boxes, materials."""

@@ -68,3 +68,42 @@ def to_torch_config(cfg):
 def np_(t) -> np.ndarray:
     """A torch tensor or JAX array as a numpy array."""
     return t.detach().cpu().numpy() if hasattr(t, "detach") else np.asarray(t)
+
+
+def _default_path_case():
+    from kylespathtracer_tpu.render.camera import Camera
+    from kylespathtracer_tpu.scene import default_scene
+    from kylespathtracer_tpu.utils.config import RenderConfig
+
+    cam = Camera.create(loc=(3.0, 2.0, -3.0), orient=(0.0, 0.7))
+    return default_scene(), cam, RenderConfig(width=64, height=48, spp=2, max_depth=3)
+
+
+def _dielectric_path_case():
+    """The dielectric sphere scene of tests/test_path_kernel.py:49-56."""
+    from kylespathtracer_tpu.render.camera import Camera
+    from kylespathtracer_tpu.scene.scene import sphere_scene
+    from kylespathtracer_tpu.utils.config import RenderConfig
+
+    scene = sphere_scene(
+        centers=[[0.0, 1.0, 6.0], [2.0, 1.2, 7.0], [-2.0, 1.0, 6.5]],
+        radii=[1.0, 0.8, 0.9],
+        albedos=[[0.7, 0.3, 0.2], [0.9, 0.9, 0.9], [0.95, 0.95, 0.95]],
+        kinds=[0, 2, 3],  # diffuse, mirror, dielectric
+    )
+    cam = Camera.create(loc=(0.0, 2.0, 0.0), orient=(0.0, 0.0))
+    return scene, cam, RenderConfig(width=48, height=32, spp=2, max_depth=4)
+
+
+# The path tracer's JAX comparison cases, as tests/test_path_kernel.py runs
+# them: (JAX scene, JAX camera, JAX RenderConfig).
+PATH_CASES = {"default": _default_path_case, "dielectric": _dielectric_path_case}
+
+
+def assert_path_bar(img, ref) -> None:
+    """tests/test_path_kernel.py:38-41: finite, median |Δ| < 1e-6, under
+    0.2% of the components beyond 1e-3."""
+    d = np.abs(img - ref)
+    assert np.isfinite(img).all()
+    assert np.median(d) < 1e-6
+    assert (d > 1e-3).mean() < 0.002, f"{(d > 1e-3).mean():.3%} differ"

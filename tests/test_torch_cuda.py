@@ -16,12 +16,15 @@ import torch
 from kylespathtracer_tpu_torch.diff import inverse
 from kylespathtracer_tpu_torch.ops import frame_grad as fg
 from kylespathtracer_tpu_torch.ops import frame_kernel as fk
+from kylespathtracer_tpu_torch.ops import geometry_kernel as gk
 from kylespathtracer_tpu_torch.ops import loss_kernel as lk
+from kylespathtracer_tpu_torch.ops import path_kernel as pk
 from kylespathtracer_tpu_torch.ops import reproject_kernel as rk
-from kylespathtracer_tpu_torch.render import pipeline
+from kylespathtracer_tpu_torch.render import gbuffer, pipeline, wavefront
 from kylespathtracer_tpu_torch.render.camera import Camera
 from kylespathtracer_tpu_torch.render.passes import Channel
 from kylespathtracer_tpu_torch.scene.scene import default_scene, sphere_scene
+from kylespathtracer_tpu_torch.scene.types import BSDF
 from kylespathtracer_tpu_torch.utils.config import RenderConfig
 
 pytestmark = pytest.mark.cuda
@@ -212,3 +215,64 @@ def test_generic_and_fused_gradients_agree(dev):
     torch.testing.assert_close(lf, loss.detach(), rtol=1e-5, atol=0)
     for k, g in zip(params, grads):
         torch.testing.assert_close(d_scene[k], g, rtol=0, atol=1e-4 * g.abs().max().item())
+
+
+@pytest.mark.parametrize("case", ["default", "spheres"])
+def test_geometry_kernel_matches_plain(dev, case):
+    """K3 against its plain version (chip_smoke.py phase 13's bars): oid on
+    >= 99.9% of the pixels; on equal oid depth and curv relative 1e-4, the
+    normal 1e-5; misses bitwise; the G-buffer module's hits agree."""
+    scene = _spheres(dev) if case == "spheres" else default_scene(device=dev)
+    cam = Camera.create(loc=(3.0, 2.0, -3.0), orient=(0.0, 0.7), device=dev)
+    cfg = RenderConfig(width=160, height=96)
+    before = gk.LAUNCHES
+    out = gk.geometry_pass(scene, cam, 0, cfg)
+    torch.cuda.synchronize()
+    assert gk.LAUNCHES == before + 1
+    gk.check_agreement(out, gk.geometry_pass_plain(scene, cam, 0, cfg), case)
+    g = gbuffer.geometry_pass(scene, cam, cfg)
+    assert (g.obj_id == out["oid"]).float().mean().item() >= 0.999
+
+
+def _config3(dev):
+    """bench_configs.py:282-289: mirror, dielectric and diffuse spheres."""
+    scene = sphere_scene(
+        [[-1.5, 1.0, 6.0], [1.5, 1.2, 6.5], [0.0, 0.8, 4.5]], [1.0, 1.2, 0.8],
+        [[0.9, 0.9, 0.9], [0.7, 0.8, 0.9], [0.9, 0.6, 0.5]],
+        kinds=[BSDF.MIRROR, BSDF.DIELECTRIC, BSDF.DIFFUSE], iors=[1.5, 1.5, 1.5], device=dev,
+    )
+    return scene, Camera.create(loc=(0.0, 2.0, -2.0), orient=(-0.1, 0.0), device=dev)
+
+
+def _glossy(dev):
+    """The dielectric scene of tests/test_path_kernel.py with a glossy,
+    a mirror and a dielectric sphere."""
+    scene = sphere_scene(
+        [[0.0, 1.0, 6.0], [2.0, 1.2, 7.0], [-2.0, 1.0, 6.5]], [1.0, 0.8, 0.9],
+        [[0.7, 0.3, 0.2], [0.9, 0.9, 0.9], [0.95, 0.95, 0.95]],
+        kinds=[BSDF.GLOSSY, BSDF.MIRROR, BSDF.DIELECTRIC], device=dev,
+    )
+    return scene, Camera.create(loc=(0.0, 2.0, 0.0), orient=(0.0, 0.0), device=dev)
+
+
+@pytest.mark.parametrize("case", ["default", "config3", "glossy"])
+def test_path_kernel_matches_plain(dev, case):
+    """K7 against its plain version at tests/test_pallas_small.py:340-341's
+    bar (finite, median |Δ| < 1e-5, under 2% beyond 3e-2)."""
+    if case == "config3":
+        scene, cam = _config3(dev)
+    elif case == "glossy":
+        scene, cam = _glossy(dev)
+    else:
+        scene = default_scene(device=dev)
+        cam = Camera.create(loc=(3.0, 2.0, -3.0), orient=(0.0, 0.7), device=dev)
+    cfg = RenderConfig(width=96, height=64, spp=2, max_depth=6)
+    before = pk.LAUNCHES
+    img = wavefront.pathtrace(scene, cam, cfg, 1)
+    torch.cuda.synchronize()
+    assert pk.LAUNCHES == before + 1
+    pk.check_agreement(img, pk.pathtrace_plain(scene, cam, cfg, 1), case)
+    for backend in ("auto", "pallas"):
+        wavefront.pathtrace(scene, cam, dataclasses.replace(cfg, path_backend=backend), 1)
+    assert pk.LAUNCHES == before + 3
+
