@@ -19,7 +19,14 @@ it and read just after:
 - the multi-bounce path tracer (`render.wavefront.render_pathtraced` and
   the `pathtrace` CLI at 1920×1080, 4 spp, depth 6, K7; phase 16), after
   K7 is held against its plain version (phase 14) and against the port's
-  XLA-style integrator on the JAX package's config 3 (phase 15).
+  XLA-style integrator on the JAX package's config 3 (phase 15);
+- the mono temporal frame (`render_animation` at 1920×1080 with
+  temporal_fusion="mono", K8 alone; phase 18), after K8 is held against
+  its plain version at 1080p (phase 17);
+- the pass pipeline (`render_animation` at 1920×1080 with pipeline="pass",
+  shade_backend="pallas", the shade kernel K4; phase 20), after K4 is held
+  against its plain version at 1080p (phase 19), and the `render` CLI at
+  1920×1080 (its fused default, K1 + K2) and at 256×128 (`--pipeline pass`).
 
 Gradient tables are held to max|Δ| <= 1e-4·max|ref| of their plain
 versions: K5 and K6 at 256×128 with every pixel (phases 8-9), K6 (mean) at
@@ -107,22 +114,36 @@ def bound(flops: float, nbytes: float) -> tuple[float, str]:
 def frame_ops(scene, config, oid) -> float:
     """f32 operations of the fused frame (csrc/frame_core.cuh) on this
     frame's data, counted from the source: raygen, the primary trace
-    (`trace_ops`), normal and material per pixel; per shaded pixel (a hit
-    other than the light) and sample, the direct light with its visibility
-    test (`occlusion_ops`), the two plane strategies per plane, and four
-    roulettes, each a march to its plane and a light test."""
+    (`trace_ops`), normal and material per pixel, and the shade
+    (`shade_ops`)."""
+    from kylespathtracer_tpu_torch.ops import frame_kernel as fk
+
+    return oid.numel() * (65 + trace_ops(scene)) + shade_ops(scene, config, oid, fk.smp_of(config))
+
+
+def shade_ops(scene, config, oid, smp: int) -> float:
+    """f32 operations of the shade (csrc/shade_core.cuh) on this frame's
+    data: per shaded pixel (a hit other than the light) and sample, the
+    direct light with its visibility test (`occlusion_ops`), the two plane
+    strategies per plane, and four roulettes, each a march to its plane and
+    a light test."""
     from kylespathtracer_tpu_torch.ops import frame_kernel as fk
 
     nP, nS, nB = fk._counts(scene)
     trace, occl = trace_ops(scene), occlusion_ops(scene)
     shaded = int(((oid > 0) & (oid != scene.light_id)).sum().item())
-    smp = fk.smp_of(config)
     if config.biased:
         direct = 60 + (trace + 30 * nS if config.soft_shadows > 0 else occl)
         sample = direct + 150 * nP + 4 * (2 * nP + 2 * occl + 65)
     else:
         sample = 40 + occl + (occl + 10) / smp
-    return oid.numel() * (65 + trace) + shaded * smp * sample
+    return shaded * smp * sample
+
+
+# K8's per-pixel work beyond K1's frame (csrc/frame_hist.cu): the anchors
+# (~30), and per channel set the previous-camera projection (~45), the four
+# taps (~10 each) and the count floor, clamp and accumulate (~15).
+HIST_OPS = 30 + 2 * (45 + 4 * 10 + 15)
 
 
 def occlusion_ops(scene) -> int:
@@ -301,12 +322,14 @@ def main() -> int:
     from kylespathtracer_tpu_torch.diff import inverse
     from kylespathtracer_tpu_torch.ops import _build
     from kylespathtracer_tpu_torch.ops import frame_grad as fg
+    from kylespathtracer_tpu_torch.ops import frame_hist as fh
     from kylespathtracer_tpu_torch.ops import frame_kernel as fk
     from kylespathtracer_tpu_torch.ops import geometry_kernel as geo_k
     from kylespathtracer_tpu_torch.ops import loss_kernel as lk
     from kylespathtracer_tpu_torch.ops import path_kernel as pk
     from kylespathtracer_tpu_torch.ops import reproject_kernel as rk
-    from kylespathtracer_tpu_torch.render import gbuffer, pipeline, wavefront
+    from kylespathtracer_tpu_torch.ops import shade_kernel as sk
+    from kylespathtracer_tpu_torch.render import gbuffer, mis, passes, pipeline, wavefront
     from kylespathtracer_tpu_torch.render.camera import Camera
     from kylespathtracer_tpu_torch.render.passes import Channel
     from kylespathtracer_tpu_torch.scene.scene import default_scene, sphere_scene
@@ -328,7 +351,8 @@ def main() -> int:
     log(report.getvalue())
     _build.load()
     log(f"phase 1: built {path.name} in {time.perf_counter() - t0:.1f} s")
-    for label, source in (("K1", "frame_kernel.cu"), ("K3", "geometry_kernel.cu"), ("K7", "path_kernel.cu")):
+    for label, source in (("K1", "frame_kernel.cu"), ("K3", "geometry_kernel.cu"), ("K7", "path_kernel.cu"),
+                          ("K8", "frame_hist.cu"), ("K4", "shade_kernel.cu")):
         log(f"  ptxas {label} ({source}): {ptxas_lines(report.getvalue(), source)}")
 
     def camera(yaw_step=0, device=dev):
@@ -416,44 +440,49 @@ def main() -> int:
 
     # Phase 5: the card against the plain path on the CPU.
     log("phase 5: 3 pan frames at 256x128, card vs CPU plain path")
-    small = RenderConfig(width=256, height=128, pipeline="fused")
-    res = {}
-    for d in (dev, torch.device("cpu")):
-        sc = default_scene(device=d)
-        h = pipeline.init_history(small, camera(0, d))
-        for i in range(3):
-            img, h = pipeline.render_frame(sc, camera(i, d), h, i, small)
-        res[d.type] = (img.cpu(), h.to("cpu"))
-    (img_g, h_g), (img_c, h_c) = res["cuda"], res["cpu"]
-    items = {"cnt d": (h_g.diffuse.cnt, h_c.diffuse.cnt),
-             "cnt s": (h_g.specular.cnt, h_c.specular.cnt)}
-    for c in range(3):
-        items[f"image.{c}"] = (img_g[..., c], img_c[..., c])
-        items[f"rgb d.{c}"] = (h_g.diffuse.rgb[..., c], h_c.diffuse.rgb[..., c])
-        items[f"rgb s.{c}"] = (h_g.specular.rgb[..., c], h_c.specular.rgb[..., c])
-    for label, (a, b) in items.items():
-        # Per plane: median |d| <= 1e-5 and <= 1e-3 of the components beyond
-        # 1e-3*max(1,|ref|) (after 3 frames the flipped decisions of
-        # phase 2 have spread through reprojection).
-        dd = (a - b).abs()
-        far = (dd > 1e-3 * torch.clamp(b.abs(), min=1.0)).float().mean().item()
-        med = dd.median().item()
-        log(f"  {label}: median |d| {med:.3g}, share beyond 1e-3 {far:.6f}")
-        if med > 1e-5 or far > 1e-3:
-            raise AssertionError(f"card and CPU disagree on {label}")
-    oid_eq = (h_g.diffuse.oid == h_c.diffuse.oid).float().mean().item()
-    log(f"  oid equal {oid_eq:.6f}")
-    if oid_eq < 0.999:
-        raise AssertionError("card and CPU disagree on oid")
+
+    def card_vs_cpu(small):
+        """3 pan frames of `small` on the card and on the CPU (plain
+        versions), held per plane: median |d| <= 1e-5 and <= 1e-3 of the
+        components beyond 1e-3*max(1,|ref|) (after 3 frames the flipped
+        decisions of phase 2 have spread through reprojection); oid equal
+        on >= 99.9% of the pixels."""
+        res = {}
+        for d in (dev, torch.device("cpu")):
+            sc = default_scene(device=d)
+            h = pipeline.init_history(small, camera(0, d))
+            for i in range(3):
+                img, h = pipeline.render_frame(sc, camera(i, d), h, i, small)
+            res[d.type] = (img.cpu(), h.to("cpu"))
+        (img_g, h_g), (img_c, h_c) = res["cuda"], res["cpu"]
+        items = {"cnt d": (h_g.diffuse.cnt, h_c.diffuse.cnt),
+                 "cnt s": (h_g.specular.cnt, h_c.specular.cnt)}
+        for c in range(3):
+            items[f"image.{c}"] = (img_g[..., c], img_c[..., c])
+            items[f"rgb d.{c}"] = (h_g.diffuse.rgb[..., c], h_c.diffuse.rgb[..., c])
+            items[f"rgb s.{c}"] = (h_g.specular.rgb[..., c], h_c.specular.rgb[..., c])
+        for label, (a, b) in items.items():
+            dd = (a - b).abs()
+            far = (dd > 1e-3 * torch.clamp(b.abs(), min=1.0)).float().mean().item()
+            med = dd.median().item()
+            log(f"  {label}: median |d| {med:.3g}, share beyond 1e-3 {far:.6f}")
+            if med > 1e-5 or far > 1e-3:
+                raise AssertionError(f"card and CPU disagree on {label}")
+        oid_eq = (h_g.diffuse.oid == h_c.diffuse.oid).float().mean().item()
+        log(f"  oid equal {oid_eq:.6f}")
+        if oid_eq < 0.999:
+            raise AssertionError("card and CPU disagree on oid")
+
+    card_vs_cpu(RenderConfig(width=256, height=128, pipeline="fused"))
 
     # Phase 6: times, CUDA events, medians after warm-up.
     log(f"phase 6: times on {card}")
-    state = {"hist": history, "i": 8}
+    split_state = {"hist": history, "i": 8}
 
     def temporal_frame():
-        i = state["i"]
-        _, state["hist"] = pipeline.render_frame(scene, camera(i), state["hist"], i, cfg)
-        state["i"] = i + 1
+        i = split_state["i"]
+        _, split_state["hist"] = pipeline.render_frame(scene, camera(i), split_state["hist"], i, cfg)
+        split_state["i"] = i + 1
 
     frame_ms = cuda_ms(temporal_frame, reps=20, warmup=3)
     k1_ms = cuda_ms(lambda: fk.frame_forward(scene, camera(), 3, cfg), reps=20, warmup=2)
@@ -791,6 +820,155 @@ def main() -> int:
     log(f"  path work on this data: {tally['traced']} segments traced ({tally['traced'] / segments:.4f} "
         f"of W·H·spp·depth = {segments}), {tally['hits']} vertices shaded")
 
+    # Phase 17: K8 against its plain version at 1920x1080.
+    log(f"phase 17: mono temporal kernel (K8) vs plain, {W}x{H}, on the card")
+    cfg_m = RenderConfig(width=W, height=H, pipeline="fused", temporal_fusion="mono")
+    rng = np.random.default_rng(2)
+    oid0 = fk.frame_forward(scene, camera(0), 0, cfg_m)["oid"]  # the history's oids, through K1
+
+    def seeded_channel():
+        return Channel(rgb=torch.from_numpy(rng.uniform(0, 2, (H, W, 3)).astype(np.float32)).to(dev),
+                       cnt=torch.from_numpy(rng.integers(0, 17, (H, W)).astype(np.float32)).to(dev),
+                       oid=oid0.clone())
+
+    hd, hs = seeded_channel(), seeded_channel()
+    fh.LAUNCHES = 0
+    k8 = fh.frame_hist(scene, camera(1), camera(0), hd, hs, 1, cfg_m)
+    torch.cuda.synchronize()
+    if fh.LAUNCHES != 1:
+        raise AssertionError(f"frame_hist did not launch K8 once: {fh.LAUNCHES}")
+    k8_ref = fh.frame_hist_plain(scene, camera(1), camera(0), hd, hs, 1, cfg_m)
+    k8_stats = fh.check_agreement(k8, k8_ref, f"K8 vs plain {W}x{H}")
+    log(f"  K8 vs plain (median |d|, share beyond 1e-3): {k8_stats}; mean reprojected diffuse count "
+        f"{k8_ref['d_cnt'].mean().item():.4f}")
+    if k8_ref["d_cnt"].mean().item() <= 2.0:
+        raise AssertionError("K8 check carried almost no history; the check is vacuous")
+    k1_same = fk.frame_forward(scene, camera(1), 1, cfg_m)
+    for key in ("alb", "ene", "oid"):
+        a, b = k8[key], k1_same[key]
+        log(f"  K8 {key} vs K1's on the same frame: bitwise {torch.equal(a, b)}, "
+            f"max |d| {(a - b).abs().max().item():.3g}")
+    _, split_hist = pipeline.render_frame(scene, camera(1), pipeline.History(hd, hs, camera(0)), 1,
+                                          dataclasses.replace(cfg_m, temporal_fusion="split"))
+    split_planes = {"d_rgb": split_hist.diffuse.rgb, "d_cnt": split_hist.diffuse.cnt,
+                    "s_rgb": split_hist.specular.rgb, "s_cnt": split_hist.specular.cnt,
+                    "oid": split_hist.diffuse.oid}
+    try:
+        stats = fh.check_agreement({k: k8[k] for k in split_planes}, split_planes, "K8 vs split")
+        log(f"  K8 vs the split frame (K1 + K2 + tail) on the same inputs, within the bar: {stats}")
+    except AssertionError as e:
+        log(f"  K8 vs the split frame on the same inputs, beyond the bar (logged, not held): {e}")
+
+    # Phase 18: the mono path, through K8 alone.
+    log(f"phase 18: mono path, render_animation 8 frames at {W}x{H} with temporal_fusion='mono'")
+    fk.LAUNCHES = rk.LAUNCHES = fh.LAUNCHES = 0
+    image_m, hist_m = driver.render_animation(scene, cfg_m, num_frames=8, cameras=stacked)
+    torch.cuda.synchronize()
+    mono_launches = {"frame_hist": fh.LAUNCHES, "frame": fk.LAUNCHES, "reproject": rk.LAUNCHES}
+    mean_cnt_m = hist_m.diffuse.cnt.mean().item()
+    log(f"  launches {mono_launches}; image range [{image_m.min().item():.4f}, {image_m.max().item():.4f}]; "
+        f"mean diffuse count {mean_cnt_m:.4f}")
+    if mono_launches != {"frame_hist": 8, "frame": 0, "reproject": 0}:
+        raise AssertionError(f"the mono path did not run through K8 alone: {mono_launches}")
+    if image_m.shape != (H, W, 3) or not (torch.isfinite(image_m).all() and image_m.min() >= 0
+                                         and image_m.max() <= 1):
+        raise AssertionError("mono path image not finite in [0, 1] or of the wrong shape")
+    if mean_cnt_m <= 4.0:
+        raise AssertionError(f"mono history did not accumulate: mean diffuse count {mean_cnt_m}")
+    log("  3 pan frames at 256x128, mono, card vs CPU plain path")
+    card_vs_cpu(RenderConfig(width=256, height=128, pipeline="fused", temporal_fusion="mono"))
+    state_m = {"hist": hist_m, "i": 8}
+
+    def mono_frame():
+        i = state_m["i"]
+        _, state_m["hist"] = pipeline.render_frame(scene, camera(i), state_m["hist"], i, cfg_m)
+        state_m["i"] = i + 1
+
+    # The two frames in turns (split, mono, mono, split), 20 frames each.
+    turns = [(name, cuda_ms(fn, reps=20, warmup=3)) for name, fn in (
+        ("split", temporal_frame), ("mono", mono_frame), ("mono", mono_frame), ("split", temporal_frame))]
+    mono_ms = statistics.median(t for name, t in turns if name == "mono")
+    k8_ms = cuda_ms(lambda: fh.frame_hist(scene, camera(1), camera(0), hd, hs, 1, cfg_m), reps=20, warmup=2)
+    k8_plain_ms = cuda_ms(lambda: fh.frame_hist_plain(scene, camera(1), camera(0), hd, hs, 1, cfg_m), reps=3)
+    log(f"  temporal frame {W}x{H} in turns, ms: " + ", ".join(f"{name} {t:.4f}" for name, t in turns)
+        + f" (split {frame_ms:.4f} ms in phase 6) [{card}]")
+    log(f"  K8 {W}x{H}: {k8_ms:.4f} ms; plain on the card {k8_plain_ms:.4f} ms [{card}]")
+    split_m = stage_split(mono_frame, pipeline.STAGES, frames=10)
+    log(f"  mono frame, torch.profiler: device {split_m['device_ms']:.4f} ms in {split_m['launches']:.1f} "
+        "launches per frame; by kernel: " + ", ".join(f"{k} {v:.4f}" for k, v in split_m["top"]))
+
+    # Phase 19: K4 against its plain version at 1920x1080, on the G-buffer.
+    log(f"phase 19: shade kernel (K4) vs plain, {W}x{H}, on gbuffer.geometry_pass of the default scene")
+    cfg_p = RenderConfig(width=W, height=H, pipeline="pass", shade_backend="pallas")
+    gbuf_p = gbuffer.geometry_pass(scene, camera(), cfg_p)
+    hl_p, seed_p = passes._shade_common(scene, cfg_p, gbuf_p, camera(), 3)
+    sk.LAUNCHES = 0
+    k4 = sk.dual_mis(scene, gbuf_p, camera(), seed_p, cfg_p)
+    torch.cuda.synchronize()
+    if sk.LAUNCHES != 1:
+        raise AssertionError(f"dual_mis did not launch K4 once: {sk.LAUNCHES}")
+    k4_ref = sk.dual_mis_plain(scene, gbuf_p, camera(), seed_p, cfg_p)
+    k4_stats = fh.check_agreement({"est_d": k4[0], "est_s": k4[1]}, {"est_d": k4_ref[0], "est_s": k4_ref[1]},
+                                  f"K4 vs plain {W}x{H}")
+    log(f"  K4 vs plain (median |d|, share beyond 1e-3): {k4_stats}")
+    shaded = passes._shaded(scene, gbuf_p.obj_id)[..., None]
+    est_x = mis.dual_mis(scene, passes.get_trace(cfg_p), gbuf_p.ray_dir, hl_p, gbuf_p.normal, gbuf_p.obj_id,
+                         seed_p, cfg_p)
+    try:
+        stats = fh.check_agreement({"est_d": k4[0], "est_s": k4[1]},
+                                   {"est_d": torch.where(shaded, est_x[0], 0.0),
+                                    "est_s": torch.where(shaded, est_x[1], 0.0)}, "K4 vs mis.dual_mis")
+        log(f"  K4 vs mis.dual_mis (shade_backend='xla'), within the bar: {stats}")
+    except AssertionError as e:
+        log(f"  K4 vs mis.dual_mis, beyond the bar (logged, not held): {e}")
+    k4_ms = cuda_ms(lambda: sk.dual_mis(scene, gbuf_p, camera(), seed_p, cfg_p), reps=20, warmup=2)
+    k4_plain_ms = cuda_ms(lambda: sk.dual_mis_plain(scene, gbuf_p, camera(), seed_p, cfg_p), reps=3)
+    log(f"  K4 {W}x{H}: {k4_ms:.4f} ms; plain on the card {k4_plain_ms:.4f} ms [{card}]")
+
+    # Phase 20: the pass pipeline and the render CLI at full width.
+    log(f"phase 20: pass path, render_animation 4 frames at {W}x{H} (pipeline='pass', shade_backend='pallas')")
+    sk.LAUNCHES = fk.LAUNCHES = rk.LAUNCHES = 0
+    image_p, hist_p = driver.render_animation(scene, cfg_p, num_frames=4, cameras=stacked)
+    torch.cuda.synchronize()
+    pass_launches = {"dual_mis": sk.LAUNCHES, "frame": fk.LAUNCHES, "reproject": rk.LAUNCHES}
+    log(f"  launches {pass_launches}; image range [{image_p.min().item():.4f}, {image_p.max().item():.4f}]; "
+        f"mean diffuse count {hist_p.diffuse.cnt.mean().item():.4f}")
+    if pass_launches != {"dual_mis": 4, "frame": 0, "reproject": 0}:
+        raise AssertionError(f"the pass path did not run through K4: {pass_launches}")
+    if image_p.shape != (H, W, 3) or not (torch.isfinite(image_p).all() and image_p.min() >= 0
+                                         and image_p.max() <= 1):
+        raise AssertionError("pass path image not finite in [0, 1] or of the wrong shape")
+    pass_state = {"hist": hist_p, "i": 4}
+
+    def pass_frame():
+        i = pass_state["i"]
+        _, pass_state["hist"] = pipeline.render_frame(scene, camera(i), pass_state["hist"], i, cfg_p)
+        pass_state["i"] = i + 1
+
+    pass_ms = cuda_ms(pass_frame, reps=5, warmup=1)
+    log(f"  pass-pipeline frame (pallas) {W}x{H}: {pass_ms:.4f} ms [{card}]")
+    with tempfile.TemporaryDirectory() as tmp:
+        fk.LAUNCHES = rk.LAUNCHES = 0
+        said = io.StringIO()
+        with contextlib.redirect_stderr(said):
+            cli.main(["render", "--width", str(W), "--height", str(H), "--frames", "2", "--save-every", "1",
+                      "--out", tmp])
+        cli_launches = {"frame": fk.LAUNCHES, "reproject": rk.LAUNCHES}
+        records = [json.loads(ln) for ln in said.getvalue().splitlines() if ln.startswith("{")]
+        pngs = {n: png_pixels(f"{tmp}/{n}") for n in ("frame_00000.png", "frame_00001.png", "final.png")}
+        log(f"  cli render {W}x{H} 2 frames: launches {cli_launches}; metrics {records}; PNGs {pngs}")
+        if cli_launches != {"frame": 2, "reproject": 4} or len(records) != 2:
+            raise AssertionError(f"the render CLI did not run the fused frame twice: {cli_launches}, {records}")
+        if any(v != (W, H, H * (1 + W * 3)) for v in pngs.values()):
+            raise AssertionError(f"the render CLI's PNGs are malformed: {pngs}")
+        with contextlib.redirect_stderr(io.StringIO()):
+            cli.main(["render", "--width", "256", "--height", "128", "--frames", "1", "--pipeline", "pass",
+                      "--out", f"{tmp}/pass"])
+        pw = png_pixels(f"{tmp}/pass/final.png")
+        log(f"  cli render --pipeline pass 256x128: PNG {pw}")
+        if pw != (256, 128, 128 * (1 + 256 * 3)):
+            raise AssertionError(f"the pass CLI's PNG is malformed: {pw}")
+
     # Bounds, from this run's inputs (frame_ops, bound).
     ops1 = frame_ops(scene, cfg, ref["oid"])
     tab_bytes = sum(t.numel() * t.element_size() for t in fk.pack_tables(scene, camera()))
@@ -806,6 +984,16 @@ def main() -> int:
     ops7 = path_ops(scene, W * H * cfg_pt.spp, tally)
     k7_bound = bound(ops7, tab_bytes + sum(t.numel() * t.element_size() for t in pk._tables(scene))
                      + W * H * 3 * 4)
+    ops8 = frame_ops(scene, cfg_m, k8_ref["oid"]) + W * H * HIST_OPS
+    hist_bytes = sum(t.numel() * t.element_size() for ch in (hd, hs) for t in (ch.rgb, ch.cnt, ch.oid))
+    out_bytes = sum(t.numel() * t.element_size() for t in k8.values())
+    k8_bound = bound(ops8, tab_bytes + 5 * 4 + hist_bytes + out_bytes)
+    ops4 = shade_ops(scene, cfg_p, gbuf_p.obj_id, 1) + W * H * 6
+    k4_io = (gbuf_p.normal, gbuf_p.obj_id, gbuf_p.depth, gbuf_p.ray_dir, seed_p, *k4)
+    k4_bound = bound(ops4, tab_bytes + sum(t.numel() * t.element_size() for t in k4_io))
+    log(f"  bounds at {W}x{H}: K8 {k8_bound[0]:.4f} ms ({k8_bound[1]}, {ops8 / 1e9:.3f} GFLOP, "
+        f"{(hist_bytes + out_bytes) / (W * H):.1f} B/pixel), K4 {k4_bound[0]:.4f} ms ({k4_bound[1]}, "
+        f"{ops4 / 1e9:.3f} GFLOP)")
     log(f"  bounds at {W}x{H}: K1 {k1_bound[0]:.4f} ms ({k1_bound[1]}, {ops1 / 1e9:.3f} GFLOP), "
         f"K2 {k2_bound[0]:.4f} ms ({k2_bound[1]}), K5 {k5_bound[0]:.4f} ms ({k5_bound[1]}), "
         f"K6 {k6_bound[0]:.4f} ms ({k6_bound[1]}), K3 {k3_bound[0]:.4f} ms ({k3_bound[1]}, "
@@ -831,6 +1019,10 @@ def main() -> int:
               k3_err, k3_ms, k3_plain_ms, k3_bound),
         entry("pathtrace", "path_kernel.cu", "path_kernel.py:469", path_launches,
               k7_err, k7_ms, k7_plain_ms, k7_bound),
+        entry("frame_hist", "frame_hist.cu", "frame_hist.py:344", mono_launches["frame_hist"],
+              k8_stats["max_abs"], k8_ms, k8_plain_ms, k8_bound),
+        entry("dual_mis", "shade_kernel.cu", "shade_kernel.py:836", pass_launches["dual_mis"],
+              k4_stats["max_abs"], k4_ms, k4_plain_ms, k4_bound),
     ]
     log(card_line())
     log(json.dumps({"kernels": kernels}))

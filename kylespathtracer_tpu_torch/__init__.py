@@ -6,14 +6,14 @@ Pallas kernels. Same layout and names as the JAX package:
 
   core/    math, sampler, color
   scene/   scene tables and builders
-  render/  camera, reprojection, temporal tail, composite, pipeline,
-           G-buffer, BSDFs, wavefront path integrator
+  render/  camera, reprojection, passes and MIS estimators, composite,
+           pipeline, G-buffer, BSDFs, wavefront path integrator
   ops/     kernel wrappers (CUDA on CUDA tensors, plain tensor code on the
            CPU) and the nvcc build/loader
   csrc/    the CUDA sources
-  diff/    inverse rendering (fit, run_recovery)
-  app/     frame-loop driver, CLI (`pathtrace`)
-  utils/   config, image export
+  diff/    inverse rendering (fit, run_recovery), soft visibility
+  app/     frame-loop driver, CLI (`render`, `pathtrace`)
+  utils/   config, image export, metrics
 
 Every entry point that makes tensors runs on the card unless the caller
 passes `device=` (DEFAULT_DEVICE); without a card such a call raises, as

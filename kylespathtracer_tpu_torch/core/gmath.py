@@ -25,6 +25,11 @@ def dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return (a * b).sum(-1)
 
 
+def dot_k(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Dot product over the trailing xyz axis, keepdims kept."""
+    return (a * b).sum(-1, keepdim=True)
+
+
 def length(v: torch.Tensor) -> torch.Tensor:
     return torch.sqrt((v * v).sum(-1))
 
@@ -74,6 +79,42 @@ def rotate_xy(p: torch.Tensor, angle: torch.Tensor) -> torch.Tensor:
     x2 = x * cy + z1 * sy
     z2 = -x * sy + z1 * cy
     return torch.stack([x2, y2, z2], dim=-1)
+
+
+def linear_angle(d: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+    """Apparent (linear) angle of a sphere of radius r at distance d
+    (reference: common.glsl:141-144); d is guarded away from 0."""
+    return torch.arcsin(torch.clamp(r / torch.clamp(d, min=1e-12), EPS, IEPS))
+
+
+def tan_linear_angle(d: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+    """tan(linear_angle(d, r)) as x/sqrt(1-x²), x = clip(r/d, eps, ieps)."""
+    x = torch.clamp(r / torch.clamp(d, min=1e-12), EPS, IEPS)
+    return x * torch.rsqrt(1.0 - x * x)
+
+
+def solid_angle(d2: torch.Tensor, r2: torch.Tensor) -> torch.Tensor:
+    """Solid angle of a sphere from squared distance and squared radius
+    (reference: common.glsl:146-149)."""
+    return (1.0 - torch.sqrt(1.0 - torch.clamp(r2 / torch.clamp(d2, min=1e-24), 0.0, 1.0))) * TWOPI
+
+
+def schlick(r1, r2, vn: torch.Tensor) -> torch.Tensor:
+    """Schlick fresnel between refractive indices r1, r2 (common.glsl:151-154);
+    the fifth power in jnp's integer_pow order."""
+    r0 = (r1 - r2) / (r1 + r2)
+    r0 = r0 * r0
+    return r0 + (1.0 - r0) * powi(1.0 - vn, 5)
+
+
+def lambertian(hn: torch.Tensor, nlv: torch.Tensor) -> torch.Tensor:
+    """Clamped cosine term max(eps, n.l) (common.glsl:156-158)."""
+    return torch.clamp(dot(nlv, hn), min=EPS)
+
+
+def phong(rd: torch.Tensor, hn: torch.Tensor, nlv: torch.Tensor, gloss) -> torch.Tensor:
+    """Phong lobe max(eps, l.reflect(rd,n))^gloss (common.glsl:160-162)."""
+    return pow_static(torch.clamp(dot(nlv, reflect(rd, hn)), min=EPS), gloss)
 
 
 def powi(x: torch.Tensor, n: int) -> torch.Tensor:

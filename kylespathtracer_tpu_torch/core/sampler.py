@@ -12,6 +12,8 @@ from __future__ import annotations
 
 import torch
 
+from kylespathtracer_tpu_torch.core import gmath
+
 WEYL = (13743434, 11258243, 9222443)  # common.glsl:44
 _EXP2_24 = 16777216.0
 _M32 = 0xFFFFFFFF
@@ -33,6 +35,56 @@ def weyl3(v: torch.Tensor) -> torch.Tensor:
     k = torch.tensor(WEYL, dtype=torch.int32, device=v.device)
     prod = (v * k).to(torch.float32) / _EXP2_24
     return prod - torch.floor(prod)
+
+
+def logit3(v: torch.Tensor) -> torch.Tensor:
+    """Logit warp of (0,1)³ → approximately gaussian (common.glsl:48-51)."""
+    t = 0.988 * (v + 0.006)
+    return torch.log(t / (1.0 - t)) * 0.221 + 0.5
+
+
+def uniform_sphere(seed: torch.Tensor) -> torch.Tensor:
+    """Gaussian-ish point in [-1,1]³ (common.glsl:165-168)."""
+    return logit3(weyl3(seed)) * 2.0 - 1.0
+
+
+def uniform_dir(seed: torch.Tensor) -> torch.Tensor:
+    """Unit direction from the gaussian-ish sphere sample (common.glsl:171-173)."""
+    return gmath.normalize_fast(uniform_sphere(seed))
+
+
+def uniform_hemi_dir(hn: torch.Tensor, seed: torch.Tensor) -> torch.Tensor:
+    """Uniform hemisphere direction around hn (common.glsl:176-179)."""
+    rnd = uniform_dir(seed)
+    return rnd * torch.sign(gmath.dot_k(hn, rnd))
+
+
+def cos_hemi_dir(hn: torch.Tensor, seed: torch.Tensor) -> torch.Tensor:
+    """Cosine-weighted hemisphere direction (common.glsl:182-185)."""
+    return gmath.normalize_fast(hn + uniform_dir(seed) * gmath.IEPS)
+
+
+def cone_pre(seed: torch.Tensor):
+    """The cone-sampling draws of a seed, shared by every cone sample taken
+    with it: (sqrt(u1), cos(2π·u2), sin(2π·u2), u3)."""
+    rnd = weyl3(seed)
+    tha = rnd[..., 1] * gmath.TWOPI
+    return torch.sqrt(rnd[..., 0]), torch.cos(tha), torch.sin(tha), rnd[..., 2]
+
+
+def uniform_cone_dir(lv: torch.Tensor, lr, seed: torch.Tensor | None = None,
+                     pre=None) -> torch.Tensor:
+    """Uniform direction in the cone subtending a sphere of radius lr at lv
+    (reference: common.glsl:188-196): rad = sqrt(u1)·tan(linear angle),
+    theta = 2π·u2, on the branchless ONB. `pre` (from `cone_pre`) reuses
+    a seed's draws; zero lv gives a finite direction."""
+    if pre is None:
+        pre = cone_pre(seed)
+    su1, ct, st, _ = pre
+    rad = su1 * gmath.tan_linear_angle(gmath.length(lv), lr)
+    nlv = gmath.normalize(lv)
+    r, u = gmath.basis(nlv)
+    return gmath.normalize(nlv + rad[..., None] * (r * ct[..., None] + u * st[..., None]))
 
 
 # R2 lattice constants round(2^32 / phi2^k), phi2 the plastic constant.

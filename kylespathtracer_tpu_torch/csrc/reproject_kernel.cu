@@ -4,14 +4,8 @@
 // (its body `_reproject_kernel` → `_set_kernel_dyn`), full-frame mode. One
 // launch per channel set (diffuse, then specular), as on the TPU.
 //
-// Per pixel: the 2×2 bilinear history taps (ty, tx) at
-// (gy + dyrel + ty, gx + dxrel + tx), each weighted wy_ty·wx_tx, counted
-// only when both tap offsets lie inside ±K and the tap's history object ID
-// equals the current one; taps beyond K restart the history. Out-of-image
-// taps carry zero weight from the query head, so they are skipped (adding
-// exactly zero). The four taps are summed in the TPU kernel's order
-// (column offset outer, row offset inner) with no fused multiply-add, so
-// the sum matches the plain version bit for bit.
+// Per pixel: the 2×2 bilinear history taps inside ±K whose object ID
+// matches, summed by `tap_sum` (reproject_core.cuh, shared with K8).
 //
 // What bounds it on an H100: device-memory bytes. Per pixel it reads 7
 // query planes (28 B) and, for each live tap, 5 history floats, and writes
@@ -19,8 +13,7 @@
 // row-block halos and lane rolls to avoid a gather; here the gather is
 // direct and bounded: neighbouring threads read neighbouring history
 // texels, so the taps of a warp fall in a few cache lines served by L1/L2.
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "reproject_core.cuh"
 
 namespace kpt {
 
@@ -39,25 +32,8 @@ __global__ void __launch_bounds__(256) reproject_kernel(
   const float wy[2] = {wy0[p], wy1[p]};
   const float wx[2] = {wx0[p], wx1[p]};
 
-  float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-#pragma unroll
-  for (int tx = 0; tx < 2; ++tx) {
-    // -K <= dx + tx <= K, written without overflowing on far-off queries.
-    if (dx < -K - tx || dx > K - tx) continue;
-#pragma unroll
-    for (int ty = 0; ty < 2; ++ty) {
-      if (dy < -K - ty || dy > K - ty) continue;
-      const int sy = y + dy + ty, sx = x + dx + tx;
-      if (sy < 0 || sy >= H || sx < 0 || sx >= W) continue;  // zero weight
-      const size_t q = (size_t)sy * W + sx;
-      if (hist_oid[q] != id) continue;
-      const float w = __fmul_rn(wy[ty], wx[tx]);
-      acc[0] = __fadd_rn(acc[0], __fmul_rn(w, hist_rgb[3 * q]));
-      acc[1] = __fadd_rn(acc[1], __fmul_rn(w, hist_rgb[3 * q + 1]));
-      acc[2] = __fadd_rn(acc[2], __fmul_rn(w, hist_rgb[3 * q + 2]));
-      acc[3] = __fadd_rn(acc[3], __fmul_rn(w, hist_cnt[q]));
-    }
-  }
+  float acc[4];
+  tap_sum(hist_rgb, hist_cnt, hist_oid, id, y, x, dy, dx, wy, wx, K, H, W, acc);
   out_rgb[3 * p] = acc[0];
   out_rgb[3 * p + 1] = acc[1];
   out_rgb[3 * p + 2] = acc[2];

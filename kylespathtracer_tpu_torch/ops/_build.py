@@ -25,8 +25,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("frame_kernel.cu", "reproject_kernel.cu", "frame_grad.cu", "loss_kernel.cu",
-           "geometry_kernel.cu", "path_kernel.cu")
-HEADERS = ("dual.cuh", "shade_core.cuh", "frame_core.cuh")
+           "geometry_kernel.cu", "path_kernel.cu", "frame_hist.cu", "shade_kernel.cu")
+HEADERS = ("dual.cuh", "shade_core.cuh", "frame_core.cuh", "reproject_core.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC",
@@ -35,9 +35,12 @@ NVCC_FLAGS = (
 # (one tensor op at a time) do. With nvcc's default contraction, K5 no
 # longer meets chip_smoke.py phase 8's bar on the default scene; in the path
 # kernel a contracted multiply-add can flip a sampling decision, which
-# changes the whole path after it.
+# changes the whole path after it; in the mono temporal kernel (K8) an ulp
+# of ray direction moves the reprojected tap position by ~4e-5 pixel at
+# 1080p. K1 alone keeps nvcc's default contraction.
 SOURCE_FLAGS = {name: ("-fmad=false",) for name in (
-    "frame_grad.cu", "loss_kernel.cu", "geometry_kernel.cu", "path_kernel.cu")}
+    "frame_grad.cu", "loss_kernel.cu", "geometry_kernel.cu", "path_kernel.cu", "shade_kernel.cu",
+    "frame_hist.cu")}
 
 _lock = threading.Lock()
 _lib = None
@@ -76,6 +79,19 @@ _SIGNATURES = {
     # spp, max_depth, gloss, out, stream
     "kpt_pathtrace": (
         _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _I, _P, _P,
+    ),
+    # ftab, itab, ptab, nP, nS, nB, nK, width, height, fov, frame, smp,
+    # decorrelate, biased, soft_beta, gloss, K, inv_asp, temporal, two_t,
+    # t_m1, hist d rgb/cnt/oid, hist s rgb/cnt/oid, out d_rgb, d_cnt, s_rgb,
+    # s_cnt, alb, ene, oid, stream
+    "kpt_frame_hist": (
+        _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _I, _F, _I, _I, _F, _F, _F, _F,
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+    ),
+    # ftab, itab, nP, nS, nB, nK, width, height, soft_beta, gloss, normal,
+    # obj_id, depth, ray_dir, seed, est_d, est_s, stream
+    "kpt_dual_mis": (
+        _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P, _P, _P, _P, _P, _P, _P, _P,
     ),
 }
 
@@ -154,6 +170,16 @@ def load():
             lib.kpt_error_string.restype = ctypes.c_char_p
             _lib = lib
         return _lib
+
+
+def check_tensor(name: str, t, dtype, shape, device) -> None:
+    """Raise unless `t` is a contiguous `dtype` tensor of `shape` on `device`
+    (what a kernel's C entry point takes)."""
+    if t.dtype != dtype or tuple(t.shape) != tuple(shape) or t.device != device:
+        raise ValueError(f"{name}: expected {dtype}{list(shape)} on {device}, "
+                         f"got {t.dtype}{list(t.shape)} on {t.device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")
 
 
 def check(err: int, name: str) -> None:

@@ -102,8 +102,12 @@ def _raygen(shape, cam, orient, width, height, fov, row0, device):
     py = (torch.arange(rows, dtype=torch.int32, device=device) + row0)[:, None]
     py = py.expand(rows, cols)
     asp = float(width) / float(height)
-    xf = (2.0 * (px.to(dt) + 0.5) / float(width) - 1.0) * asp
-    yf = 2.0 * (py.to(dt) + 0.5) / float(height) - 1.0
+    # Divisors as tensors on the device: on the card torch divides by a
+    # Python scalar as a multiply by its reciprocal, an ulp off the true
+    # quotient the kernels compute (the same on the CPU either way).
+    div = lambda n: torch.tensor(float(n), dtype=dt, device=device)
+    xf = (2.0 * (px.to(dt) + 0.5) / div(width) - 1.0) * asp
+    yf = 2.0 * (py.to(dt) + 0.5) / div(height) - 1.0
     zf = torch.full(shape, float(fov), dtype=dt, device=device)
     inv = torch.rsqrt(xf * xf + yf * yf + zf * zf)
     dx, dy, dz = xf * inv, yf * inv, zf * inv

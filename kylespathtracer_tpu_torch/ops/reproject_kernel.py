@@ -76,14 +76,6 @@ def reproject_window_plain(ho, dyrel, dxrel, w4, prev: Channel, K: int):
     return rgb, cnt
 
 
-def _check(name, t, dtype, shape, device):
-    if t.dtype != dtype or tuple(t.shape) != tuple(shape) or t.device != device:
-        raise ValueError(f"{name}: expected {dtype}{list(shape)} on {device}, "
-                         f"got {t.dtype}{list(t.shape)} on {t.device}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: expected a contiguous tensor")
-
-
 def reproject_set(ho, dyrel, dxrel, w4, prev: Channel, K: int):
     """One channel set's reprojected history → (rgb[H,W,3], cnt[H,W]).
     CUDA tensors launch the kernel (or raise); CPU tensors run the plain
@@ -96,6 +88,7 @@ def reproject_set(ho, dyrel, dxrel, w4, prev: Channel, K: int):
         raise ValueError(f"reproject_set: unsupported device {device}")
     H, W = ho.shape
     i32, f32 = torch.int32, torch.float32
+    _check = _build.check_tensor
     _check("ho", ho, i32, (H, W), device)
     _check("dyrel", dyrel, i32, (H, W), device)
     _check("dxrel", dxrel, i32, (H, W), device)

@@ -11,7 +11,10 @@ and every scalar expression stays f32, as in the JAX code.
 
 This is the plain version the frame kernel (csrc/frame_kernel.cu, whose
 `__device__` mirror of this file is csrc/shade_core.cuh) is checked
-against. K4's wrapper (`dual_mis_pallas`) is not ported yet.
+against. `dual_mis` is the pass pipeline's shade kernel (K4, the
+counterpart of `dual_mis_pallas`): the shade core on a G-buffer, one
+sample per pixel; on a CUDA tensor it launches csrc/shade_kernel.cu, on a
+CPU tensor it runs `dual_mis_plain`.
 """
 
 from __future__ import annotations
@@ -21,6 +24,9 @@ import torch
 from kylespathtracer_tpu_torch.core import gmath
 
 _INF = 1e9
+
+# Launches of the CUDA kernel by `dual_mis` in this process.
+LAUNCHES = 0
 
 
 # ----------------------------------------------------------- vec3 helpers
@@ -565,4 +571,66 @@ def _shade_core(sc, counts, nK, gloss, hn, rd, ho, hl, seed, soft_beta=0.0):
         r = _roulette(sc, counts, dirs, ws, hl, ho, pre, ch, nP)
         for c in range(3):
             est[c] = est[c] + r[c]
+    return est_d, est_s
+
+
+# ------------------------------------------------ the shade kernel (K4)
+
+def dual_mis_plain(scene, gb, camera, seed, config):
+    """K4's function as plain tensor ops → (est_d, est_s), each f32[H,W,3]:
+    the shade core at hl = cam + rd·depth of the G-buffer `gb` with the
+    per-pixel seed image `seed` (i32[H,W]), ONE sample on the raw seed
+    whatever the smp counts (as the JAX kernel), zero where the pixel is a
+    miss or the light."""
+    from kylespathtracer_tpu_torch.ops import frame_kernel as fk
+
+    ops = fk.small_operands(scene, camera, 0)
+    nK = int(scene.materials.s0.shape[0])
+    sc = dict(zip(fk.SC_KEYS, ops[:17]), nK=nK)
+    cam = ops[17]
+    hn = tuple(gb.normal[..., k] for k in range(3))
+    rd = tuple(gb.ray_dir[..., k] for k in range(3))
+    ho = gb.obj_id
+    hl = tuple(cam[0, k] + rd[k] * gb.depth for k in range(3))
+    est_d, est_s = _shade_core(sc, fk._counts(scene), nK, config.gloss, hn, rd, ho, hl, seed,
+                               soft_beta=float(config.soft_shadows))
+    shade = (ho != sc["light_id_arr"][0, 0]) & (ho > 0)
+    mask = lambda est: torch.stack([torch.where(shade, e, 0.0) for e in est], dim=-1)
+    return mask(est_d), mask(est_s)
+
+
+def dual_mis(scene, gb, camera, seed, config):
+    """The dual-MIS estimator pair from a G-buffer → (est_d, est_s), each
+    f32[H,W,3], masked to shaded pixels. CUDA tensors launch the shade
+    kernel (or raise); CPU tensors run `dual_mis_plain`."""
+    global LAUNCHES
+    from kylespathtracer_tpu_torch.ops import _build
+    from kylespathtracer_tpu_torch.ops import frame_kernel as fk
+
+    fk.check_planes_for_biased(scene, config)
+    device = gb.obj_id.device
+    if device.type == "cpu":
+        return dual_mis_plain(scene, gb, camera, seed, config)
+    if device.type != "cuda":
+        raise ValueError(f"dual_mis: unsupported device {device}")
+    (nP, nS, nB, nK, _, _, _), (_, _, _, soft_beta, gloss) = fk.kernel_args(scene, camera, config)
+    H, W = gb.obj_id.shape
+    f32, i32 = torch.float32, torch.int32
+    for name, t, dt, shape in (
+        ("gb.normal", gb.normal, f32, (H, W, 3)), ("gb.obj_id", gb.obj_id, i32, (H, W)),
+        ("gb.depth", gb.depth, f32, (H, W)), ("gb.ray_dir", gb.ray_dir, f32, (H, W, 3)),
+        ("seed", seed, i32, (H, W)),
+    ):
+        _build.check_tensor(name, t, dt, shape, device)
+    ftab, itab = fk.pack_tables(scene, camera)
+    est_d = torch.empty((H, W, 3), dtype=f32, device=device)
+    est_s = torch.empty((H, W, 3), dtype=f32, device=device)
+    err = _build.load().kpt_dual_mis(
+        ftab.data_ptr(), itab.data_ptr(), nP, nS, nB, nK, W, H, soft_beta, gloss,
+        gb.normal.data_ptr(), gb.obj_id.data_ptr(), gb.depth.data_ptr(), gb.ray_dir.data_ptr(),
+        seed.data_ptr(), est_d.data_ptr(), est_s.data_ptr(),
+        torch.cuda.current_stream(device).cuda_stream,
+    )
+    _build.check(err, "kpt_dual_mis")
+    LAUNCHES += 1
     return est_d, est_s

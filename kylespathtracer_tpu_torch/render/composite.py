@@ -1,6 +1,6 @@
 """Composite + tonemap (reference: passthrough.frag:29-47).
 
-Port of kylespathtracer_tpu/render/composite.py:composite_from.
+Port of kylespathtracer_tpu/render/composite.py.
 """
 
 from __future__ import annotations
@@ -9,6 +9,15 @@ import torch
 
 from kylespathtracer_tpu_torch.core import color
 from kylespathtracer_tpu_torch.render.passes import Channel
+from kylespathtracer_tpu_torch.scene import materials as mat_mod
+
+
+def composite(scene, config, gb, camera, diffuse: Channel, specular: Channel) -> torch.Tensor:
+    """The pass pipeline's composite: the primary surface re-fetched at the
+    G-buffer hits (passthrough.frag:38), then `composite_from`."""
+    hl = camera.loc + gb.ray_dir * gb.depth[..., None]
+    albedo, _, energy = mat_mod.surface(scene.materials, gb.obj_id, hl)
+    return composite_from(albedo, energy, diffuse, specular, config)
 
 
 def composite_from(

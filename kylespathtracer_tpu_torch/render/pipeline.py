@@ -1,17 +1,21 @@
 """The frame pipeline.
 
-Port of kylespathtracer_tpu/render/pipeline.py for the fused pipeline
-(`pipeline="fused"`):
+Port of kylespathtracer_tpu/render/pipeline.py:
 
     render_frame(scene, camera, history, frame, config) → (image, history)
 
-The temporal frame (`reproject_backend="window"`, `temporal_fusion="split"`)
-is one frame-kernel launch (K1), one windowed-reprojection launch per
-channel set (K2), and a short tail of tensor ops (count floor, velocity
-clamp, accumulate, ACES composite); forward-only, as the JAX path is. The
-differentiable frame (`no_history=True`, or `reproject_backend="xla"`)
-runs K1 through ops/frame_grad.py, whose backward is K5, and the exact
-gather of render/reproject.py. Everything runs on the scene's device.
+`pipeline="fused"`: the temporal frame (`reproject_backend="window"`) is,
+with `temporal_fusion="split"`, one frame-kernel launch (K1), one
+windowed-reprojection launch per channel set (K2), and a short tail of
+tensor ops (count floor, velocity clamp, accumulate, ACES composite); with
+`"mono"`, one launch of the mono temporal kernel (K8) and the composite.
+Both are forward-only, as the JAX paths are. The differentiable frame
+(`no_history=True`, or `reproject_backend="xla"`) runs K1 through
+ops/frame_grad.py, whose backward is K5, and the exact gather of
+render/reproject.py. Any other `pipeline` is the pass pipeline: the
+analytic G-buffer, then the diffuse and specular passes (render/passes.py,
+the shade kernel K4 with `shade_backend="pallas"`), then the composite;
+forward-only. Everything runs on the scene's device.
 
 The stages are `torch.profiler` spans (STAGES), so a profiler trace splits
 the frame's device time by stage; outside a profiler they cost a few
@@ -28,10 +32,12 @@ from torch.profiler import record_function
 from kylespathtracer_tpu_torch import DEFAULT_DEVICE
 from kylespathtracer_tpu_torch.core import gmath
 from kylespathtracer_tpu_torch.ops import frame_grad as fg
+from kylespathtracer_tpu_torch.ops import frame_hist as fh
 from kylespathtracer_tpu_torch.ops import frame_kernel as fk
 from kylespathtracer_tpu_torch.ops import reproject_kernel as rk
 from kylespathtracer_tpu_torch.render import camera as cam_mod
 from kylespathtracer_tpu_torch.render import composite as comp_mod
+from kylespathtracer_tpu_torch.render import gbuffer as gb_mod
 from kylespathtracer_tpu_torch.render import reproject as rep_mod
 from kylespathtracer_tpu_torch.render.camera import Camera, camera_from_numpy
 from kylespathtracer_tpu_torch.render.passes import (
@@ -39,6 +45,8 @@ from kylespathtracer_tpu_torch.render.passes import (
     _temporal_clamp,
     channel_from_numpy,
     count_floor,
+    shade_passes,
+    specular_anchor,
 )
 from kylespathtracer_tpu_torch.scene.types import Scene
 
@@ -80,21 +88,6 @@ def init_history(config, camera: Camera | None = None, device=DEFAULT_DEVICE) ->
     return History.zeros(config, camera or Camera.create(device=device))
 
 
-def _check_supported(config) -> None:
-    """The port serves the fused pipeline's split temporal frame and its
-    differentiable frame; the other branches of the JAX `render_frame` are
-    still to be ported (ROADMAP.md Queue 1)."""
-    unported = (
-        (config.pipeline != "fused",
-         f"pipeline={config.pipeline!r} (ROADMAP Queue 1 #11, the pass pipeline)"),
-        (_temporal_window(config) and config.temporal_fusion != "split",
-         f"temporal_fusion={config.temporal_fusion!r} (ROADMAP Queue 1 #12)"),
-    )
-    for bad, what in unported:
-        if bad:
-            raise NotImplementedError(f"the PyTorch port does not serve {what} yet")
-
-
 def _temporal_window(config) -> bool:
     """The forward-only temporal frame (windowed reprojection); every other
     fused frame is the differentiable one."""
@@ -109,12 +102,39 @@ def render_frame(
     config,
 ) -> tuple[torch.Tensor, History]:
     """One frame → (sRGB image f32[H,W,3], new history)."""
-    _check_supported(config)
+    if config.pipeline != "fused":
+        return pass_frame(scene, camera, history, frame, config)
     if not _temporal_window(config):
         return differentiable_frame(scene, camera, history, frame, config)
+    if config.temporal_fusion == "mono":
+        return mono_temporal_frame(scene, camera, history, frame, config)
     with record_function("frame.ray_dirs"):
         rd = cam_mod.ray_dirs(camera, config.width, config.height, config.fov)
     return split_temporal_frame(scene, camera, history, frame, config, rd)
+
+
+def pass_frame(scene: Scene, camera: Camera, history: History, frame, config):
+    """The pass pipeline (reference frame loop, main.cpp:344-350): the
+    analytic G-buffer → the fused diffuse + specular passes → composite.
+    `intersect_mode="march"` and tetrahedron normals raise (ROADMAP Queue
+    1 #11)."""
+    gb = gb_mod.geometry_pass(scene, camera, config)
+    d, s = shade_passes(scene, config, gb, camera, history.camera,
+                        history.diffuse, history.specular, frame)
+    image = comp_mod.composite(scene, config, gb, camera, d, s)
+    return image, History(diffuse=d, specular=s, camera=camera)
+
+
+def mono_temporal_frame(scene: Scene, camera: Camera, history: History, frame, config):
+    """The whole temporal frame in one kernel launch (ops/frame_hist.py,
+    K8: shade + windowed reprojection + clamp + accumulate), then the
+    composite."""
+    o = fh.frame_hist(scene, camera, history.camera, history.diffuse, history.specular,
+                      frame, config)
+    d = Channel(rgb=o["d_rgb"], cnt=o["d_cnt"], oid=o["oid"])
+    s = Channel(rgb=o["s_rgb"], cnt=o["s_cnt"], oid=o["oid"])
+    image = comp_mod.composite_from(o["alb"], o["ene"], d, s, config)
+    return image, History(diffuse=d, specular=s, camera=camera)
 
 
 def differentiable_frame(scene: Scene, camera: Camera, history: History, frame, config):
@@ -153,9 +173,7 @@ def _anchors(scene: Scene, camera: Camera, rd: torch.Tensor, out: dict):
     """The reprojection anchors: the hit point and the curvature-pushed
     specular anchor (specular.frag:45-49)."""
     hl = camera.loc + rd * out["depth"][..., None]
-    light_dist = gmath.length(hl - scene.light[:3])
-    fac = gmath.EPS / torch.sqrt(torch.clamp(out["curv"], min=gmath.EPS))
-    return hl, hl + rd * (light_dist * fac)[..., None]
+    return hl, specular_anchor(scene, hl, rd, out["curv"])
 
 
 def _accumulate(rgb, cnt, add, vv, oid, config) -> Channel:

@@ -4,8 +4,9 @@ The same knobs and defaults as the JAX package's `RenderConfig`
 (kylespathtracer_tpu/utils/config.py), copied rather than imported: that
 package imports jax. Maps 1:1 onto the reference's compile-time quality
 knobs (common.glsl:1-29) plus execution options. The PyTorch port serves
-`pipeline="fused"` with `reproject_backend="window"` and
-`temporal_fusion="split"`; `render/pipeline.py` raises on the others.
+every `pipeline`, `reproject_backend` and `temporal_fusion`; the sphere
+trace (`intersect_mode="march"`) and tetrahedron normals raise (ROADMAP
+Queue 1 #11).
 """
 
 from __future__ import annotations
@@ -41,8 +42,8 @@ class RenderConfig:
     intersect_mode: str = "analytic"   # "march" | "analytic"
     normal_mode: str = "auto"          # "auto" | "analytic" | "tetra"
     shade_backend: str = "xla"         # "xla" | "pallas"
-    # Frame pipeline: "pass" (separate passes) or "fused" (the frame kernel
-    # plus windowed reprojection; the only one the port serves so far).
+    # Frame pipeline: "pass" (G-buffer, then the diffuse and specular passes)
+    # or "fused" (the frame kernel plus windowed reprojection).
     pipeline: str = "pass"
     # Reprojection backend for the fused pipeline: "window" (bounded
     # ±reproject_window select kernel) or "xla" (exact gather).

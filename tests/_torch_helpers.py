@@ -107,3 +107,93 @@ def assert_path_bar(img, ref) -> None:
     assert np.isfinite(img).all()
     assert np.median(d) < 1e-6
     assert (d > 1e-3).mean() < 0.002, f"{(d > 1e-3).mean():.3%} differ"
+
+
+def pan_cameras(n: int):
+    """JAX cameras of an n-frame pan from (3,2,-3)/(0,0.7): per frame ~1.5 px
+    up and ~0.5 px sideways at 32 rows, plus a small translation that
+    engages the velocity clamp → n + 1 cameras."""
+    import jax.numpy as jnp
+
+    from kylespathtracer_tpu.render.camera import Camera
+
+    cams = [Camera.create(loc=(3.0, 2.0, -3.0), orient=(0.0, 0.7))]
+    for _ in range(n):
+        c = cams[-1]
+        cams.append(c.replace(orient=c.orient + jnp.asarray([-0.03, 0.004], jnp.float32),
+                              loc=c.loc + jnp.asarray([0.001, -0.0015, 0.001], jnp.float32)))
+    return cams
+
+
+def populated_history(oid, camera):
+    """A JAX History with numpy-seeded rgb in [0, 2) and integer counts in
+    [0, 16] on the object IDs `oid` (i32[H,W]) that `camera` sees."""
+    import jax.numpy as jnp
+
+    from kylespathtracer_tpu.render.passes import Channel
+    from kylespathtracer_tpu.render.pipeline import History
+
+    H, W = oid.shape
+
+    def channel(seed):
+        r = np.random.default_rng(seed)
+        return Channel(rgb=jnp.asarray(r.uniform(0.0, 2.0, (H, W, 3)), jnp.float32),
+                       cnt=jnp.asarray(r.integers(0, 17, (H, W)).astype(np.float32)), oid=oid)
+
+    return History(diffuse=channel(1), specular=channel(2), camera=camera)
+
+
+def sphere_case():
+    """The JAX sphere scene of the mono-frame tests: three spheres over the
+    floor, no rounded box (the JAX kernels' interpret mode compiles the
+    box's 26 candidates for minutes)."""
+    from kylespathtracer_tpu.scene.scene import sphere_scene
+
+    return sphere_scene([[5.5, 1.0, 0.0], [4.0, 0.5, 1.0], [6.0, 2.5, -1.5]], [1.0, 0.5, 0.7],
+                        [[0.8, 0.2, 0.2], [0.2, 0.8, 0.2], [0.2, 0.2, 0.8]])
+
+
+def history_at(scene, camera, cfg):
+    """`populated_history` on the object IDs `camera` sees (JAX's plain
+    frame, frame 0)."""
+    import jax.numpy as jnp
+
+    from kylespathtracer_tpu.ops import frame_kernel as jfk
+
+    return populated_history(jfk.frame_forward_jnp(scene, camera, jnp.int32(0), cfg)["oid"], camera)
+
+
+def pass_pan_matches_jax(kw: dict, width: int = 32, height: int = 16) -> None:
+    """`render_frame` with `pipeline="pass"` and the config fields `kw`,
+    port against JAX frame by frame over `pan_cameras(3)` from a
+    `populated_history`: image and both history channels to atol 2e-4
+    (rtol 1e-5), oid exact."""
+    import jax
+    import jax.numpy as jnp
+    import torch
+
+    from kylespathtracer_tpu.render import gbuffer as jgb
+    from kylespathtracer_tpu.render import pipeline as jpl
+    from kylespathtracer_tpu.scene import default_scene
+    from kylespathtracer_tpu.utils.config import RenderConfig
+    from kylespathtracer_tpu_torch.render import pipeline
+
+    tol = dict(atol=2e-4, rtol=1e-5)
+    scene = default_scene()
+    cfg = RenderConfig(width=width, height=height, pipeline="pass", **kw)
+    cams = pan_cameras(3)
+    hist_j = populated_history(jgb.geometry_pass(scene, cams[0], cfg).obj_id, cams[0])
+    jframe = jax.jit(jpl.render_frame, static_argnames=("config",))
+    scene_t, cfg_t, hist_t = to_torch_scene(scene), to_torch_config(cfg), to_torch_history(hist_j)
+    for i, cam in enumerate(cams[1:], start=1):
+        img_j, hist_j = jframe(scene, cam, hist_j, jnp.int32(i), config=cfg)
+        img_t, hist_t = pipeline.render_frame(scene_t, to_torch_camera(cam), hist_t, i, cfg_t)
+        assert img_t.shape == (height, width, 3) and torch.isfinite(img_t).all()
+        np.testing.assert_allclose(np_(img_t), np.asarray(img_j), err_msg=f"image {i}", **tol)
+        for name in ("diffuse", "specular"):
+            a, b = getattr(hist_t, name), getattr(hist_j, name)
+            np.testing.assert_allclose(np_(a.rgb), np.asarray(b.rgb), err_msg=f"{name} rgb {i}", **tol)
+            np.testing.assert_allclose(np_(a.cnt), np.asarray(b.cnt), err_msg=f"{name} cnt {i}", **tol)
+            np.testing.assert_array_equal(np_(a.oid), np.asarray(b.oid))
+    top = np_(hist_t.diffuse.cnt).max()
+    assert top == 1.0 if cfg.no_history else top > 2, "history not carried"

@@ -15,12 +15,14 @@ import torch
 
 from kylespathtracer_tpu_torch.diff import inverse
 from kylespathtracer_tpu_torch.ops import frame_grad as fg
+from kylespathtracer_tpu_torch.ops import frame_hist as fh
 from kylespathtracer_tpu_torch.ops import frame_kernel as fk
 from kylespathtracer_tpu_torch.ops import geometry_kernel as gk
 from kylespathtracer_tpu_torch.ops import loss_kernel as lk
 from kylespathtracer_tpu_torch.ops import path_kernel as pk
 from kylespathtracer_tpu_torch.ops import reproject_kernel as rk
-from kylespathtracer_tpu_torch.render import gbuffer, pipeline, wavefront
+from kylespathtracer_tpu_torch.ops import shade_kernel as sk
+from kylespathtracer_tpu_torch.render import gbuffer, passes, pipeline, wavefront
 from kylespathtracer_tpu_torch.render.camera import Camera
 from kylespathtracer_tpu_torch.render.passes import Channel
 from kylespathtracer_tpu_torch.scene.scene import default_scene, sphere_scene
@@ -276,3 +278,85 @@ def test_path_kernel_matches_plain(dev, case):
         wavefront.pathtrace(scene, cam, dataclasses.replace(cfg, path_backend=backend), 1)
     assert pk.LAUNCHES == before + 3
 
+
+
+def _seeded_history(oid, seed):
+    rng = np.random.default_rng(seed)
+    H, W = oid.shape
+    return Channel(
+        rgb=torch.from_numpy(rng.uniform(0.0, 2.0, (H, W, 3)).astype(np.float32)).to(oid.device),
+        cnt=torch.from_numpy(rng.integers(0, 17, (H, W)).astype(np.float32)).to(oid.device),
+        oid=oid.clone(),
+    )
+
+
+@pytest.mark.parametrize("case", ["default", "spheres_soft_smp2"])
+def test_mono_kernel_matches_plain(dev, case):
+    """K8 against its plain version (chip_smoke.py phase 17's classifier,
+    frame_hist.check_agreement), history on the previous camera's oids."""
+    spheres = case != "default"
+    scene = _spheres(dev) if spheres else default_scene(device=dev)
+    kw = dict(soft_shadows=0.05, **SMP2) if spheres else {}
+    cfg = RenderConfig(width=160, height=96, pipeline="fused", temporal_fusion="mono", **kw)
+    prev = Camera.create(loc=(3.0, 2.0, -3.0), orient=(0.0, 0.7), device=dev)
+    cam = Camera.create(loc=(3.001, 1.999, -3.0), orient=(-0.01, 0.702), device=dev)
+    oid = fk.frame_forward(scene, prev, 0, cfg)["oid"]
+    hd, hs = _seeded_history(oid, 1), _seeded_history(oid, 2)
+    before = fh.LAUNCHES
+    out = fh.frame_hist(scene, cam, prev, hd, hs, 1, cfg)
+    torch.cuda.synchronize()
+    assert fh.LAUNCHES == before + 1
+    ref = fh.frame_hist_plain(scene, cam, prev, hd, hs, 1, cfg)
+    fh.check_agreement(out, ref, case)
+    assert ref["d_cnt"].mean().item() > 2.0, "no history carried; the check is vacuous"
+
+
+def test_mono_frame_on_card_matches_cpu(dev):
+    cfg = RenderConfig(width=128, height=64, pipeline="fused", temporal_fusion="mono")
+    hists, imgs = {}, {}
+    for d in (dev, torch.device("cpu")):
+        scene = default_scene(device=d)
+        cam = Camera.create(loc=(3.0, 2.0, -3.0), orient=(0.0, 0.7), device=d)
+        hist = pipeline.init_history(cfg, cam)
+        for i in range(3):
+            cam = Camera(loc=cam.loc, orient=cam.orient + torch.tensor([0.0, 1e-3], device=d))
+            img, hist = pipeline.render_frame(scene, cam, hist, i, cfg)
+        imgs[d.type], hists[d.type] = img, hist.to("cpu")
+    d = (imgs["cuda"].cpu() - imgs["cpu"]).abs()
+    assert torch.isfinite(imgs["cuda"]).all()
+    assert d.median().item() <= 1e-5
+    assert (d > 1e-3).float().mean().item() <= 1e-3
+    assert (hists["cuda"].diffuse.oid == hists["cpu"].diffuse.oid).float().mean() >= 0.999
+
+
+@pytest.mark.parametrize("case", ["default", "spheres_soft"])
+def test_shade_kernel_matches_plain(dev, case):
+    """K4 against its plain version on the G-buffer (chip_smoke.py phase
+    19's classifier); misses and the light are exactly zero."""
+    scene = _spheres(dev) if case == "spheres_soft" else default_scene(device=dev)
+    kw = dict(soft_shadows=0.05) if case == "spheres_soft" else {}
+    cfg = RenderConfig(width=160, height=96, pipeline="pass", shade_backend="pallas", **kw)
+    cam = Camera.create(loc=(3.0, 2.0, -3.0), orient=(0.0, 0.7), device=dev)
+    gb = gbuffer.geometry_pass(scene, cam, cfg)
+    _, seed = passes._shade_common(scene, cfg, gb, cam, 3)
+    before = sk.LAUNCHES
+    est = sk.dual_mis(scene, gb, cam, seed, cfg)
+    torch.cuda.synchronize()
+    assert sk.LAUNCHES == before + 1
+    ref = sk.dual_mis_plain(scene, gb, cam, seed, cfg)
+    fh.check_agreement({"est_d": est[0], "est_s": est[1]}, {"est_d": ref[0], "est_s": ref[1]}, case)
+    off = ~passes._shaded(scene, gb.obj_id)
+    assert off.any() and (est[0][off] == 0).all() and (est[1][off] == 0).all()
+
+
+def test_pass_pipeline_on_card_runs_the_shade_kernel(dev):
+    cfg = RenderConfig(width=128, height=64, pipeline="pass", shade_backend="pallas")
+    scene = default_scene(device=dev)
+    cam = Camera.create(loc=(3.0, 2.0, -3.0), orient=(0.0, 0.7), device=dev)
+    hist = pipeline.init_history(cfg, cam)
+    before = sk.LAUNCHES
+    for i in range(2):
+        img, hist = pipeline.render_frame(scene, cam, hist, i, cfg)
+    torch.cuda.synchronize()
+    assert sk.LAUNCHES == before + 2
+    assert torch.isfinite(img).all() and img.min() >= 0 and img.max() <= 1

@@ -158,23 +158,26 @@ def test_render_sequence_and_animation_equal_the_frame_loop():
         (dict(pipeline="fused", no_history=True), "#9"),
         (dict(pipeline="fused", reproject_backend="xla"), "#9"),
         (dict(pipeline="fused", temporal_fusion="mono"), "#12"),
+        (dict(pipeline="pass", intersect_mode="march"), "#11"),
+        (dict(pipeline="pass", normal_mode="tetra"), "#11"),
     ],
 )
 def test_unported_branches_raise(kw, item):
-    """The branches of render_frame the port does not serve raise, naming
-    their ROADMAP item; the #9 branches (the differentiable frame) are
-    ported now and render (tests/test_torch_frame_grad.py holds them to
-    JAX)."""
+    """The branches of render_frame the port did not serve at first now
+    render (the pass pipeline, #11, and the mono frame, #12: held to JAX in
+    tests/test_torch_passes.py and tests/test_torch_mono.py; the #9
+    branches in tests/test_torch_frame_grad.py); the sphere trace and the
+    tetrahedron normals still raise, naming ROADMAP Queue 1 #11."""
     cfg = to_torch_config(RenderConfig(width=8, height=8, **kw))
     scene_t = to_torch_scene(default_scene())
     cam = to_torch_camera(CAM0)
     hist = pipeline.init_history(cfg, cam)
-    if item == "#9":
-        img, _ = pipeline.render_frame(scene_t, cam, hist, 0, cfg)
-        assert img.shape == (8, 8, 3) and torch.isfinite(img).all()
+    if cfg.intersect_mode == "march" or cfg.normal_mode == "tetra":
+        with pytest.raises(NotImplementedError, match=item):
+            pipeline.render_frame(scene_t, cam, hist, 0, cfg)
         return
-    with pytest.raises(NotImplementedError, match=item):
-        pipeline.render_frame(scene_t, cam, hist, 0, cfg)
+    img, _ = pipeline.render_frame(scene_t, cam, hist, 0, cfg)
+    assert img.shape == (8, 8, 3) and torch.isfinite(img).all()
 
 
 def test_driver_unported_options_raise():
