@@ -12,7 +12,8 @@ it and read just after:
   the backward kernel K5; phase 10);
 - inverse rendering (`diff.inverse.run_recovery`, the JAX package's
   RECOVERY recipe, K1 + the fused loss-and-gradient kernel K6; phase 11),
-  held to its error bounds;
+  held to its error bounds. K5 and K6 are one reverse-mode adjoint pass
+  over the pixels each (csrc/frame_adjoint.cuh);
 - the primary-visibility raycast (`ops.geometry_kernel.geometry_pass` at
   1920×1080, K3; phase 13, held against its plain version and the G-buffer
   module);
@@ -36,7 +37,9 @@ without the ill-conditioned pixels (rays that graze a surface, sampling
 decisions on a rounding boundary: frame_kernel.ill_conditioned), with the
 comparison over every pixel logged beside. Phase 12 also logs K5 on random
 cotangents at 1920×1080 with every table (tools/gradient_witness.py shows
-the pixels behind it), then times K5, K6 and the generic step. Any failed
+the pixels behind it), then times K5, K6 and the generic step, and K5 and
+K6 at the recovery view's shape (192×128, spheres and alb_const), each
+beside its bound and the forward-mode kernels' time. Any failed
 check raises, so the script exits non-zero; it needs one CUDA device and
 fails without one.
 
@@ -97,6 +100,10 @@ def frame_agreement(out: dict, ref: dict, what: str) -> dict:
         + f" (worst {worst} {planes[worst]:.3g})")
     return stats
 
+
+# The forward-mode K5 and K6 that the reverse-mode adjoint replaced, at
+# 1920×1080 with every table (NVIDIA H100 80GB HBM3, 700 W; PERF.md §6).
+FORWARD_MODE_MS = {"K5": (224.7239, 227.5123), "K6": (227.3582, 227.3737)}
 
 # Peaks of one H100 SXM (NVIDIA's data sheet, at the 700 W limit): f32
 # outside the tensor cores, and HBM3.
@@ -352,7 +359,8 @@ def main() -> int:
     _build.load()
     log(f"phase 1: built {path.name} in {time.perf_counter() - t0:.1f} s")
     for label, source in (("K1", "frame_kernel.cu"), ("K3", "geometry_kernel.cu"), ("K7", "path_kernel.cu"),
-                          ("K8", "frame_hist.cu"), ("K4", "shade_kernel.cu")):
+                          ("K8", "frame_hist.cu"), ("K4", "shade_kernel.cu"), ("K5", "frame_grad.cu"),
+                          ("K6", "loss_kernel.cu")):
         log(f"  ptxas {label} ({source}): {ptxas_lines(report.getvalue(), source)}")
 
     def camera(yaw_step=0, device=dev):
@@ -688,8 +696,8 @@ def main() -> int:
     log(f"  K5 {W}x{H}, random cotangents, 13 planes, {int(bad1080.sum())} ill-conditioned pixels masked: "
         f"worst {fg.DIFF_NAMES[ti]}[{entry}], |Δ|/max|ref| {rel:.3g} (not held)")
     k6_err = max(k6_err, k6_check(scene, camera(), 3, cfg, None, "mean", f"K6 {W}x{H} mean, all pixels"))
-    k5_ms = cuda_ms(lambda: fg.frame_backward(scene, camera(), 3, g_all, cfg), reps=3)
-    k6_ms = cuda_ms(lambda: lk.render_loss_and_grad(scene, camera(), 3, cfg, loss="mean"), reps=3)
+    k5_ms = cuda_ms(lambda: fg.frame_backward(scene, camera(), 3, g_all, cfg), reps=10)
+    k6_ms = cuda_ms(lambda: lk.render_loss_and_grad(scene, camera(), 3, cfg, loss="mean"), reps=10)
 
     mats = ("s0", "s1", "alb_const", "alb_scale", "emission", "en_const", "en_scale")
 
@@ -726,6 +734,15 @@ def main() -> int:
     log(f"  plain versions at {W}x{H}: peak {plain_gib:.2f} GiB of device memory")
     log(f"  at {GW}x{GH}: K5 {k5_ms_s:.4f} ms, plain {k5_plain_ms_s:.4f} ms; K6 {k6_ms_s:.4f} ms, "
         f"plain {k6_plain_ms_s:.4f} ms [{card}]")
+    # The recovery view's shape, as run_recovery hands it to K6: one view of
+    # the perturbed start, spheres and alb_const seeded, the first beta.
+    c_rec = RenderConfig(width=192, height=128, soft_shadows=0.05, pipeline="fused")
+    target_rec = inverse.render_once(truth, views[0], c_rec, f0)
+    oid_rec = fk.frame_forward(start, views[0], f0, c_rec)["oid"]
+    g_rec = {k: randn(tuple(oid_rec.shape) + tuple(v.shape[2:])) for k, v in g_all.items()}
+    k5_ms_r = cuda_ms(lambda: fg.frame_backward(start, views[0], f0, g_rec, c_rec, rec_needs), reps=20, warmup=3)
+    k6_ms_r = cuda_ms(lambda: lk.render_loss_and_grad(start, views[0], f0, c_rec, target_rec, "mse", rec_needs),
+                      reps=20, warmup=3)
 
     # Phase 13: the raycast (K3) at 1920x1080 against its plain version and
     # the G-buffer module, then its time.
@@ -979,6 +996,17 @@ def main() -> int:
     # (reverse mode); K6 adds the composite and the loss (~120 per pixel).
     k5_bound = bound(3 * ops1, tab_bytes + sum(v.numel() * 4 for v in g_all.values()))
     k6_bound = bound(3 * (ops1 + 120 * W * H), tab_bytes)
+    ops_rec = frame_ops(start, c_rec, oid_rec)
+    rec_bytes = sum(t.numel() * t.element_size() for t in fk.pack_tables(start, views[0]))
+    k5_bound_r = bound(3 * ops_rec, rec_bytes + sum(v.numel() * 4 for v in g_rec.values()))
+    k6_bound_r = bound(3 * (ops_rec + 120 * oid_rec.numel()), rec_bytes + target_rec.numel() * 4)
+    for label, ms, bnd, ms_r, bnd_r in (("K5", k5_ms, k5_bound, k5_ms_r, k5_bound_r),
+                                        ("K6", k6_ms, k6_bound, k6_ms_r, k6_bound_r)):
+        lo, hi = FORWARD_MODE_MS[label]
+        log(f"  {label} reverse-mode adjoint: {W}x{H} all tables {ms:.4f} ms, {ms / bnd[0]:.1f}x its bound "
+            f"{bnd[0]:.4f} ms ({bnd[1]}), {lo / ms:.1f}-{hi / ms:.1f}x faster than the forward-mode kernel's "
+            f"{lo}-{hi} ms; 192x128 recovery view {ms_r:.4f} ms, {ms_r / bnd_r[0]:.1f}x its bound "
+            f"{bnd_r[0]:.5f} ms ({bnd_r[1]}) [{card}]")
     ops3 = geometry_ops(scene, W * H)
     k3_bound = bound(ops3, tab_bytes + W * H * (5 * 4 + 4))
     ops7 = path_ops(scene, W * H * cfg_pt.spp, tally)

@@ -1,6 +1,6 @@
-// The fused frame's per-pixel body, shared by K1 (frame_kernel.cu, float)
-// and the gradient kernels K5 (frame_grad.cu) and K6 (loss_kernel.cu),
-// which run it on Dual<N> (dual.cuh).
+// The fused frame's per-pixel body, shared by K1 (frame_kernel.cu), K8
+// (frame_hist.cu) and the gradient kernels K5 (frame_grad.cu) and K6
+// (loss_kernel.cu), whose reverse sweep is frame_adjoint.cuh.
 //
 // Per pixel: raygen, nearest analytic hit, closed-form normal and
 // curvature, dual-MIS shade (or the unbiased estimators), emission and
@@ -23,36 +23,31 @@ struct FrameParams {
 };
 
 // Bytes of shared memory `load_tables` uses: the two tables and, for the
-// gradient kernels, one lane byte per f32 entry.
-__host__ __device__ inline size_t table_smem(int nP, int nS, int nB, int nK, bool lanes) {
+// gradient kernels, the block's gradient sum of every f32 entry.
+__host__ __device__ inline size_t table_smem(int nP, int nS, int nB, int nK, bool grad) {
   const int nf = table_floats(nP, nS, nB, nK);
-  return sizeof(float) * nf + sizeof(int) * table_ints(nP, nS, nB) + (lanes ? (size_t)nf : 0);
+  return sizeof(float) * nf * (grad ? 2 : 1) + sizeof(int) * table_ints(nP, nS, nB);
 }
 
-// Copy the tables into shared memory; for the gradient kernels also mark the
-// entries this chunk seeds: seeds[chunk·lanes_per_chunk + j] gets lane j.
-// Every thread of the block calls it.
+// Copy the tables into shared memory; with `grad`, also zero the block's
+// gradient sums and point *grad at them. Every thread of the block calls it.
 __device__ inline Tables load_tables(float* smem, const float* ftab, const int* itab, const FrameParams& P,
-                                     const int* seeds, int n_seeds, int chunk, int lanes_per_chunk) {
+                                     float** grad = nullptr) {
   const int nf = table_floats(P.nP, P.nS, P.nB, P.nK);
   const int ni = table_ints(P.nP, P.nS, P.nB);
   float* sf = smem;
   int* si = reinterpret_cast<int*>(smem + nf);
-  signed char* sl = seeds ? reinterpret_cast<signed char*>(si + ni) : nullptr;
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
   const int nthreads = blockDim.x * blockDim.y;
   for (int i = tid; i < nf; i += nthreads) sf[i] = ftab[i];
   for (int i = tid; i < ni; i += nthreads) si[i] = itab[i];
-  if (sl) {
-    for (int i = tid; i < nf; i += nthreads) sl[i] = -1;
-    __syncthreads();
-    for (int j = tid; j < lanes_per_chunk; j += nthreads) {
-      const int s = chunk * lanes_per_chunk + j;
-      if (s < n_seeds) sl[seeds[s]] = (signed char)j;
-    }
+  if (grad) {
+    float* sg = reinterpret_cast<float*>(si + ni);
+    for (int i = tid; i < nf; i += nthreads) sg[i] = 0.0f;
+    *grad = sg;
   }
   __syncthreads();
-  return make_tables(sf, si, sl, P.nP, P.nS, P.nB, P.nK);
+  return make_tables(sf, si, P.nP, P.nS, P.nB, P.nK);
 }
 
 __device__ __forceinline__ float sign3(float x) { return x > 0.0f ? 1.0f : (x < 0.0f ? -1.0f : 0.0f); }
@@ -182,38 +177,6 @@ __device__ void frame_pixel(const Tables& T, const FrameParams& P, int px, int p
   out[11] = depth;
   out[12] = curv;
   oid_out = oid;
-}
-
-// ------------------------------------------------- the gradient kernels
-// K5 and K6 run the frame body on DualNT: each pixel carries NT tangents, one
-// per seeded table entry of its chunk, and the chunk is the grid's z index.
-
-constexpr int NT = 4;  // tangent lanes per chunk
-using DualNT = Dual<NT>;
-
-// Their grid: 16×8 pixel blocks, one z layer per chunk of NT seeds (at
-// least one).
-inline dim3 grad_grid(int width, int height, int n_seeds) {
-  const int chunks = n_seeds > 0 ? (n_seeds + NT - 1) / NT : 1;
-  return dim3((width + 15) / 16, (height + 7) / 8, chunks);
-}
-
-// Add the sum of v over the warp to *dst: shuffles, then one atomicAdd from
-// lane 0. Every lane of the warp must call it.
-__device__ __forceinline__ void warp_add(float v, float* dst) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
-  if (((threadIdx.y * blockDim.x + threadIdx.x) & 31) == 0) atomicAdd(dst, v);
-}
-
-// The epilogue of both: add each tangent lane's warp sum to the gradient of
-// its seed, out_g[chunk·NT + i], for the lanes that hold a seed.
-__device__ __forceinline__ void add_tangents(const float (&acc)[NT], float* out_g, int n_seeds) {
-  const int base = blockIdx.z * NT;
-#pragma unroll
-  for (int i = 0; i < NT; ++i) {
-    if (base + i < n_seeds) warp_add(acc[i], out_g + base + i);  // the same for the whole block
-  }
 }
 
 }  // namespace kpt

@@ -124,7 +124,7 @@ __global__ void __launch_bounds__(128, 5)
                       float* __restrict__ out_srgb, float* __restrict__ out_scnt, float* __restrict__ out_alb,
                       float* __restrict__ out_ene, int* __restrict__ out_oid) {
   extern __shared__ float smem[];
-  const Tables T = load_tables(smem, ftab, itab, P, nullptr, 0, 0, 0);
+  const Tables T = load_tables(smem, ftab, itab, P);
 
   const int x = blockIdx.x * blockDim.x + threadIdx.x;
   const int y = blockIdx.y * blockDim.y + threadIdx.y;

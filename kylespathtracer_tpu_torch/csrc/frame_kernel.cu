@@ -35,7 +35,7 @@ __global__ void __launch_bounds__(128, 5) frame_kernel(const float* __restrict__
                                                        const int* __restrict__ itab, FrameParams P,
                                                        float* __restrict__ out_f, int* __restrict__ out_oid) {
   extern __shared__ float smem[];
-  const Tables T = load_tables(smem, ftab, itab, P, nullptr, 0, 0, 0);
+  const Tables T = load_tables(smem, ftab, itab, P);
 
   const int x = blockIdx.x * blockDim.x + threadIdx.x;
   const int r = blockIdx.y * blockDim.y + threadIdx.y;

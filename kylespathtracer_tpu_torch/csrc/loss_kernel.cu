@@ -4,20 +4,21 @@
 // (its body `_loss_grad_kernel`: frame_block, the fresh-history composite,
 // ACES and sRGB, then MSE against a target or the plain sum, and jax.vjp of
 // that scalar with cotangent 1). One launch returns the summed per-pixel
-// loss and its gradient for every seeded entry of the flat f32 scene table
-// (ops/frame_kernel.py:pack_tables order); the wrapper divides both by
-// H·W·3.
+// loss and its gradient for every requested entry of the flat f32 scene
+// table (ops/frame_kernel.py:pack_tables order); the wrapper divides both
+// by H·W·3.
 //
 // What bounds it on an H100: arithmetic, as for K5 (frame_grad.cu). Device
 // memory sees the target (3 f32 per pixel) and a few hundred gradient
 // floats; no image plane is written.
 //
-// Design: K5's forward-mode kernel (frame_grad.cu) with another per-pixel
-// epilogue. The frame body runs on Dual<NT>, the composite and the loss
-// follow on the same duals, and the loss's NT tangents are summed per warp
-// and added with one atomicAdd per warp and lane. Chunks of NT seeded
-// entries are the grid's z dimension; chunk 0 also sums the loss value.
-#include "frame_core.cuh"
+// Design: K5's reverse-mode pass (frame_adjoint.cuh) with another source of
+// the cotangents. Each thread runs its pixel's frame forward in float, then
+// the composite and the loss on Dual<11> over the 11 planes they read (a
+// leaf Jacobian: its tangents are the planes' cotangents), sums the loss
+// per warp, and hands the cotangents to frame_pixel_adjoint. The grid
+// covers the pixels only.
+#include "frame_adjoint.cuh"
 
 namespace kpt {
 
@@ -57,50 +58,55 @@ __device__ void composite_pixel(const S v[13], float brightness, S img[3]) {
   }
 }
 
-__global__ void __launch_bounds__(128) loss_grad_kernel(const float* __restrict__ ftab, const int* __restrict__ itab,
-                                                        const int* __restrict__ seeds, int n_seeds, FrameParams P,
-                                                        float brightness, int mse, const float* __restrict__ target,
-                                                        float* __restrict__ out_loss, float* __restrict__ out_g) {
+__global__ void __launch_bounds__(128, 5) loss_grad_kernel(const float* __restrict__ ftab, const int* __restrict__ itab,
+                                                           const int* __restrict__ seeds, int n_seeds, FrameParams P,
+                                                           float brightness, int mse, const float* __restrict__ target,
+                                                           float* __restrict__ out_loss, float* __restrict__ out_g) {
   extern __shared__ float smem[];
-  const Tables T = load_tables(smem, ftab, itab, P, seeds, n_seeds, blockIdx.z, NT);
-
+  float* sg;
+  const Tables T = load_tables(smem, ftab, itab, P, &sg);
+  Grad G(sg);
   const int x = blockIdx.x * blockDim.x + threadIdx.x;
   const int r = blockIdx.y * blockDim.y + threadIdx.y;
-  float acc[NT];
-#pragma unroll
-  for (int i = 0; i < NT; ++i) acc[i] = 0.0f;
   float lsum = 0.0f;
-  // Threads off the image stay for the warp sums below.
+  // Threads off the image stay for the sums below.
   if (x < P.width && r < P.rows) {
-    DualNT vals[13];
+    float vals[13];
     int oid;
-    frame_pixel<DualNT>(T, P, x, P.row_base + r, vals, oid);
-    DualNT img[3];
-    composite_pixel(vals, brightness, img);
+    frame_pixel<float>(T, P, x, P.row_base + r, vals, oid);
+    using D = Dual<11>;  // the composite reads planes 0-10
+    D v[13];
+#pragma unroll
+    for (int k = 0; k < 13; ++k) v[k] = seeded<11>(vals[k], k < 11 ? k : -1);
+    D img[3];
+    composite_pixel(v, brightness, img);
     const size_t plane = (size_t)P.rows * (size_t)P.width;
     const size_t o = (size_t)r * (size_t)P.width + (size_t)x;
-    DualNT l = 0.0f;
+    D l = 0.0f;
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
       if (mse) {
-        const DualNT res = img[c] - target[c * plane + o];
+        const D res = img[c] - target[c * plane + o];
         l = l + res * res;
       } else {
         l = l + img[c];
       }
     }
     lsum = l.v;
+    float gbar[13];
 #pragma unroll
-    for (int i = 0; i < NT; ++i) acc[i] = l.d[i];
+    for (int k = 0; k < 13; ++k) gbar[k] = k < 11 ? l.d[k] : 0.0f;
+    frame_pixel_adjoint(T, P, x, P.row_base + r, gbar, G);
   }
-  if (blockIdx.z == 0) warp_add(lsum, out_loss);
-  add_tangents(acc, out_g, n_seeds);
+  warp_add(lsum, out_loss);
+  flush_grad(T, G, seeds, n_seeds, out_g);
 }
 
 }  // namespace kpt
 
 // target: [3][height][width] planes (read when mse != 0). out_loss[1] and
-// out_g[n_seeds] must be zeroed; both hold sums over the pixels.
+// out_g[n_seeds] must be zeroed; both hold sums over the pixels, out_g[i]
+// the gradient of flat-table entry seeds[i].
 extern "C" int kpt_loss_grad(const float* ftab, const int* itab, const int* seeds, int n_seeds, int nP, int nS,
                              int nB, int nK, int width, int height, float fov, int frame, int smp, int decorrelate,
                              int biased, float soft_beta, int gloss, float brightness, int mse, const float* target,
@@ -109,7 +115,9 @@ extern "C" int kpt_loss_grad(const float* ftab, const int* itab, const int* seed
   kpt::FrameParams P{nP, nS, nB, nK, width, height, fov, frame, 0, height,
                      smp, decorrelate, biased, soft_beta, gloss};
   const size_t shmem = kpt::table_smem(nP, nS, nB, nK, true);
-  kpt::loss_grad_kernel<<<kpt::grad_grid(width, height, n_seeds), dim3(16, 8), shmem, (cudaStream_t)stream>>>(
-      ftab, itab, seeds, n_seeds, P, brightness, mse, target, out_loss, out_g);
+  const dim3 grid((width + 15) / 16, (height + 7) / 8);
+  kpt::loss_grad_kernel<<<grid, dim3(16, 8), shmem, (cudaStream_t)stream>>>(ftab, itab, seeds, n_seeds, P,
+                                                                             brightness, mse, target, out_loss,
+                                                                             out_g);
   return (int)cudaGetLastError();
 }

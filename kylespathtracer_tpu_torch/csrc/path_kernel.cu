@@ -263,7 +263,7 @@ __global__ void __launch_bounds__(128) path_kernel(const float* __restrict__ fta
                                                    PathParams P, float* __restrict__ out) {
   extern __shared__ float smem[];
   const FrameParams& F = P.F;
-  const Tables T = load_tables(smem, ftab, itab, F, nullptr, 0, 0, 0);
+  const Tables T = load_tables(smem, ftab, itab, F);
   // The material kinds and iors follow the scene tables in shared memory.
   int* s_kinds = reinterpret_cast<int*>(smem + table_floats(F.nP, F.nS, F.nB, F.nK)) + table_ints(F.nP, F.nS, F.nB);
   float* s_iors = reinterpret_cast<float*>(s_kinds + F.nK);

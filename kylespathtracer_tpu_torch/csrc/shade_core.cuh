@@ -8,12 +8,13 @@
 // returns early or indexes the selected table row: the same result, since
 // the unselected lanes never reach the output.
 //
-// Generic over the scalar type S (dual.cuh): the frame kernel (K1) runs it on
-// float, the gradient kernels (K5, K6) on Dual<N>, in the same operation
-// order, so K1's arithmetic is what it was before the templates. What only
-// decides (the occlusion tests, the soft-shadow trace's object ID, the
-// roulette's choice, the contribution march's hit point) runs on the values
-// alone: it carries no derivative, as in the tensor code.
+// Generic over the scalar type S: the kernels run it on float; the reverse
+// sweep of the gradient kernels (frame_adjoint.cuh) also runs its vector
+// helpers and powi on dual.cuh's Dual<N>, in the same operation order, for
+// the leaf Jacobians it takes in forward mode. What only decides (the
+// occlusion tests, the soft-shadow trace's object ID, the roulette's
+// choice, the contribution march's hit point) runs on the values alone: it
+// carries no derivative, as in the tensor code.
 //
 // Integer hashing runs in uint32 (wraparound is defined there) and is cast
 // back to int32, matching the int32 wraparound of the tensor code.
@@ -69,12 +70,9 @@ __device__ __forceinline__ V3T<S> reflect(V3T<S> i, V3T<S> n) {
 
 // The scene tables: offsets into the flat f32 table `f`, in the order
 // ops/frame_kernel.py:pack_tables writes them, and the i32 ID tables.
-// `lane` gives each f entry's tangent lane in this chunk (-1: not seeded);
-// only the gradient kernels read it.
 struct Tables {
   int nP, nS, nB, nK;
   const float* f;
-  const signed char* lane;
   int planes, spheres, boxes, light_color, light;
   int s0, s1, freq, alb_const, alb_scale, emission, en_const, en_scale;
   int cam, orient;
@@ -87,12 +85,10 @@ __host__ __device__ inline int table_floats(int nP, int nS, int nB, int nK) {
 }
 __host__ __device__ inline int table_ints(int nP, int nS, int nB) { return nP + nS + nB + 1; }
 
-__device__ inline Tables make_tables(const float* f, const int* i, const signed char* lane, int nP, int nS,
-                                     int nB, int nK) {
+__device__ inline Tables make_tables(const float* f, const int* i, int nP, int nS, int nB, int nK) {
   Tables t;
   t.nP = nP; t.nS = nS; t.nB = nB; t.nK = nK;
   t.f = f;
-  t.lane = lane;
   int o = 0;
   t.planes = o; o += nP * 4;
   t.spheres = o; o += nS * 4;
@@ -116,13 +112,9 @@ __device__ inline Tables make_tables(const float* f, const int* i, const signed 
   return t;
 }
 
-// Entry k of the flat f32 table as an S (seeded if S is a dual).
+// Entry k of the flat f32 table as an S.
 template <typename S>
-__device__ __forceinline__ S tab(const Tables& T, int k) {
-  return Scalar<S>::load(T.f[k], T.lane ? (int)T.lane[k] : -1);
-}
-template <>
-__device__ __forceinline__ float tab<float>(const Tables& T, int k) { return T.f[k]; }
+__device__ __forceinline__ S tab(const Tables& T, int k) { return T.f[k]; }
 
 // ------------------------------------------------------------- sampling
 
@@ -255,21 +247,27 @@ __device__ __forceinline__ float sphere_t_far(const Tables& T, int s, V3 o, V3 d
 // Nearest hit → (t, oid) over planes, spheres and rounded boxes. With
 // INSIDE_HITS (float only: the path kernel's dielectric continuation rays)
 // a sphere is hit at its far root from inside; the default instantiation is
-// the frame kernels' trace.
-template <typename S, bool INSIDE_HITS = false>
-__device__ void trace(const Tables& T, V3T<S> ro, V3T<S> rd, int excl, S& t_out, int& id_out) {
+// the frame kernels' trace. With RECORD, *win names the winning candidate
+// (frame_adjoint.cuh reverses its t alone): plane p → p, sphere s → 256 + s,
+// rounded box bx → 512 + 32·bx + part, part 0-5 a face (2k + si), 6-17 an
+// edge cylinder (6 + 4k + 2ii + jj), 18-25 a corner sphere (18 + c).
+template <typename S, bool INSIDE_HITS = false, bool RECORD = false>
+__device__ void trace(const Tables& T, V3T<S> ro, V3T<S> rd, int excl, S& t_out, int& id_out,
+                      int* win = nullptr) {
   S best_t = INF_T;
   int best_id = 0;
-  auto consider = [&](const S& t, int oid, bool valid) {
+  int best_win = -1;
+  auto consider = [&](const S& t, int oid, bool valid, int code) {
     if (valid && t > 0.0f && oid != excl && t < best_t) {
       best_t = t;
       best_id = oid;
+      if constexpr (RECORD) best_win = code;
     }
   };
   for (int p = 0; p < T.nP; ++p) {
     bool front;
     S t = plane_t(T, p, ro, rd, front);
-    consider(t, T.plane_ids[p], front);
+    consider(t, T.plane_ids[p], front, p);
   }
   for (int s = 0; s < T.nS; ++s) {
     float disc;
@@ -279,7 +277,7 @@ __device__ void trace(const Tables& T, V3T<S> ro, V3T<S> rd, int excl, S& t_out,
     } else {
       t = sphere_t(T, s, ro, rd, disc);
     }
-    consider(t, T.sphere_ids[s], disc > 0.0f);
+    consider(t, T.sphere_ids[s], disc > 0.0f, 256 + s);
   }
   for (int bx = 0; bx < T.nB; ++bx) {
     const int q = T.boxes + bx * 7;
@@ -298,7 +296,7 @@ __device__ void trace(const Tables& T, V3T<S> ro, V3T<S> rd, int excl, S& t_out,
         S t = (sgn * (hext[k] + rnd) - o[k]) / dk;
         S p1 = o[j1] + d[j1] * t;
         S p2 = o[j2] + d[j2] * t;
-        consider(t, oid, fabsf(p1) <= hext[j1] && fabsf(p2) <= hext[j2]);
+        consider(t, oid, fabsf(p1) <= hext[j1] && fabsf(p2) <= hext[j2], 512 + 32 * bx + 2 * k + si);
       }
     }
 #pragma unroll
@@ -320,7 +318,8 @@ __device__ void trace(const Tables& T, V3T<S> ro, V3T<S> rd, int excl, S& t_out,
           S pk = o[k] + d[k] * t;
           consider(t, oid,
                    disc > 0.0f && fabsf(pk) <= hext[k] && (oi + d[i] * t) * si > 0.0f &&
-                       (oj + d[j] * t) * sj > 0.0f);
+                       (oj + d[j] * t) * sj > 0.0f,
+                   512 + 32 * bx + 6 + 4 * k + 2 * ii + jj);
         }
       }
     }
@@ -336,7 +335,8 @@ __device__ void trace(const Tables& T, V3T<S> ro, V3T<S> rd, int excl, S& t_out,
       S t = -b - sqrtf(fmaxf(disc, 1e-12f));
       consider(t, oid,
                disc > 0.0f && (oc.x + d[0] * t) * sx > 0.0f && (oc.y + d[1] * t) * sy > 0.0f &&
-                   (oc.z + d[2] * t) * sz > 0.0f);
+                   (oc.z + d[2] * t) * sz > 0.0f,
+               512 + 32 * bx + 18 + c);
     }
   }
   // Pull back by eps; clamp misses (common.glsl:289-294).
@@ -344,6 +344,7 @@ __device__ void trace(const Tables& T, V3T<S> ro, V3T<S> rd, int excl, S& t_out,
   bool miss = t > ZFAR || best_id == 0;
   t_out = miss ? S(ZFAR) : t;
   id_out = miss ? 0 : best_id;
+  if constexpr (RECORD) *win = best_win;
 }
 
 // ------------------------------------------------ occlusion-only tests
@@ -601,17 +602,31 @@ __device__ void shade_core_unbiased(const Tables& T, V3 hn, V3 rd, int ho, V3 hl
 
 // ----------------------------------------------------------- shade core
 
+// The logistic function 1/(1+e^-x). Its derivative is s·(1-s)
+// (frame_adjoint.cuh): the quotient form's, e^-x/(1+e^-x)², is inf/inf =
+// NaN once e^-x overflows, as torch.sigmoid's and jax.nn.sigmoid's
+// derivatives are not.
+__device__ __forceinline__ float sigmoid(float x) { return 1.0f / (1.0f + expf(-x)); }
+
+// Sphere s's smooth visibility factor along the shadow ray from hl in
+// direction dl_dir, up to t_surf.
+template <typename S>
+__device__ __forceinline__ S sphere_transmittance(const Tables& T, int s, V3T<S> hl, V3T<S> dl_dir, S t_surf,
+                                                  float beta) {
+  const int q = T.spheres + s * 4;
+  V3T<S> c = mk(tab<S>(T, q), tab<S>(T, q + 1), tab<S>(T, q + 2));
+  S tc = clip(dot(sub(c, hl), dl_dir), EPS, t_surf);
+  V3T<S> closest = mk(hl.x + dl_dir.x * tc - c.x, hl.y + dl_dir.y * tc - c.y, hl.z + dl_dir.z * tc - c.z);
+  S sd = sqrtf(fmaxf(dot(closest, closest), 1e-20f)) - tab<S>(T, q + 3);
+  return sigmoid(sd / (beta * tc));
+}
+
 // Smooth shadow-ray visibility over the spheres, skipping the light and ho.
 template <typename S>
 __device__ S soft_transmittance(const Tables& T, V3T<S> hl, V3T<S> dl_dir, S t_surf, int ho, float beta) {
   S trans = 1.0f;
   for (int s = 0; s < T.nS; ++s) {
-    const int q = T.spheres + s * 4;
-    V3T<S> c = mk(tab<S>(T, q), tab<S>(T, q + 1), tab<S>(T, q + 2));
-    S tc = clip(dot(sub(c, hl), dl_dir), EPS, t_surf);
-    V3T<S> closest = mk(hl.x + dl_dir.x * tc - c.x, hl.y + dl_dir.y * tc - c.y, hl.z + dl_dir.z * tc - c.z);
-    S sd = sqrtf(fmaxf(dot(closest, closest), 1e-20f)) - tab<S>(T, q + 3);
-    S v = sigmoid(sd / (beta * tc));
+    S v = sphere_transmittance(T, s, hl, dl_dir, t_surf, beta);
     int sid = T.sphere_ids[s];
     bool skip = sid == T.light_id || sid == ho;
     trans = trans * (skip ? S(1.0f) : v);

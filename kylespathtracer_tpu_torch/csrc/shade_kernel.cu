@@ -26,7 +26,7 @@ __global__ void __launch_bounds__(128, 5) shade_kernel(const float* __restrict__
                                                        const float* __restrict__ ray_dir, const int* __restrict__ seed,
                                                        float* __restrict__ est_d, float* __restrict__ est_s) {
   extern __shared__ float smem[];
-  const Tables T = load_tables(smem, ftab, itab, P, nullptr, 0, 0, 0);
+  const Tables T = load_tables(smem, ftab, itab, P);
 
   const int x = blockIdx.x * blockDim.x + threadIdx.x;
   const int y = blockIdx.y * blockDim.y + threadIdx.y;

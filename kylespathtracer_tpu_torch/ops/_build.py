@@ -26,7 +26,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("frame_kernel.cu", "reproject_kernel.cu", "frame_grad.cu", "loss_kernel.cu",
            "geometry_kernel.cu", "path_kernel.cu", "frame_hist.cu", "shade_kernel.cu")
-HEADERS = ("dual.cuh", "shade_core.cuh", "frame_core.cuh", "reproject_core.cuh")
+HEADERS = ("dual.cuh", "shade_core.cuh", "frame_core.cuh", "frame_adjoint.cuh", "reproject_core.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC",

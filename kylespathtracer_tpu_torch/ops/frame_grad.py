@@ -5,10 +5,11 @@ the frame dict of `frame_kernel.frame_forward` through `FrameForward`, a
 `torch.autograd.Function` whose forward is the frame kernel (K1) and whose
 backward recomputes the frame and applies its vector-Jacobian product to
 the incoming cotangent planes: `frame_backward`, which launches
-csrc/frame_grad.cu (K5) on CUDA tensors and runs `frame_backward_plain`
-(autograd through `frame_kernel.frame_forward_plain`) on CPU tensors. No
-activation is saved between the two: the residuals are the scene, the
-camera and the frame index.
+csrc/frame_grad.cu (K5, one reverse-mode adjoint pass over the pixels) on
+CUDA tensors and runs `frame_backward_plain` (autograd through
+`frame_kernel.frame_forward_plain`) on CPU tensors. No activation is saved
+between the two: the residuals are the scene, the camera and the frame
+index.
 
 Gradient semantics are those of the tensor code: analytic-intersection
 derivatives, hard visibility tests contribute zero, and
@@ -86,7 +87,7 @@ def _layout(scene: Scene) -> list:
 
 def seed_indices(scene: Scene, needs, device) -> torch.Tensor:
     """The flat-table entries whose gradients `needs` asks for, in order:
-    the kernels' tangent seeds (int32, on `device`)."""
+    the entries the gradient kernels write out (int32, on `device`)."""
     parts = [torch.arange(off, off + rows * cols, dtype=torch.int32, device=device)
              for (off, rows, cols), need in zip(_layout(scene), needs) if need]
     if not parts:

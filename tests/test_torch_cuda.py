@@ -202,6 +202,66 @@ def test_gradient_kernels_match_plain_on_well_conditioned_pixels(dev, case):
     _tables_agree(got, want)
 
 
+# Where the reverse sweep of K5 and K6 (csrc/frame_adjoint.cuh) branches: a
+# close view of the rounded box (faces, edge cylinders and corner spheres
+# win the primary trace), cotangents on depth and curv alone, subsets of the
+# tables, decorrelated samples, the unbiased estimators and a scene with no
+# plane. Each case: (scene, camera, config, K5's cotangent planes, tables).
+BOX_VIEW = ((6.0, 1.8, -6.2), (-0.5, 2.2))
+ADJOINT_CASES = {
+    "box_close": ("default", BOX_VIEW, {}, fg.OUT_KEYS[:6], None),
+    "box_close_soft": ("default", BOX_VIEW, dict(soft_shadows=0.05), fg.OUT_KEYS[:6], None),
+    "depth_curv": ("default", None, {}, ("depth", "curv"), None),
+    "spheres_only": ("spheres", None, dict(soft_shadows=0.05), fg.OUT_KEYS[:6], ("spheres",)),
+    "materials_only": ("spheres", None, {}, ("add_d", "add_s", "alb", "ene"),
+                       ("s0", "s1", "alb_const", "alb_scale", "emission", "en_const", "en_scale")),
+    "smp2_decorrelate": ("spheres", None, dict(decorrelate_samples=True, **SMP2), fg.OUT_KEYS[:6], None),
+    "unbiased_smp2": ("default", None, dict(biased=False, **SMP2), fg.OUT_KEYS[:6], None),
+    "no_planes_unbiased": ("no_planes", None, dict(biased=False), fg.OUT_KEYS[:6], None),
+}
+
+
+@pytest.mark.parametrize("case", list(ADJOINT_CASES))
+def test_gradient_kernels_match_plain_where_the_adjoint_branches(dev, case):
+    """K5 (one launch, the case's cotangent planes) and K6 (mse, one
+    launch) against their plain versions at 160×96, the ill-conditioned
+    pixels given no cotangent (K6: the plain image as their target)."""
+    which, view, kw, keys, names = ADJOINT_CASES[case]
+    scene = {"default": lambda: default_scene(device=dev), "spheres": lambda: _spheres(dev),
+             "no_planes": lambda: _spheres(dev, with_floor=False)}[which]()
+    loc, orient = view or ((3.0, 2.0, -3.0), (0.0, 0.7))
+    cam = Camera.create(loc=loc, orient=orient, device=dev)
+    cfg = RenderConfig(width=160, height=96, **kw)
+    needs = fg.needs_for(names)
+    out, ref = fk.frame_forward(scene, cam, 3, cfg), fk.frame_forward_plain(scene, cam, 3, cfg)
+    if view is not None:  # edge cylinders and corner spheres have curvature, faces none
+        box = ref["oid"] == int(scene.box_ids[0])
+        assert (box & (ref["curv"] > 0)).any() and (box & (ref["curv"] == 0)).any()
+    bad = fk.ill_conditioned(out, ref)
+    keep = (~bad).float()
+    g = {k: _randn(out[k].shape, dev, i) * (keep[..., None] if out[k].ndim == 3 else keep)
+         for i, k in enumerate(keys)}
+    before = fg.LAUNCHES
+    got = fg.frame_backward(scene, cam, 3, g, cfg, needs)
+    torch.cuda.synchronize()
+    assert fg.LAUNCHES == before + 1
+    want = fg.frame_backward_plain(scene, cam, 3, g, cfg, needs)
+    assert any(w is not None and w.abs().max() > 0 for w in want)
+    _tables_agree(got, want)
+    image = torch.stack(lk._composite_planes(
+        [ref["alb"][..., c] for c in range(3)], [ref["ene"][..., c] for c in range(2)],
+        [ref["add_d"][..., c] for c in range(3)], [ref["add_s"][..., c] for c in range(3)],
+        float(cfg.brightness)), dim=-1)
+    target = torch.where(bad[..., None], image, _randn((cfg.height, cfg.width, 3), dev).sigmoid())
+    before = lk.LAUNCHES
+    la, got = lk.render_loss_and_grad(scene, cam, 3, cfg, target, "mse", needs)
+    torch.cuda.synchronize()
+    assert lk.LAUNCHES == before + 1
+    lb, want = lk.render_loss_and_grad_plain(scene, cam, 3, cfg, target, "mse", needs)
+    torch.testing.assert_close(la, lb, rtol=1e-5, atol=0)
+    _tables_agree(got, want)
+
+
 def test_generic_and_fused_gradients_agree(dev):
     """Autograd through the differentiable frame (K1, K5) and the fused
     step (K6) give the same loss and gradients."""

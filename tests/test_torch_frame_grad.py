@@ -222,6 +222,119 @@ def test_assemble_grads_folds_light_and_crops_padding():
     assert d_scene["light_color"].shape == (3,) and d_cam["orient"].shape == (2,)
 
 
+# ---------------------------------------------- sparsity of the gradient
+# The reverse sweep of K5 and K6 (csrc/frame_adjoint.cuh) reaches a table row
+# only through the branch a pixel took: the nearest hit's winning candidate,
+# the normal of the object hit, and, with hard shadows, no occluding sphere.
+# These hold the plain version (the CPU route of K5) and JAX's vjp to the
+# zeros that design relies on.
+
+BOX_CAM = Camera.create(loc=(6.0, 1.8, -6.2), orient=(-0.5, 2.2))  # a close view of the rounded box
+
+
+@functools.lru_cache(maxsize=None)
+def _sparsity_vjp(which: str):
+    """(JAX scene, camera, config, frame outputs, vjp) of `which`."""
+    scene, cam, kw = {
+        "box": (default_scene(), BOX_CAM, {}),
+        "spheres_hard": (_spheres(), CAM, {}),
+        "spheres_soft": (_spheres(), CAM, dict(soft_shadows=0.05)),
+    }[which]
+    cfg = RenderConfig(width=W, height=H, **kw)
+    out, vjp = jax.vjp(lambda s, c: jfk.frame_forward_jnp(s, c, jnp.int32(FRAME), cfg), scene, cam)
+    return scene, cam, cfg, {k: np.asarray(v) for k, v in out.items()}, vjp
+
+
+def _both_grads(which: str, cots: dict):
+    """(the port's plain K5, JAX's vjp) gradients by name for cotangent
+    planes `cots` (numpy, by frame-dict key)."""
+    scene, cam, cfg, out, vjp = _sparsity_vjp(which)
+    ct = {k: (np.zeros(v.shape, jax.dtypes.float0) if k == "oid"
+              else jnp.asarray(cots[k]) if k in cots else jnp.zeros_like(v))
+          for k, v in out.items()}
+    ref = _jax_grads(*vjp(ct))
+    sc, cm = to_torch_scene(scene), to_torch_camera(cam)
+    tables = fg.frame_backward(sc, cm, FRAME, {k: torch.from_numpy(v) for k, v in cots.items()},
+                               to_torch_config(cfg))
+    d_scene, d_cam = fg.assemble_grads(sc, cm, tables, sc.light_index)
+    return {k: np_(v) for k, v in {**d_scene, **d_cam}.items()}, ref
+
+
+def _one_hot_depth(which: str, oid: int) -> tuple:
+    """A depth cotangent of 1 at the first well-conditioned pixel whose
+    object ID is `oid` → both gradients by name."""
+    scene, cam, cfg, out, _ = _sparsity_vjp(which)
+    bad = ill_conditioned(out, scene, cfg, cam=cam)
+    ys, xs = np.nonzero((out["oid"] == oid) & ~bad)
+    assert ys.size, f"no pixel of object {oid} in view"
+    depth = np.zeros((H, W), np.float32)
+    depth[ys[0], xs[0]] = 1.0
+    return _both_grads(which, {"depth": depth})
+
+
+def _assert_only(grads: dict, nonzero) -> None:
+    """Exactly zero outside `nonzero` (names); something non-zero in each."""
+    for name in fg.GRAD_NAMES:
+        g = grads[name]
+        if name in nonzero:
+            assert np.abs(g).max() > 0, name
+        else:
+            assert not np.any(g), f"{name} should be exactly zero: {g}"
+
+
+def test_depth_at_a_box_pixel_reaches_only_the_box_and_the_camera():
+    got, ref = _one_hot_depth("box", int(default_scene().box_ids[0]))
+    for grads in (got, ref):
+        _assert_only(grads, ("boxes", "loc", "orient"))
+    _assert_tables(got, ref, fg.GRAD_NAMES)
+
+
+def test_depth_at_a_sphere_pixel_reaches_only_that_sphere_and_the_camera():
+    scene = _spheres()
+    hit = 2  # the second of the three spheres after the light
+    got, ref = _one_hot_depth("spheres_hard", int(scene.sphere_ids[hit]))
+    for grads in (got, ref):
+        _assert_only(grads, ("spheres", "loc", "orient"))
+        rows = np.abs(grads["spheres"]).max(axis=1)
+        assert rows[hit] > 0 and not np.delete(rows, hit).any(), rows
+    _assert_tables(got, ref, fg.GRAD_NAMES)
+
+
+def _off_the_spheres() -> np.ndarray:
+    """bool[H,W]: pixels that hit no sphere, whose shading no sphere other
+    than the light changes (the spheres shrunk to a point leave their
+    planes bitwise equal) and that are well conditioned."""
+    scene, cam, cfg, out, _ = _sparsity_vjp("spheres_hard")
+    sc = to_torch_scene(scene)
+    shrunk = sc.spheres.clone()
+    shrunk[1:, 3] = 1e-6
+    gone = fk.frame_forward_plain(dataclasses.replace(sc, spheres=shrunk), to_torch_camera(cam), FRAME,
+                                  to_torch_config(cfg))
+    same = np.all(np_(gone["add_d"]) == out["add_d"], -1) & np.all(np_(gone["add_s"]) == out["add_s"], -1)
+    keep = same & ~np.isin(out["oid"], np.asarray(scene.sphere_ids)) & ~ill_conditioned(out, scene, cfg)
+    assert keep.mean() > 0.5
+    return keep
+
+
+@pytest.mark.parametrize("shadows", ["hard", "soft"])
+def test_spheres_other_than_the_light_and_the_shading_cotangent(shadows):
+    """Cotangents on add_d/add_s at pixels that hit neither a sphere nor its
+    shadow: with hard shadows a sphere that is not the light gets exactly
+    zero (an occlusion test carries no derivative); with soft shadows its
+    smooth transmittance reaches it."""
+    keep = _off_the_spheres()[..., None].astype(np.float32)
+    rng = np.random.default_rng(5)
+    cots = {k: (rng.normal(size=(H, W, 3)) * keep).astype(np.float32) for k in ("add_d", "add_s")}
+    got, ref = _both_grads(f"spheres_{shadows}", cots)
+    for grads in (got, ref):
+        others = grads["spheres"][1:]  # row 0 is the light
+        if shadows == "hard":
+            assert not np.any(others), others
+        else:
+            assert np.abs(others).max() > 1e-3 * np.abs(grads["spheres"]).max(), others
+    _assert_tables(got, ref, fg.GRAD_NAMES)
+
+
 # ------------------------------------------------ the differentiable frame
 
 FRAME_CFGS = {
