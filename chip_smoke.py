@@ -35,11 +35,14 @@ versions: K5 and K6 at 256×128 with every pixel (phases 8-9), K6 (mean) at
 scene (phase 9) and K5 on train_step's own cotangent at 1920×1080 (phase 12)
 without the ill-conditioned pixels (rays that graze a surface, sampling
 decisions on a rounding boundary: frame_kernel.ill_conditioned), with the
-comparison over every pixel logged beside. Phase 12 also logs K5 on random
-cotangents at 1920×1080 with every table (tools/gradient_witness.py shows
-the pixels behind it), then times K5, K6 and the generic step, and K5 and
-K6 at the recovery view's shape (192×128, spheres and alb_const), each
-beside its bound and the forward-mode kernels' time. Any failed
+comparison over every pixel logged beside; so is K5 on random cotangents at
+1920×1080 with every table (phase 12; tools/gradient_witness.py shows the
+pixels behind the unmasked distance). Phase 12 then times K5, K6 and the
+generic step, and K5 and K6 at the recovery view's shape (192×128, spheres
+and alb_const), each beside its bound and the forward-mode kernels' time.
+K1 and K8 are timed alone (CUDA events around their launch) and with their
+wrappers (phases 6 and 18), K1 also at the recovery view, beside the
+registers, stack and spill of their build (phase 1). Any failed
 check raises, so the script exits non-zero; it needs one CUDA device and
 fails without one.
 
@@ -109,6 +112,13 @@ FORWARD_MODE_MS = {"K5": (224.7239, 227.5123), "K6": (227.3582, 227.3737)}
 # outside the tensor cores, and HBM3.
 F32_FLOPS = 67e12
 HBM_BYTES = 3.35e12
+
+
+def sm_clock_mhz() -> float:
+    """The card's maximum SM clock (MHz), as nvidia-smi gives it."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True, timeout=60)
+    return float(out.stdout.strip().splitlines()[0])
 
 
 def bound(flops: float, nbytes: float) -> tuple[float, str]:
@@ -358,10 +368,11 @@ def main() -> int:
     log(report.getvalue())
     _build.load()
     log(f"phase 1: built {path.name} in {time.perf_counter() - t0:.1f} s")
-    for label, source in (("K1", "frame_kernel.cu"), ("K3", "geometry_kernel.cu"), ("K7", "path_kernel.cu"),
-                          ("K8", "frame_hist.cu"), ("K4", "shade_kernel.cu"), ("K5", "frame_grad.cu"),
-                          ("K6", "loss_kernel.cu")):
-        log(f"  ptxas {label} ({source}): {ptxas_lines(report.getvalue(), source)}")
+    ptxas = {label: ptxas_lines(report.getvalue(), source) for label, source in (
+        ("K1", "frame_kernel.cu"), ("K3", "geometry_kernel.cu"), ("K7", "path_kernel.cu"), ("K8", "frame_hist.cu"),
+        ("K4", "shade_kernel.cu"), ("K5", "frame_grad.cu"), ("K6", "loss_kernel.cu"))}
+    for label, line in ptxas.items():
+        log(f"  ptxas {label}: {line}")
 
     def camera(yaw_step=0, device=dev):
         return Camera.create(
@@ -376,6 +387,7 @@ def main() -> int:
     torch.cuda.synchronize()
     ref = fk.frame_forward_plain(scene, camera(), 3, cfg)
     k1_stats = frame_agreement(out, ref, f"default_scene {W}x{H} frame 3")
+    log(f"  K1 registers, stack, spill: {ptxas['K1']}")
     bad1080 = fk.ill_conditioned(out, ref)
     log(f"  ill-conditioned pixels (frame_kernel.ill_conditioned): {int(bad1080.sum())} of {W * H}")
     spheres = sphere_scene(
@@ -494,13 +506,21 @@ def main() -> int:
 
     frame_ms = cuda_ms(temporal_frame, reps=20, warmup=3)
     k1_ms = cuda_ms(lambda: fk.frame_forward(scene, camera(), 3, cfg), reps=20, warmup=2)
+    k1_alone_ms = cuda_ms(fk.frame_launch(scene, camera(), 3, cfg)[0], reps=20, warmup=2)
+    truth, start, views = inverse.recovery_scenes(10, 5, device=dev)
+    f0 = inverse.SEED_BASE
+    c_rec = RenderConfig(width=192, height=128, soft_shadows=0.05, pipeline="fused")
+    k1_rec_ms = cuda_ms(lambda: fk.frame_forward(start, views[0], f0, c_rec), reps=50, warmup=5)
+    k1_rec_alone_ms = cuda_ms(fk.frame_launch(start, views[0], f0, c_rec)[0], reps=50, warmup=5)
     k1_plain_ms = cuda_ms(lambda: fk.frame_forward_plain(scene, camera(), 3, cfg), reps=3, warmup=1)
     k2_ms = cuda_ms(lambda: rk.reproject_set(ref["oid"], dyrel, dxrel, w4, hist, K), reps=50, warmup=3)
     k2_plain_ms = cuda_ms(
         lambda: rk.reproject_window_plain(ref["oid"], dyrel, dxrel, w4, hist, K), reps=20, warmup=2)
     log(f"  temporal frame {W}x{H}: {frame_ms:.4f} ms, {W * H / frame_ms / 1e3:.2f} "
         f"primary Mrays/s [{card}]")
-    log(f"  K1 frame kernel {W}x{H}: {k1_ms:.4f} ms; plain on the card {k1_plain_ms:.4f} ms [{card}]")
+    log(f"  K1 frame kernel {W}x{H}: {k1_ms:.4f} ms with its wrapper, {k1_alone_ms:.4f} ms alone; plain on the "
+        f"card {k1_plain_ms:.4f} ms; at the 192x128 recovery view {k1_rec_ms:.4f} ms with its wrapper, "
+        f"{k1_rec_alone_ms:.4f} ms alone [{card}]; {ptxas['K1']}")
     log(f"  K2 reprojection {W}x{H} (one set): {k2_ms:.4f} ms; plain on the card "
         f"{k2_plain_ms:.4f} ms [{card}]")
 
@@ -514,6 +534,8 @@ def main() -> int:
         f"{k} {v:.4f}" for k, v in split["stages"].items())
         + f" (sum {sum(split['stages'].values()):.4f}; a sum above the device "
         "time means a kernel was charged twice)")
+    log(f"  frame.k1 {split['stages']['frame.k1']:.4f} ms of device time against K1 alone {k1_alone_ms:.4f} ms, "
+        f"{k1_ms:.4f} ms with its wrapper (phase 6) [{card}]")
     log("  device ms per frame by kernel: " + ", ".join(
         f"{k} {v:.4f}" for k, v in split["top"]))
     if split["device_ms"] <= 0.0:
@@ -603,9 +625,7 @@ def main() -> int:
     # spheres give many grazing silhouette pixels: logged with all pixels,
     # held with the ill-conditioned ones given the plain image as target,
     # which zeroes their residual.
-    truth, start, views = inverse.recovery_scenes(10, 5, device=dev)
     rec_needs = fg.needs_for(("spheres", "alb_const"))
-    f0 = inverse.SEED_BASE
     for beta in (0.05, 0.003):
         c = RenderConfig(width=192, height=128, soft_shadows=beta, pipeline="fused")
         target = inverse.render_once(truth, views[0], c, f0)
@@ -687,14 +707,11 @@ def main() -> int:
                                                                     allow_unused=True)) if d is not None}
     k5_err = max(k5_err, k5_masked(scene, camera(), cfg, g_path, bad1080, f"K5 {W}x{H} train_step's cotangent",
                                    fg.needs_for(("spheres", "light_color"))))
-    # Random cotangents on all 13 planes, every table: logged only. A few
-    # pixels hold the distance, where a sampling or checker decision that
-    # leaves the value unchanged sits on a rounding boundary
-    # (tools/gradient_witness.py).
+    # Random cotangents on all 13 planes, every table, held with the
+    # ill-conditioned pixels masked, logged with every pixel.
     g_all = {k: randn(ref[k].shape) for k in fg.OUT_KEYS[:6]}
-    ti, entry, rel = worst_entry(*k5_pair(scene, camera(), cfg, keep_planes(g_all, bad1080)))
-    log(f"  K5 {W}x{H}, random cotangents, 13 planes, {int(bad1080.sum())} ill-conditioned pixels masked: "
-        f"worst {fg.DIFF_NAMES[ti]}[{entry}], |Δ|/max|ref| {rel:.3g} (not held)")
+    k5_err = max(k5_err, k5_masked(scene, camera(), cfg, g_all, bad1080,
+                                   f"K5 {W}x{H} random cotangents, 13 planes, every table"))
     k6_err = max(k6_err, k6_check(scene, camera(), 3, cfg, None, "mean", f"K6 {W}x{H} mean, all pixels"))
     k5_ms = cuda_ms(lambda: fg.frame_backward(scene, camera(), 3, g_all, cfg), reps=10)
     k6_ms = cuda_ms(lambda: lk.render_loss_and_grad(scene, camera(), 3, cfg, loss="mean"), reps=10)
@@ -736,7 +753,6 @@ def main() -> int:
         f"plain {k6_plain_ms_s:.4f} ms [{card}]")
     # The recovery view's shape, as run_recovery hands it to K6: one view of
     # the perturbed start, spheres and alb_const seeded, the first beta.
-    c_rec = RenderConfig(width=192, height=128, soft_shadows=0.05, pipeline="fused")
     target_rec = inverse.render_once(truth, views[0], c_rec, f0)
     oid_rec = fk.frame_forward(start, views[0], f0, c_rec)["oid"]
     g_rec = {k: randn(tuple(oid_rec.shape) + tuple(v.shape[2:])) for k, v in g_all.items()}
@@ -858,6 +874,7 @@ def main() -> int:
     k8_stats = fh.check_agreement(k8, k8_ref, f"K8 vs plain {W}x{H}")
     log(f"  K8 vs plain (median |d|, share beyond 1e-3): {k8_stats}; mean reprojected diffuse count "
         f"{k8_ref['d_cnt'].mean().item():.4f}")
+    log(f"  K8 registers, stack, spill: {ptxas['K8']}")
     if k8_ref["d_cnt"].mean().item() <= 2.0:
         raise AssertionError("K8 check carried almost no history; the check is vacuous")
     k1_same = fk.frame_forward(scene, camera(1), 1, cfg_m)
@@ -906,10 +923,12 @@ def main() -> int:
         ("split", temporal_frame), ("mono", mono_frame), ("mono", mono_frame), ("split", temporal_frame))]
     mono_ms = statistics.median(t for name, t in turns if name == "mono")
     k8_ms = cuda_ms(lambda: fh.frame_hist(scene, camera(1), camera(0), hd, hs, 1, cfg_m), reps=20, warmup=2)
+    k8_alone_ms = cuda_ms(fh.frame_hist_launch(scene, camera(1), camera(0), hd, hs, 1, cfg_m)[0], reps=20, warmup=2)
     k8_plain_ms = cuda_ms(lambda: fh.frame_hist_plain(scene, camera(1), camera(0), hd, hs, 1, cfg_m), reps=3)
     log(f"  temporal frame {W}x{H} in turns, ms: " + ", ".join(f"{name} {t:.4f}" for name, t in turns)
         + f" (split {frame_ms:.4f} ms in phase 6) [{card}]")
-    log(f"  K8 {W}x{H}: {k8_ms:.4f} ms; plain on the card {k8_plain_ms:.4f} ms [{card}]")
+    log(f"  K8 {W}x{H}: {k8_ms:.4f} ms with its wrapper, {k8_alone_ms:.4f} ms alone; plain on the card "
+        f"{k8_plain_ms:.4f} ms [{card}]; {ptxas['K8']}")
     split_m = stage_split(mono_frame, pipeline.STAGES, frames=10)
     log(f"  mono frame, torch.profiler: device {split_m['device_ms']:.4f} ms in {split_m['launches']:.1f} "
         "launches per frame; by kernel: " + ", ".join(f"{k} {v:.4f}" for k, v in split_m["top"]))
@@ -1019,6 +1038,13 @@ def main() -> int:
     ops4 = shade_ops(scene, cfg_p, gbuf_p.obj_id, 1) + W * H * 6
     k4_io = (gbuf_p.normal, gbuf_p.obj_id, gbuf_p.depth, gbuf_p.ray_dir, seed_p, *k4)
     k4_bound = bound(ops4, tab_bytes + sum(t.numel() * t.element_size() for t in k4_io))
+    # Without FMA (-fmad=false: K3-K8) an f32 lane retires one operation a
+    # clock: 132 SMs x 128 lanes x the SM clock.
+    no_fma = 132 * 128 * sm_clock_mhz() * 1e6
+    log(f"  operations over the rate without FMA ({no_fma / 1e12:.2f} TFLOP/s): K1 {ops1 / no_fma * 1e3:.4f}, "
+        f"K8 {ops8 / no_fma * 1e3:.4f}, K4 {ops4 / no_fma * 1e3:.4f}, K3 {ops3 / no_fma * 1e3:.4f}, "
+        f"K7 {ops7 / no_fma * 1e3:.4f}, K5 {3 * ops1 / no_fma * 1e3:.4f}, "
+        f"K6 {3 * (ops1 + 120 * W * H) / no_fma * 1e3:.4f} ms")
     log(f"  bounds at {W}x{H}: K8 {k8_bound[0]:.4f} ms ({k8_bound[1]}, {ops8 / 1e9:.3f} GFLOP, "
         f"{(hist_bytes + out_bytes) / (W * H):.1f} B/pixel), K4 {k4_bound[0]:.4f} ms ({k4_bound[1]}, "
         f"{ops4 / 1e9:.3f} GFLOP)")

@@ -1,6 +1,6 @@
-// The fused frame's per-pixel body, shared by K1 (frame_kernel.cu), K8
-// (frame_hist.cu) and the gradient kernels K5 (frame_grad.cu) and K6
-// (loss_kernel.cu), whose reverse sweep is frame_adjoint.cuh.
+// The fused frame's per-pixel body of the gradient kernels K5
+// (frame_grad.cu) and K6 (loss_kernel.cu), whose reverse sweep is
+// frame_adjoint.cuh; K1 and K8 run frame_body.cuh's form of it.
 //
 // Per pixel: raygen, nearest analytic hit, closed-form normal and
 // curvature, dual-MIS shade (or the unbiased estimators), emission and

@@ -3,10 +3,10 @@
 // Replaces kylespathtracer_tpu/ops/frame_hist.py:frame_hist_pallas (its body
 // `_frame_hist_kernel`), full-frame mode. Per pixel:
 //
-//   K1's frame (frame_core.cuh: frame_pixel)       → 13 planes and the oid
+//   K1's frame (frame_body.cuh: frame_body)        → 13 planes and the oid
 //   → hit point + curvature-pushed specular anchor  (specular.frag:45-49)
 //   → previous-camera projection of each anchor     (frame_hist.py:_queries_block)
-//   → windowed 2×2 tap sum (reproject_core.cuh: tap_sum, shared with K2)
+//   → windowed 2×2 tap sum (reproject_core.cuh: tap_sum, K2's, with the loads gathered)
 //   → floor(count + 1e-4) + velocity clamp           (diffuse.frag:46-51)
 //   → accumulate (rgb + this frame's estimate, count + 1)
 //
@@ -32,12 +32,12 @@
 // What bounds it on an H100: K1's arithmetic (~9 visibility traces per
 // shaded pixel). Its device-memory traffic is 10 history planes in and 14
 // planes out, 96 bytes per pixel, and the tap gathers of a warp fall in a few
-// cache lines. The design is K1's (tables in shared memory, one thread per
-// pixel, 16×8 blocks, __launch_bounds__(128, 5)); the head and the tail add
-// a few hundred operations per pixel after the shade, when the shade's
-// registers are free again.
-#include "frame_core.cuh"
-#include "reproject_core.cuh"
+// cache lines. The frame part is K1's body (frame_body.cuh: one thread per
+// pixel, the strategies in shared memory, the rounded box culled; tables and
+// both cameras read from the scene's own tensors); the head and the tail
+// add a few hundred operations per pixel after the shade, when the shade's
+// registers are free again, under __launch_bounds__(128, 5).
+#include "frame_body.cuh"
 
 namespace kpt {
 
@@ -113,56 +113,108 @@ __device__ __forceinline__ void accumulate(const float (&acc)[4], const float* a
   cnt_out = rn_add(over ? limit : cnt, 1.0f);
 }
 
+// reproject_core.cuh:tap_sum with the four taps' loads issued together:
+// every live tap's object ID, rgb and count are read before any is
+// compared, so the gathers of a pixel wait on memory once, not once per
+// tap. The sum is tap_sum's, term for term.
+__device__ __forceinline__ void tap_sum_gathered(const float* __restrict__ hist_rgb,
+                                                 const float* __restrict__ hist_cnt,
+                                                 const int* __restrict__ hist_oid, int id, int y, int x, int dy,
+                                                 int dx, const float (&wy)[2], const float (&wx)[2], int K, int H,
+                                                 int W, float (&acc)[4]) {
+  bool live[4];
+  int tid[4];
+  float v[4][4];
+#pragma unroll
+  for (int tx = 0; tx < 2; ++tx) {
+#pragma unroll
+    for (int ty = 0; ty < 2; ++ty) {
+      const int j = 2 * tx + ty;
+      const int sy = y + dy + ty, sx = x + dx + tx;
+      // -K <= dx + tx, dy + ty <= K, written without overflowing on far-off
+      // queries; out-of-image taps carry zero weight and are skipped.
+      live[j] = !(dx < -K - tx || dx > K - tx || dy < -K - ty || dy > K - ty) && sy >= 0 && sy < H && sx >= 0 &&
+                sx < W;
+      const size_t q = live[j] ? (size_t)sy * W + sx : 0;
+      tid[j] = live[j] ? hist_oid[q] : 0;
+      v[j][0] = live[j] ? hist_rgb[3 * q] : 0.0f;
+      v[j][1] = live[j] ? hist_rgb[3 * q + 1] : 0.0f;
+      v[j][2] = live[j] ? hist_rgb[3 * q + 2] : 0.0f;
+      v[j][3] = live[j] ? hist_cnt[q] : 0.0f;
+    }
+  }
+  acc[0] = acc[1] = acc[2] = acc[3] = 0.0f;
+#pragma unroll
+  for (int tx = 0; tx < 2; ++tx) {
+#pragma unroll
+    for (int ty = 0; ty < 2; ++ty) {
+      const int j = 2 * tx + ty;
+      if (!live[j] || tid[j] != id) continue;
+      const float w = __fmul_rn(wy[ty], wx[tx]);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[c] = __fadd_rn(acc[c], __fmul_rn(w, v[j][c]));
+    }
+  }
+}
+
 }  // namespace
 
-__global__ void __launch_bounds__(128, 5)
-    frame_hist_kernel(const float* __restrict__ ftab, const int* __restrict__ itab, FrameParams P, HistParams Q,
-                      const float* __restrict__ ptab, const float* __restrict__ hd_rgb,
-                      const float* __restrict__ hd_cnt, const int* __restrict__ hd_oid,
-                      const float* __restrict__ hs_rgb, const float* __restrict__ hs_cnt,
-                      const int* __restrict__ hs_oid, float* __restrict__ out_drgb, float* __restrict__ out_dcnt,
-                      float* __restrict__ out_srgb, float* __restrict__ out_scnt, float* __restrict__ out_alb,
-                      float* __restrict__ out_ene, int* __restrict__ out_oid) {
-  extern __shared__ float smem[];
-  const Tables T = load_tables(smem, ftab, itab, P);
+// The previous camera: loc [3] and orient [2].
+struct PrevCamera {
+  const float *loc, *orient;
+};
 
-  const int x = blockIdx.x * blockDim.x + threadIdx.x;
-  const int y = blockIdx.y * blockDim.y + threadIdx.y;
-  if (x >= P.width || y >= P.height) return;
+__global__ void __launch_bounds__(BLOCK, 5)
+    frame_hist_kernel(TableParts tp, FrameParams P, HistParams Q, PrevCamera prev,
+                      const float* __restrict__ hd_rgb, const float* __restrict__ hd_cnt,
+                      const int* __restrict__ hd_oid, const float* __restrict__ hs_rgb,
+                      const float* __restrict__ hs_cnt, const int* __restrict__ hs_oid, float* __restrict__ out_drgb,
+                      float* __restrict__ out_dcnt, float* __restrict__ out_srgb, float* __restrict__ out_scnt,
+                      float* __restrict__ out_alb, float* __restrict__ out_ene, int* __restrict__ out_oid) {
+  extern __shared__ float smem[];
+  const Tables T = load_table_parts(smem, tp, P);
+  const Slot slot = thread_slot(smem, P);
+  const float ptab[5] = {prev.loc[0], prev.loc[1], prev.loc[2], prev.orient[0], prev.orient[1]};
+  Block& B = *block_values(smem, P);
+  if (threadIdx.x == 0) {
+    camera_trig(T, B);
+    prev_basis(ptab, B.lf, B.r, B.u);
+    // Camera speed and the velocity clamp's limit.
+    const float dvx = rn_sub(T.f[T.cam], ptab[0]), dvy = rn_sub(T.f[T.cam + 1], ptab[1]);
+    const float dvz = rn_sub(T.f[T.cam + 2], ptab[2]);
+    const float vv = sqrtf(fmaxf(rn_add(rn_add(rn_mul(dvx, dvx), rn_mul(dvy, dvy)), rn_mul(dvz, dvz)), 0.0f));
+    B.limit = rn_sub(Q.temporal, fminf(Q.t_m1, floorf(rn_mul(Q.two_t, sqrtf(vv)))));
+  }
+  __syncthreads();
+
+  const int x = blockIdx.x * TILE_W + threadIdx.x % TILE_W;
+  const int y = blockIdx.y * TILE_H + threadIdx.x / TILE_W;
   const int W = P.width, H = P.height;
 
   float vals[13];
   int oid;
-  frame_pixel<float>(T, P, x, y, vals, oid);
+  if (x >= W || y >= H) return;
+  V3 ro, rd;
+  frame_body(T, P, B, slot, x, y, vals, oid, ro, rd);
 
   // Anchors: the hit point for diffuse, the curvature-pushed virtual-image
   // point for specular, on the primary ray of this pixel.
-  V3 ro, rd;
-  primary_ray<float>(T, P, x, y, ro, rd);
   const V3 hl = rn_along(ro, rd, vals[11]);
   const V3 lv = mk(rn_sub(hl.x, T.f[T.light]), rn_sub(hl.y, T.f[T.light + 1]), rn_sub(hl.z, T.f[T.light + 2]));
   const float light_dist = sqrtf(fmaxf(rn_dot(lv, lv), 1e-20f));
   const float fac = __fdiv_rn(EPS, sqrtf(fmaxf(EPS, vals[12])));
   const V3 sl = rn_along(hl, rd, rn_mul(light_dist, fac));
 
-  // Camera speed and the velocity clamp's limit (the same for every pixel).
-  const float dvx = rn_sub(T.f[T.cam], ptab[0]), dvy = rn_sub(T.f[T.cam + 1], ptab[1]);
-  const float dvz = rn_sub(T.f[T.cam + 2], ptab[2]);
-  const float vv = sqrtf(fmaxf(rn_add(rn_add(rn_mul(dvx, dvx), rn_mul(dvy, dvy)), rn_mul(dvz, dvz)), 0.0f));
-  const float limit = rn_sub(Q.temporal, fminf(Q.t_m1, floorf(rn_mul(Q.two_t, sqrtf(vv)))));
-
-  V3 lf, r, u;
-  prev_basis(ptab, lf, r, u);
   const size_t p = (size_t)y * W + x;
 
   int dy, dx;
   float wy[2], wx[2], acc[4];
-  query(hl, ptab, lf, r, u, x, y, W, H, P.fov, Q.inv_asp, dy, dx, wy, wx);
-  tap_sum(hd_rgb, hd_cnt, hd_oid, oid, y, x, dy, dx, wy, wx, Q.K, H, W, acc);
-  accumulate(acc, vals + 0, limit, out_drgb + 3 * p, out_dcnt[p]);
-  query(sl, ptab, lf, r, u, x, y, W, H, P.fov, Q.inv_asp, dy, dx, wy, wx);
-  tap_sum(hs_rgb, hs_cnt, hs_oid, oid, y, x, dy, dx, wy, wx, Q.K, H, W, acc);
-  accumulate(acc, vals + 3, limit, out_srgb + 3 * p, out_scnt[p]);
+  query(hl, ptab, B.lf, B.r, B.u, x, y, W, H, P.fov, Q.inv_asp, dy, dx, wy, wx);
+  tap_sum_gathered(hd_rgb, hd_cnt, hd_oid, oid, y, x, dy, dx, wy, wx, Q.K, H, W, acc);
+  accumulate(acc, vals + 0, B.limit, out_drgb + 3 * p, out_dcnt[p]);
+  query(sl, ptab, B.lf, B.r, B.u, x, y, W, H, P.fov, Q.inv_asp, dy, dx, wy, wx);
+  tap_sum_gathered(hs_rgb, hs_cnt, hs_oid, oid, y, x, dy, dx, wy, wx, Q.K, H, W, acc);
+  accumulate(acc, vals + 3, B.limit, out_srgb + 3 * p, out_scnt[p]);
 
 #pragma unroll
   for (int c = 0; c < 3; ++c) out_alb[3 * p + c] = vals[6 + c];
@@ -173,22 +225,26 @@ __global__ void __launch_bounds__(128, 5)
 
 }  // namespace kpt
 
-extern "C" int kpt_frame_hist(const float* ftab, const int* itab, const float* ptab, int nP, int nS, int nB, int nK,
-                              int width, int height, float fov, int frame, int smp, int decorrelate, int biased,
-                              float soft_beta, int gloss, int K, float inv_asp, float temporal, float two_t,
-                              float t_m1, const float* hd_rgb, const float* hd_cnt, const int* hd_oid,
-                              const float* hs_rgb, const float* hs_cnt, const int* hs_oid, float* out_drgb,
-                              float* out_dcnt, float* out_srgb, float* out_scnt, float* out_alb, float* out_ene,
-                              int* out_oid, void* stream) {
+extern "C" int kpt_frame_hist(const kpt::TableParts* tp, const float* prev_loc, const float* prev_orient, int nP,
+                              int nS, int nB, int nK, int width, int height, float fov, int frame, int smp,
+                              int decorrelate, int biased, float soft_beta, int gloss, int K, float inv_asp,
+                              float temporal, float two_t, float t_m1, const float* hd_rgb, const float* hd_cnt,
+                              const int* hd_oid, const float* hs_rgb, const float* hs_cnt, const int* hs_oid,
+                              float* out_drgb, float* out_dcnt, float* out_srgb, float* out_scnt, float* out_alb,
+                              float* out_ene, int* out_oid, void* stream) {
   if (nP > kpt::MAX_PLANES) return (int)cudaErrorInvalidValue;
   kpt::FrameParams P{nP, nS, nB, nK, width, height, fov, frame, 0, height, smp, decorrelate, biased, soft_beta,
                      gloss};
   kpt::HistParams Q{K, inv_asp, temporal, two_t, t_m1};
-  const size_t shmem = kpt::table_smem(nP, nS, nB, nK, false);
-  const dim3 block(16, 8);
-  const dim3 grid((width + block.x - 1) / block.x, (height + block.y - 1) / block.y);
-  kpt::frame_hist_kernel<<<grid, block, shmem, (cudaStream_t)stream>>>(
-      ftab, itab, P, Q, ptab, hd_rgb, hd_cnt, hd_oid, hs_rgb, hs_cnt, hs_oid, out_drgb, out_dcnt, out_srgb,
-      out_scnt, out_alb, out_ene, out_oid);
+  const size_t shmem = kpt::body_smem(nP, nS, nB, nK);
+  if (shmem > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kpt::frame_hist_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shmem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const dim3 grid((width + kpt::TILE_W - 1) / kpt::TILE_W, (height + kpt::TILE_H - 1) / kpt::TILE_H);
+  kpt::frame_hist_kernel<<<grid, kpt::BLOCK, shmem, (cudaStream_t)stream>>>(
+      *tp, P, Q, kpt::PrevCamera{prev_loc, prev_orient}, hd_rgb, hd_cnt, hd_oid, hs_rgb, hs_cnt, hs_oid,
+      out_drgb, out_dcnt, out_srgb, out_scnt, out_alb, out_ene, out_oid);
   return (int)cudaGetLastError();
 }

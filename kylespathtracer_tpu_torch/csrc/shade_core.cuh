@@ -244,14 +244,43 @@ __device__ __forceinline__ float sphere_t_far(const Tables& T, int s, V3 o, V3 d
   return t > 0.0f ? t : -b + sq;
 }
 
+// The box cull of the frame kernels K1 and K8 (CULL below): can the ray
+// o + t·d, 0 <= t <= tmax, meet rounded box B (center B[0..2], half extents
+// B[3..5], rounding radius B[6])? A slab test against the box's bounds grown
+// by the rounding radius and by a margin far above the rounding of this test
+// and of the candidates: false only where no candidate of `trace` and no
+// `box_occludes` finds the box, so skipping them leaves t and oid bit for
+// bit. ops/frame_kernel.py:box_cull_plain mirrors it for the tests.
+__device__ __forceinline__ bool box_may_hit(const float* B, V3 o, V3 d, float tmax) {
+  const float oc[3] = {o.x - B[0], o.y - B[1], o.z - B[2]};
+  const float dv[3] = {d.x, d.y, d.z};
+  float t0 = 0.0f, t1 = tmax;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const float h = B[3 + k] + B[6];
+    const float m = 1e-3f * h + 1e-5f * fabsf(oc[k]) + 1e-4f;
+    const float lo = -h - m - oc[k], hi = h + m - oc[k];  // the grown slab, from o
+    if (dv[k] == 0.0f) {
+      if (lo > 0.0f || hi < 0.0f) return false;
+      continue;
+    }
+    const float inv = 1.0f / dv[k];
+    const float ta = lo * inv, tb = hi * inv;
+    t0 = fmaxf(t0, fminf(ta, tb));
+    t1 = fminf(t1, fmaxf(ta, tb));
+  }
+  return t0 <= t1;
+}
+
 // Nearest hit → (t, oid) over planes, spheres and rounded boxes. With
 // INSIDE_HITS (float only: the path kernel's dielectric continuation rays)
 // a sphere is hit at its far root from inside; the default instantiation is
-// the frame kernels' trace. With RECORD, *win names the winning candidate
+// the trace of K3-K6. With RECORD, *win names the winning candidate
 // (frame_adjoint.cuh reverses its t alone): plane p → p, sphere s → 256 + s,
 // rounded box bx → 512 + 32·bx + part, part 0-5 a face (2k + si), 6-17 an
-// edge cylinder (6 + 4k + 2ii + jj), 18-25 a corner sphere (18 + c).
-template <typename S, bool INSIDE_HITS = false, bool RECORD = false>
+// edge cylinder (6 + 4k + 2ii + jj), 18-25 a corner sphere (18 + c). With
+// CULL (K1 and K8), a box that `box_may_hit` rules out is skipped.
+template <typename S, bool INSIDE_HITS = false, bool RECORD = false, bool CULL = false>
 __device__ void trace(const Tables& T, V3T<S> ro, V3T<S> rd, int excl, S& t_out, int& id_out,
                       int* win = nullptr) {
   S best_t = INF_T;
@@ -281,6 +310,9 @@ __device__ void trace(const Tables& T, V3T<S> ro, V3T<S> rd, int excl, S& t_out,
   }
   for (int bx = 0; bx < T.nB; ++bx) {
     const int q = T.boxes + bx * 7;
+    if constexpr (CULL) {
+      if (!box_may_hit(T.f + q, vval(ro), vval(rd), val(best_t))) continue;
+    }
     const S hext[3] = {tab<S>(T, q + 3), tab<S>(T, q + 4), tab<S>(T, q + 5)};
     const S rnd = tab<S>(T, q + 6);
     const int oid = T.box_ids[bx];
@@ -405,7 +437,9 @@ __device__ inline bool box_occludes(const Tables& T, int bx, V3 o, V3 dv, float 
 }
 
 // True where the analytic target hit is the nearest scene hit from o along d.
-// skip_sphere: a sphere id that is the target itself (or any value no sphere has).
+// skip_sphere: a sphere id that is the target itself (or any value no sphere
+// has). With CULL, a box that `box_may_hit` rules out is not tested.
+template <bool CULL = false>
 __device__ inline bool nearest_is_target(const Tables& T, V3 o, V3 d, int excl, float t_target,
                                   bool target_valid, bool use_skip, int skip_sphere) {
   if (!target_valid) return false;
@@ -422,12 +456,16 @@ __device__ inline bool nearest_is_target(const Tables& T, V3 o, V3 d, int excl, 
       return false;
   }
   for (int bx = 0; bx < T.nB; ++bx) {
+    if constexpr (CULL) {
+      if (!box_may_hit(T.f + T.boxes + bx * 7, o, d, t_target)) continue;
+    }
     if (T.box_ids[bx] != excl && box_occludes(T, bx, o, d, t_target)) return false;
   }
   return t_target - EPS <= ZFAR;
 }
 
 // Occlusion-style `nearest hit == light` (common.glsl:348-353).
+template <bool CULL = false>
 __device__ inline bool light_visible(const Tables& T, V3 o, V3 d, int excl) {
   const float* L = T.f + T.light;
   V3 oc = mk(o.x - L[0], o.y - L[1], o.z - L[2]);
@@ -436,7 +474,7 @@ __device__ inline bool light_visible(const Tables& T, V3 o, V3 d, int excl) {
   float disc = b * b - c2;
   float t_l = -b - sqrtf(fmaxf(disc, 1e-12f));
   bool valid = disc > 0.0f && t_l > 0.0f && T.light_id != excl;
-  return nearest_is_target(T, o, d, excl, t_l, valid, true, T.light_id);
+  return nearest_is_target<CULL>(T, o, d, excl, t_l, valid, true, T.light_id);
 }
 
 // ------------------------------------------------------------ materials
@@ -582,13 +620,13 @@ __device__ __forceinline__ V3 cos_hemi_dir(V3 hn, int seed) {
 
 // UnbiasedLambertian / UnbiasedPhong (common.glsl:394-415). The directions
 // only decide visibility; the derivative reaches the light color alone.
-template <typename S>
+template <typename S, bool CULL = false>
 __device__ void shade_core_unbiased(const Tables& T, V3 hn, V3 rd, int ho, V3 hl, int seed, int smp,
                                     bool decorrelate, S est_d[3], S est_s[3]) {
   for (int c = 0; c < 3; ++c) est_d[c] = 0.0f;
   for (int i = 0; i < smp; ++i) {
     V3 d = cos_hemi_dir(hn, fold_seed(seed, i, decorrelate));
-    bool vis = light_visible(T, hl, d, ho);
+    bool vis = light_visible<CULL>(T, hl, d, ho);
     for (int c = 0; c < 3; ++c) est_d[c] = est_d[c] + (vis ? tab<S>(T, T.light_color + c) * PI : S(0.0f));
   }
   if (smp > 1) {
@@ -596,7 +634,7 @@ __device__ void shade_core_unbiased(const Tables& T, V3 hn, V3 rd, int ho, V3 hl
     for (int c = 0; c < 3; ++c) est_d[c] = est_d[c] * inv;
   }
   // Plain reflect, not re-normalized.
-  bool vis_s = light_visible(T, hl, reflect(rd, hn), ho);
+  bool vis_s = light_visible<CULL>(T, hl, reflect(rd, hn), ho);
   for (int c = 0; c < 3; ++c) est_s[c] = vis_s ? tab<S>(T, T.light_color + c) : S(0.0f);
 }
 

@@ -18,6 +18,7 @@ import ctypes
 import hashlib
 import os
 import shutil
+import struct
 import subprocess
 import threading
 from pathlib import Path
@@ -26,7 +27,8 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("frame_kernel.cu", "reproject_kernel.cu", "frame_grad.cu", "loss_kernel.cu",
            "geometry_kernel.cu", "path_kernel.cu", "frame_hist.cu", "shade_kernel.cu")
-HEADERS = ("dual.cuh", "shade_core.cuh", "frame_core.cuh", "frame_adjoint.cuh", "reproject_core.cuh")
+HEADERS = ("dual.cuh", "shade_core.cuh", "frame_core.cuh", "frame_adjoint.cuh", "reproject_core.cuh",
+           "frame_body.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC",
@@ -48,12 +50,21 @@ _lib = None
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+
+
+# The structs that K1 and K8 take by pointer, packed by the wrappers:
+# csrc/frame_body.cuh:TableParts (15 f32 and 4 i32 pointers, then their 15
+# and 4 lengths) and csrc/frame_kernel.cu:FrameOut (K1's 7 output planes).
+TABLE_PARTS = struct.Struct("=19Q19i")
+FRAME_OUT = struct.Struct("=7Q")
+
+
 _SIGNATURES = {
-    # ftab, itab, nP, nS, nB, nK, width, height, fov, frame, row_base, rows,
-    # smp, decorrelate, biased, soft_beta, gloss, out_f, out_oid, stream
+    # parts, nP, nS, nB, nK, width, height, fov, frame, row_base, rows, smp,
+    # decorrelate, biased, soft_beta, gloss, out, stream
     "kpt_frame_forward": (
-        _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I,
-        _I, _I, _I, _F, _I, _P, _P, _P,
+        _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I,
+        _I, _I, _I, _F, _I, _P, _P,
     ),
     # ho, dyrel, dxrel, wy0, wy1, wx0, wx1, hist_rgb, hist_cnt, hist_oid,
     # out_rgb, out_cnt, H, W, K, stream
@@ -80,13 +91,13 @@ _SIGNATURES = {
     "kpt_pathtrace": (
         _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _I, _P, _P,
     ),
-    # ftab, itab, ptab, nP, nS, nB, nK, width, height, fov, frame, smp,
-    # decorrelate, biased, soft_beta, gloss, K, inv_asp, temporal, two_t,
-    # t_m1, hist d rgb/cnt/oid, hist s rgb/cnt/oid, out d_rgb, d_cnt, s_rgb,
-    # s_cnt, alb, ene, oid, stream
+    # parts, prev loc, prev orient, nP, nS, nB, nK, width, height, fov,
+    # frame, smp, decorrelate, biased, soft_beta, gloss, K, inv_asp,
+    # temporal, two_t, t_m1, hist d rgb/cnt/oid, hist s rgb/cnt/oid, out
+    # d_rgb, d_cnt, s_rgb, s_cnt, alb, ene, oid, stream
     "kpt_frame_hist": (
-        _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _I, _F, _I, _I, _F, _F, _F, _F,
-        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+        _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _I, _F, _I, _I, _F, _F,
+        _F, _F, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
     ),
     # ftab, itab, nP, nS, nB, nK, width, height, soft_beta, gloss, normal,
     # obj_id, depth, ray_dir, seed, est_d, est_s, stream

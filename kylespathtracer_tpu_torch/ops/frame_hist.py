@@ -195,13 +195,25 @@ def frame_hist(scene, camera, prev_camera, history_d: Channel, history_s: Channe
     device picks the route: CUDA launches the kernel (or raises), CPU runs
     the plain version. Taps beyond K = `window_k(config, block_rows)` rows
     or columns restart the history, as in the JAX kernel."""
-    global LAUNCHES
     _check_full_frame(row_base, rows, hist_halo)
     fk.check_planes_for_biased(scene, config)
-    device = scene.device
-    if device.type == "cpu":
+    if scene.device.type == "cpu":
         return frame_hist_plain(scene, camera, prev_camera, history_d, history_s, frame, config,
                                 block_rows)
+    launch, out = frame_hist_launch(scene, camera, prev_camera, history_d, history_s, frame, config,
+                                    block_rows)
+    launch()
+    return out
+
+
+def frame_hist_launch(scene, camera, prev_camera, history_d: Channel, history_s: Channel,
+                      frame, config, block_rows: int | None = None):
+    """`frame_hist`'s CUDA route in two steps → (launch, out): the arguments
+    are checked and the result dict allocated here; launch() launches K8
+    once into it and counts it. chip_smoke.py and ops/adjoint_variants.py
+    time launch() alone beside frame_hist."""
+    fk.check_planes_for_biased(scene, config)
+    device = scene.device
     if device.type != "cuda":
         raise ValueError(f"frame_hist: unsupported device {device}")
     K = window_k(config, block_rows)
@@ -213,23 +225,28 @@ def frame_hist(scene, camera, prev_camera, history_d: Channel, history_s: Channe
         _build.check_tensor(f"{name}.oid", ch.oid, i32, (H, W), device)
     for name, t, n in (("prev_camera.loc", prev_camera.loc, 3), ("prev_camera.orient", prev_camera.orient, 2)):
         _build.check_tensor(name, t, f32, (n,), device)
-    ftab, itab = fk.pack_tables(scene, camera)
-    ptab = torch.cat([prev_camera.loc, prev_camera.orient])
+    parts = fk.table_parts(scene, camera)
     T = float(config.temporal)
     out = {k: torch.empty((H, W) + tail, dtype=f32, device=device) for k, tail in (
         ("d_rgb", (3,)), ("d_cnt", ()), ("s_rgb", (3,)), ("s_cnt", ()), ("alb", (3,)), ("ene", (2,)))}
     out["oid"] = torch.empty((H, W), dtype=i32, device=device)
-    err = _build.load().kpt_frame_hist(
-        ftab.data_ptr(), itab.data_ptr(), ptab.data_ptr(), nP, nS, nB, nK, W, H, fov,
-        fk._wrap32(int(frame)), *shading, int(K), 1.0 / (float(W) / float(H)), T, T * 2.0, T - 1.0,
-        history_d.rgb.data_ptr(), history_d.cnt.data_ptr(), history_d.oid.data_ptr(),
-        history_s.rgb.data_ptr(), history_s.cnt.data_ptr(), history_s.oid.data_ptr(),
-        *(out[k].data_ptr() for k in ("d_rgb", "d_cnt", "s_rgb", "s_cnt", "alb", "ene", "oid")),
-        torch.cuda.current_stream(device).cuda_stream,
-    )
-    _build.check(err, "kpt_frame_hist")
-    LAUNCHES += 1
-    return out
+    stream = torch.cuda.current_stream(device).cuda_stream
+
+    def launch():
+        global LAUNCHES
+        err = _build.load().kpt_frame_hist(
+            fk.table_parts_struct(*parts), prev_camera.loc.data_ptr(),
+            prev_camera.orient.data_ptr(), nP, nS, nB, nK, W, H, fov,
+            fk._wrap32(int(frame)), *shading, int(K), 1.0 / (float(W) / float(H)), T, T * 2.0, T - 1.0,
+            history_d.rgb.data_ptr(), history_d.cnt.data_ptr(), history_d.oid.data_ptr(),
+            history_s.rgb.data_ptr(), history_s.cnt.data_ptr(), history_s.oid.data_ptr(),
+            *(out[k].data_ptr() for k in ("d_rgb", "d_cnt", "s_rgb", "s_cnt", "alb", "ene", "oid")),
+            stream,
+        )
+        _build.check(err, "kpt_frame_hist")
+        LAUNCHES += 1
+
+    return launch, out
 
 
 def check_agreement(out: dict, ref: dict, what: str) -> dict:

@@ -336,29 +336,84 @@ def check_agreement(out: dict, ref: dict, what: str) -> dict:
     return stats
 
 
-def pack_tables(scene: Scene, camera):
-    """The scene tables and camera in the kernel's two flat buffers.
-
-    f32: planes P·4, spheres S·4, boxes B·7, light_color 3, light 4,
-    s0 K, s1 K, freq K, alb_const K·3, alb_scale K·3, emission K·3,
-    en_const K·2, en_scale K·2, cam loc 3, orient 2 (csrc/shade_core.cuh
-    `Tables` reads this order). i32: plane_ids P, sphere_ids S, box_ids B,
-    light id 1."""
+def _table_tensors(scene: Scene, camera):
+    """The tensors of the scene tables and the camera, in the order of the
+    flat tables that csrc/shade_core.cuh `Tables` reads: f32 planes P·4,
+    spheres S·4, boxes B·7, light_color 3, light 4, s0 K, s1 K, freq K,
+    alb_const K·3, alb_scale K·3, emission K·3, en_const K·2, en_scale K·2,
+    cam loc 3, orient 2; i32 plane_ids P, sphere_ids S, box_ids B, light
+    id 1."""
     m = scene.materials
-    f = torch.cat([
-        t.reshape(-1).to(torch.float32) for t in (
-            scene.planes, scene.spheres, scene.boxes, scene.light_color,
-            scene.light, m.s0, m.s1, m.freq, m.alb_const, m.alb_scale,
-            m.emission, m.en_const, m.en_scale, camera.loc, camera.orient,
-        )
-    ])
-    i = torch.cat([
-        t.reshape(-1).to(torch.int32) for t in (
-            scene.plane_ids, scene.sphere_ids, scene.box_ids,
-            scene.light_id.reshape(1),
-        )
-    ])
+    return ((scene.planes, scene.spheres, scene.boxes, scene.light_color,
+             scene.light, m.s0, m.s1, m.freq, m.alb_const, m.alb_scale,
+             m.emission, m.en_const, m.en_scale, camera.loc, camera.orient),
+            (scene.plane_ids, scene.sphere_ids, scene.box_ids,
+             scene.light_id.reshape(1)))
+
+
+def pack_tables(scene: Scene, camera):
+    """The scene tables and camera in the kernels' two flat buffers (f32,
+    i32), in `_table_tensors`' order."""
+    f, i = _table_tensors(scene, camera)
+    f = torch.cat([t.reshape(-1).to(torch.float32) for t in f])
+    i = torch.cat([t.reshape(-1).to(torch.int32) for t in i])
     return f.contiguous(), i.contiguous()
+
+
+def part_sizes(nP: int, nS: int, nB: int, nK: int):
+    """Entries of each of `_table_tensors`' tensors for nP planes, nS
+    spheres, nB boxes and nK materials (the offsets of `make_tables` in
+    csrc/shade_core.cuh are their running sums) → (f32 sizes, i32 sizes)."""
+    return ((nP * 4, nS * 4, nB * 7, 3, 4, nK, nK, nK, nK * 3, nK * 3, nK * 3,
+             nK * 2, nK * 2, 3, 2), (nP, nS, nB, 1))
+
+
+def table_parts(scene: Scene, camera):
+    """The tensors that K1 and K8 gather into their shared-memory tables in
+    place of `pack_tables`' two buffers (csrc/frame_body.cuh:TableParts) →
+    (f32 tensors, i32 tensors), each contiguous, in `_table_tensors`' order.
+    Raises unless every tensor has its dtype, the scene's device and the
+    size `part_sizes` gives it."""
+    f, i = _table_tensors(scene, camera)
+    want = part_sizes(*_counts(scene), int(scene.materials.s0.shape[0]))
+    device = scene.device
+    for tensors, sizes, dtype in ((f, want[0], torch.float32), (i, want[1], torch.int32)):
+        for k, (t, n) in enumerate(zip(tensors, sizes)):
+            if t.dtype != dtype or t.device != device or t.numel() != n:
+                raise ValueError(f"table part {k}: expected {n} {dtype} on {device}, "
+                                 f"got {t.numel()} {t.dtype} on {t.device}")
+    return [t.contiguous() for t in f], [t.contiguous() for t in i]
+
+
+def table_parts_struct(f, i) -> bytes:
+    """`table_parts`' tensors packed as csrc/frame_body.cuh:TableParts
+    (pointers, then lengths), for a kernel entry point's `parts`."""
+    return _build.TABLE_PARTS.pack(*(t.data_ptr() for t in f), *(t.data_ptr() for t in i),
+                                   *(t.numel() for t in f), *(t.numel() for t in i))
+
+
+def box_cull_plain(boxes, o, d, tmax):
+    """csrc/shade_core.cuh:box_may_hit, the box cull of K1 and K8, on
+    tensors: boxes [B,7], ray origins and directions [...,3], tmax [...] →
+    bool [...,B], False only where the ray o + t·d, 0 <= t <= tmax, cannot
+    meet the rounded box. A slab test against the box's bounds grown by its
+    rounding radius and a margin; the kernels skip a culled box's
+    candidates."""
+    oc = o[..., None, :] - boxes[:, :3]
+    dv = d[..., None, :].expand_as(oc)
+    h = boxes[:, 3:6] + boxes[:, 6:7]
+    m = 1e-3 * h + 1e-5 * oc.abs() + 1e-4
+    lo, hi = -h - m - oc, h + m - oc
+    flat = dv == 0.0
+    inv = 1.0 / torch.where(flat, 1.0, dv)
+    ta, tb = lo * inv, hi * inv
+    inf = torch.full_like(ta, float("inf"))
+    near = torch.where(flat, -inf, torch.minimum(ta, tb))
+    far = torch.where(flat, inf, torch.maximum(ta, tb))
+    t0 = torch.fmax(torch.zeros_like(tmax)[..., None], near.amax(-1))
+    t1 = torch.fmin(tmax[..., None], far.amin(-1))
+    outside = (flat & ((lo > 0.0) | (hi < 0.0))).any(-1)
+    return ~outside & (t0 <= t1)
 
 
 def _check_scene(scene: Scene, camera, device):
@@ -414,11 +469,23 @@ def frame_forward(scene: Scene, camera, frame, config, row_base: int = 0,
     [row_base, row_base+rows); NDC and seeds stay those of the full
     `config.height` image. The scene's device picks the route: CUDA
     launches the kernel (or raises), CPU runs `frame_forward_plain`."""
-    global LAUNCHES
     check_planes_for_biased(scene, config)
     device = scene.device
     if device.type == "cpu":
         return frame_forward_plain(scene, camera, frame, config, row_base, rows)
+    launch, out = frame_launch(scene, camera, frame, config, row_base, rows)
+    launch()
+    return out
+
+
+def frame_launch(scene: Scene, camera, frame, config, row_base: int = 0,
+                 rows: int | None = None):
+    """`frame_forward`'s CUDA route in two steps → (launch, out): the
+    arguments are checked and the frame dict allocated here; launch()
+    launches K1 once into it and counts it. chip_smoke.py and
+    ops/adjoint_variants.py time launch() alone beside frame_forward."""
+    check_planes_for_biased(scene, config)
+    device = scene.device
     if device.type != "cuda":
         raise ValueError(f"frame_forward: unsupported device {device}")
     (nP, nS, nB, nK, W, height, fov), shading = kernel_args(scene, camera, config)
@@ -426,15 +493,20 @@ def frame_forward(scene: Scene, camera, frame, config, row_base: int = 0,
     if H < 1 or W < 1 or row_base < 0 or row_base + H > height:
         raise ValueError(f"rows [{row_base}, {row_base + H}) outside the "
                          f"{height}-row image")
-    ftab, itab = pack_tables(scene, camera)
-    out_f = torch.empty((13, H, W), dtype=torch.float32, device=device)
-    out_oid = torch.empty((H, W), dtype=torch.int32, device=device)
-    err = _build.load().kpt_frame_forward(
-        ftab.data_ptr(), itab.data_ptr(), nP, nS, nB, nK, W, height, fov,
-        _wrap32(int(frame)), int(row_base), H, *shading,
-        out_f.data_ptr(), out_oid.data_ptr(),
-        torch.cuda.current_stream(device).cuda_stream,
-    )
-    _build.check(err, "kpt_frame_forward")
-    LAUNCHES += 1
-    return assemble_planes(list(out_f.unbind(0)) + [out_oid], H)
+    parts = table_parts(scene, camera)
+    out = {k: torch.empty((H, W) + tail, dtype=torch.float32, device=device) for k, tail in (
+        ("add_d", (3,)), ("add_s", (3,)), ("alb", (3,)), ("ene", (2,)), ("depth", ()), ("curv", ()))}
+    out["oid"] = torch.empty((H, W), dtype=torch.int32, device=device)
+    planes = _build.FRAME_OUT.pack(*(t.data_ptr() for t in out.values()))
+    stream = torch.cuda.current_stream(device).cuda_stream
+
+    def launch():
+        global LAUNCHES
+        err = _build.load().kpt_frame_forward(
+            table_parts_struct(*parts), nP, nS, nB, nK, W, height, fov,
+            _wrap32(int(frame)), int(row_base), H, *shading, planes, stream,
+        )
+        _build.check(err, "kpt_frame_forward")
+        LAUNCHES += 1
+
+    return launch, out

@@ -371,6 +371,70 @@ def test_mono_kernel_matches_plain(dev, case):
     assert ref["d_cnt"].mean().item() > 2.0, "no history carried; the check is vacuous"
 
 
+# The cases the frame body of K1 and K8 (csrc/frame_body.cuh) branches on:
+# a ragged image (tiles cut by the edge), two boxes (the cull per box),
+# eight planes (MAX_PLANES strategy weights per slot), four decorrelated
+# samples (the sample loop over the slots), the unbiased estimators, K1's
+# row mode at a ragged row base, and the recovery view (192×128: the 8×4
+# tiles of small images). Each kernel against its plain version, with its
+# launch count and an exact oid.
+BODY_CASES = ("ragged_150x90", "two_boxes", "eight_planes", "smp4_decorrelate", "unbiased", "rows_ragged",
+              "recovery_192x128")
+
+
+def _body_case(dev, case):
+    scene = default_scene(device=dev)
+    cam = Camera.create(loc=(3.0, 2.0, -3.0), orient=(0.0, 0.7), device=dev)
+    prev = Camera.create(loc=(3.0, 2.0, -3.0), orient=(0.0, 0.699), device=dev)
+    kw, size, frame = {}, (160, 96), 3
+    if case in ("ragged_150x90", "rows_ragged"):
+        size = (150, 90)
+    elif case == "two_boxes":
+        box = torch.tensor([[4.0, 0.6, -2.0, 0.5, 0.6, 0.4, 0.15]], device=dev)
+        scene = dataclasses.replace(scene, boxes=torch.cat([scene.boxes, box]),
+                                    box_ids=torch.cat([scene.box_ids, scene.box_ids]))
+    elif case == "eight_planes":
+        extra = torch.tensor([[1.0, 0.0, 0.0, 10.0], [0.0, 0.0, -1.0, 10.0], [0.0, 1.0, 0.0, 12.0],
+                              [0.6, 0.0, 0.8, 14.0]], device=dev)
+        scene = dataclasses.replace(scene, planes=torch.cat([scene.planes, extra]),
+                                    plane_ids=torch.cat([scene.plane_ids, scene.plane_ids[2:4].repeat(2)]))
+        assert scene.planes.shape[0] == fk.MAX_PLANES
+    elif case == "smp4_decorrelate":
+        kw = dict(decorrelate_samples=True, **{k: 4 for k in SMP2})
+    elif case == "unbiased":
+        kw = dict(biased=False)
+    elif case == "recovery_192x128":
+        _, scene, views = inverse.recovery_scenes(10, 5, device=dev)
+        cam, prev, size, frame = views[0], views[1], (192, 128), inverse.SEED_BASE
+        kw = dict(soft_shadows=0.05)
+    cfg = RenderConfig(width=size[0], height=size[1], pipeline="fused", temporal_fusion="mono", **kw)
+    return scene, cam, prev, cfg, frame
+
+
+@pytest.mark.parametrize("case", BODY_CASES)
+def test_frame_body_kernels_match_plain(dev, case):
+    scene, cam, prev, cfg, frame = _body_case(dev, case)
+    rows = dict(row_base=37, rows=29) if case == "rows_ragged" else {}
+    before = fk.LAUNCHES
+    out = fk.frame_forward(scene, cam, frame, cfg, **rows)
+    torch.cuda.synchronize()
+    assert fk.LAUNCHES == before + 1
+    ref = fk.frame_forward_plain(scene, cam, frame, cfg, **rows)
+    fk.check_agreement(out, ref, f"K1 {case}")
+    assert torch.equal(out["oid"], ref["oid"])
+    if rows:
+        return
+    oid = fk.frame_forward_plain(scene, prev, frame - 1, cfg)["oid"]
+    hd, hs = _seeded_history(oid, 1), _seeded_history(oid, 2)
+    before = fh.LAUNCHES
+    out = fh.frame_hist(scene, cam, prev, hd, hs, frame, cfg)
+    torch.cuda.synchronize()
+    assert fh.LAUNCHES == before + 1
+    ref = fh.frame_hist_plain(scene, cam, prev, hd, hs, frame, cfg)
+    fh.check_agreement(out, ref, f"K8 {case}")
+    assert torch.equal(out["oid"], ref["oid"])
+
+
 def test_mono_frame_on_card_matches_cpu(dev):
     cfg = RenderConfig(width=128, height=64, pipeline="fused", temporal_fusion="mono")
     hists, imgs = {}, {}

@@ -1,0 +1,159 @@
+"""PyTorch port, the host-side pieces of the frame body of K1 and K8
+(csrc/frame_body.cuh), against the plain route and the JAX package:
+
+- `table_parts`: the scene's own tensors that the kernels gather into their
+  shared-memory tables must give, in order, the flat tables of
+  `pack_tables` and of the JAX kernel's small operands, bit for bit, and
+  the wrapper must raise on a part of the wrong dtype, device or size;
+- `box_cull_plain`, the mirror of the kernels' box cull
+  (csrc/shade_core.cuh:box_may_hit): every ray that the JAX package's
+  `scene/intersect.py:_box_hits` finds hitting a rounded box, and every
+  segment that its occlusion test (`ops/shade_kernel.py:_box_occludes`)
+  finds blocked, must pass the cull, on seeded rays: random, grazing the
+  boxes' bounds, from inside a box, and parallel to the axes; three boxes.
+"""
+
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from _torch_helpers import to_torch_camera, to_torch_scene
+from kylespathtracer_tpu.ops import frame_kernel as jfk
+from kylespathtracer_tpu.ops import shade_kernel as jsk
+from kylespathtracer_tpu.render.camera import Camera
+from kylespathtracer_tpu.scene import default_scene
+from kylespathtracer_tpu.scene.intersect import _box_hits
+from kylespathtracer_tpu.scene.scene import sphere_scene
+from kylespathtracer_tpu_torch.ops import frame_kernel as fk
+
+CAM = Camera.create(loc=(3.0, 2.0, -3.0), orient=(0.0, 0.7))
+# The default room's box and two more: a thin slab with a wide rounding and
+# a flat plate with a tight one.
+BOXES = np.array([
+    [7.5, 0.93, -7.5, 0.8, 0.8, 0.8, 0.1],
+    [2.0, 1.0, 3.0, 0.3, 1.2, 0.5, 0.25],
+    [-4.0, 2.5, 0.5, 1.5, 0.2, 0.9, 0.02],
+], np.float32)
+N = 4096
+
+
+def _scenes():
+    spheres = sphere_scene(
+        [[5.5, 1.0, 0.0], [4.0, 0.5, 1.0], [6.0, 2.5, -1.5]], [1.0, 0.5, 0.7],
+        [[0.8, 0.2, 0.2], [0.2, 0.8, 0.2], [0.2, 0.2, 0.8]],
+    )
+    boxes = default_scene().replace(boxes=jnp.asarray(BOXES), box_ids=jnp.asarray([7, 8, 9], jnp.int32))
+    return {"default": default_scene(), "spheres": spheres, "three_boxes": boxes}
+
+
+@pytest.mark.parametrize("case", ["default", "spheres", "three_boxes"])
+def test_table_parts_give_the_packed_tables(case):
+    jscene = _scenes()[case]
+    scene, cam = to_torch_scene(jscene), to_torch_camera(CAM)
+    f, i = fk.table_parts(scene, cam)
+    packed_f, packed_i = fk.pack_tables(scene, cam)
+    assert torch.equal(torch.cat([t.reshape(-1) for t in f]), packed_f)
+    assert torch.equal(torch.cat([t.reshape(-1) for t in i]), packed_i)
+    # The JAX kernel's small operands, in the same order.
+    ops = [np.asarray(a) for a in jfk.small_operands(jscene, CAM, 3)]
+    for k, n in zip(range(6), np.repeat(fk._counts(scene), 2)):  # JAX pads a zero-row table to one row
+        ops[k] = ops[k][:n]
+    want_f = np.concatenate([ops[k].reshape(-1) for k in (0, 2, 4, 6, 7, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18)])
+    want_i = np.concatenate([ops[k].reshape(-1) for k in (1, 3, 5, 8)])
+    np.testing.assert_array_equal(packed_f.numpy(), want_f)
+    np.testing.assert_array_equal(packed_i.numpy(), want_i)
+    # The sizes the kernel's offsets (make_tables) are the running sums of.
+    sizes = fk.part_sizes(*fk._counts(scene), int(scene.materials.s0.shape[0]))
+    assert [t.numel() for t in f] == list(sizes[0]) and [t.numel() for t in i] == list(sizes[1])
+
+
+@pytest.mark.parametrize("fault", ["dtype", "device", "size"])
+def test_table_parts_raise_on_a_wrong_part(fault):
+    scene, cam = to_torch_scene(default_scene()), to_torch_camera(CAM)
+    m = scene.materials
+    bad = {
+        "dtype": lambda: dataclasses.replace(scene, planes=scene.planes.double()),
+        "device": lambda: dataclasses.replace(
+            scene, materials=dataclasses.replace(m, s1=torch.empty(m.s1.shape, device="meta"))),
+        "size": lambda: dataclasses.replace(
+            scene, materials=dataclasses.replace(m, alb_const=torch.cat([m.alb_const, m.alb_const[:1]]))),
+    }[fault]()
+    with pytest.raises(ValueError, match="table part"):
+        fk.table_parts(bad, cam)
+
+
+def _rays(family: str, rng):
+    """Seeded rays (origins, unit directions) [N,3] of one family."""
+    def unit(v):
+        return v / np.linalg.norm(v, axis=-1, keepdims=True)
+
+    box = BOXES[rng.integers(0, len(BOXES), N)]
+    grown = box[:, 3:6] + box[:, 6:7]
+    if family == "random":
+        # From anywhere in the room toward a box's neighbourhood.
+        o = rng.uniform(-10.0, 10.0, (N, 3))
+        d = unit(box[:, :3] + rng.uniform(-3.0, 3.0, (N, 3)) * grown - o)
+    elif family == "grazing":
+        # Aimed at points within 2e-3 of the box's grown bounds: edges and
+        # corners of the rounded shape, hit or missed by a hair.
+        q = rng.uniform(-1.0, 1.0, (N, 3))
+        axis = rng.integers(0, 3, N)
+        q[np.arange(N), axis] = np.sign(q[np.arange(N), axis])
+        target = box[:, :3] + q * grown + rng.uniform(-2e-3, 2e-3, (N, 3))
+        o = target + unit(rng.normal(size=(N, 3))) * rng.uniform(3.0, 15.0, (N, 1))
+        d = unit(target - o)
+    elif family == "inside":
+        o = box[:, :3] + rng.uniform(-1.0, 1.0, (N, 3)) * grown
+        d = unit(rng.normal(size=(N, 3)))
+    else:  # axis-parallel: one or two direction components exactly zero
+        o = box[:, :3] + rng.uniform(-2.0, 2.0, (N, 3)) * grown
+        d = rng.normal(size=(N, 3))
+        d[rng.random((N, 3)) < 0.5] = 0.0
+        d[np.all(d == 0.0, axis=-1), 0] = 1.0
+        d = unit(d)
+    return o.astype(np.float32), d.astype(np.float32)
+
+
+FAMILIES = ["random", "grazing", "inside", "axis"]
+
+
+@pytest.mark.parametrize("family", FAMILIES)
+def test_box_cull_passes_every_hit(family):
+    """Every (ray, box) that _box_hits finds passes the cull, with tmax the
+    far bound (INF_T) and with tmax the hit itself (the kernels cull with
+    the nearest hit so far, which is no nearer than a hit that wins)."""
+    o, d = _rays(family, np.random.default_rng(FAMILIES.index(family)))
+    scene = _scenes()["three_boxes"]
+    t = np.asarray(_box_hits(scene, jnp.asarray(o), jnp.asarray(d)))  # [N, B]
+    hit = t < 1e8
+    assert hit.sum() > 100, "too few hits; the check is vacuous"
+    boxes, ot, dt = torch.from_numpy(BOXES), torch.from_numpy(o), torch.from_numpy(d)
+    far = fk.box_cull_plain(boxes, ot, dt, torch.full((N,), 1e9)).numpy()
+    assert far[hit].all(), f"{(~far[hit]).sum()} hits culled"
+    for b in range(len(BOXES)):
+        tight = fk.box_cull_plain(boxes[b:b + 1], ot, dt, torch.from_numpy(np.where(hit[:, b], t[:, b], 1e9)))
+        assert tight.numpy()[hit[:, b], 0].all()
+    if family == "random":
+        assert (~far).mean() > 0.3, "the cull rules out too few rays to be worth its test"
+
+
+@pytest.mark.parametrize("family", FAMILIES)
+def test_box_cull_passes_every_occluded_segment(family):
+    """Every segment (0, tmax) that the occlusion test finds blocked by a
+    box passes the cull with that tmax."""
+    rng = np.random.default_rng(10 + FAMILIES.index(family))
+    o, d = _rays(family, rng)
+    tmax = rng.uniform(0.05, 20.0, N).astype(np.float32)
+    sc = {"boxes": jnp.asarray(BOXES)}
+    oj, dj = tuple(jnp.asarray(o[:, k]) for k in range(3)), tuple(jnp.asarray(d[:, k]) for k in range(3))
+    cull = fk.box_cull_plain(torch.from_numpy(BOXES), torch.from_numpy(o), torch.from_numpy(d),
+                             torch.from_numpy(tmax)).numpy()
+    blocked_any = 0
+    for b in range(len(BOXES)):
+        blocked = np.asarray(jsk._box_occludes(sc, b, oj, dj, jnp.asarray(tmax)))
+        blocked_any += int(blocked.sum())
+        assert cull[blocked, b].all(), f"box {b}: {(~cull[blocked, b]).sum()} blocked segments culled"
+    assert blocked_any > 100, "too few blocked segments; the check is vacuous"
