@@ -40,9 +40,11 @@ comparison over every pixel logged beside; so is K5 on random cotangents at
 pixels behind the unmasked distance). Phase 12 then times K5, K6 and the
 generic step, and K5 and K6 at the recovery view's shape (192×128, spheres
 and alb_const), each beside its bound and the forward-mode kernels' time.
-K1 and K8 are timed alone (CUDA events around their launch) and with their
-wrappers (phases 6 and 18), K1 also at the recovery view, beside the
-registers, stack and spill of their build (phase 1). Any failed
+K1, K8, K7 and K4 are timed alone (CUDA events around their launch) and
+with their wrappers (phases 6, 18, 16 and 19), K1 also at the recovery view,
+beside the registers, stack and spill of their build (phase 1); phase 16
+also prints K7's census (ops/path_kernel.census: per bounce the live lanes
+and the warps that run the rounded box's candidates). Any failed
 check raises, so the script exits non-zero; it needs one CUDA device and
 fails without one.
 
@@ -64,6 +66,7 @@ import struct
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import zlib
 
@@ -360,11 +363,15 @@ def main() -> int:
     name = torch.cuda.get_device_name(0)
     log(f"phase 0: card {card} | torch {torch.__version__} cuda {torch.version.cuda} | {name}")
 
-    # Phase 1: build the kernels from the sources in the checkout.
+    # Phase 1: build the kernels from the sources in the checkout, and K7's
+    # census build beside them.
     t0 = time.perf_counter()
+    census_build = threading.Thread(target=_build.build, kwargs=pk.CENSUS_BUILD)
+    census_build.start()
     report = io.StringIO()
     with contextlib.redirect_stdout(report):
         path = _build.build(verbose=True)
+    census_build.join()
     log(report.getvalue())
     _build.load()
     log(f"phase 1: built {path.name} in {time.perf_counter() - t0:.1f} s")
@@ -841,17 +848,22 @@ def main() -> int:
     if (pw, ph, idat) != (W, H, H * (1 + W * 3)):
         raise AssertionError(f"the pathtrace CLI's PNG is {pw}x{ph} with {idat} IDAT bytes")
     k7_ms = cuda_ms(lambda: pk.pathtrace(scene, camera(), cfg_pt, 0), reps=5)
+    k7_alone_ms = cuda_ms(pk.path_launch(scene, camera(), cfg_pt, 0)[0], reps=5)
     k7_plain_ms = cuda_ms(lambda: pk.pathtrace_plain(scene, camera(), cfg_pt, 0), reps=1)
     tally = {}
     ref_pt = pk.pathtrace_plain(scene, camera(), cfg_pt, 0, tally=tally)
-    stats = pk.check_agreement(pk.pathtrace(scene, camera(), cfg_pt, 0), ref_pt, f"K7 vs plain {W}x{H}")
-    log(f"  K7 vs plain, {W}x{H} 4 spp depth 6: {stats}")
+    img_pt = pk.pathtrace(scene, camera(), cfg_pt, 0)
+    stats = pk.check_agreement(img_pt, ref_pt, f"K7 vs plain {W}x{H}")
+    log(f"  K7 vs plain, {W}x{H} 4 spp depth 6: {stats}; bitwise {torch.equal(img_pt, ref_pt)}")
     k7_err = max(k7_err, stats["max"])
     segments = W * H * cfg_pt.spp * cfg_pt.max_depth
-    log(f"  K7 {W}x{H} 4 spp depth 6: {k7_ms:.4f} ms, plain {k7_plain_ms:.4f} ms; "
-        f"wavefront_segments_per_s_1080p {segments / k7_ms * 1e3:.1f} [{card}]")
+    log(f"  K7 {W}x{H} 4 spp depth 6: {k7_ms:.4f} ms with its wrapper, {k7_alone_ms:.4f} ms alone, plain "
+        f"{k7_plain_ms:.4f} ms; wavefront_segments_per_s_1080p {segments / k7_ms * 1e3:.1f} [{card}]; "
+        f"{ptxas['K7']}")
     log(f"  path work on this data: {tally['traced']} segments traced ({tally['traced'] / segments:.4f} "
         f"of W·H·spp·depth = {segments}), {tally['hits']} vertices shaded")
+    for line in pk.census_report(pk.census(scene, camera(), cfg_pt, 0), cfg_pt.max_depth):
+        log(f"  K7 census, {line}")
 
     # Phase 17: K8 against its plain version at 1920x1080.
     log(f"phase 17: mono temporal kernel (K8) vs plain, {W}x{H}, on the card")
@@ -958,8 +970,10 @@ def main() -> int:
     except AssertionError as e:
         log(f"  K4 vs mis.dual_mis, beyond the bar (logged, not held): {e}")
     k4_ms = cuda_ms(lambda: sk.dual_mis(scene, gbuf_p, camera(), seed_p, cfg_p), reps=20, warmup=2)
+    k4_alone_ms = cuda_ms(sk.dual_mis_launch(scene, gbuf_p, camera(), seed_p, cfg_p)[0], reps=20, warmup=2)
     k4_plain_ms = cuda_ms(lambda: sk.dual_mis_plain(scene, gbuf_p, camera(), seed_p, cfg_p), reps=3)
-    log(f"  K4 {W}x{H}: {k4_ms:.4f} ms; plain on the card {k4_plain_ms:.4f} ms [{card}]")
+    log(f"  K4 {W}x{H}: {k4_ms:.4f} ms with its wrapper, {k4_alone_ms:.4f} ms alone; plain on the card "
+        f"{k4_plain_ms:.4f} ms [{card}]; {ptxas['K4']}")
 
     # Phase 20: the pass pipeline and the render CLI at full width.
     log(f"phase 20: pass path, render_animation 4 frames at {W}x{H} (pipeline='pass', shade_backend='pallas')")

@@ -13,18 +13,30 @@
 //
 // What bounds it on an H100: arithmetic. Each path segment is one trace,
 // one occlusion test, a normal, a material row and a BSDF (~1,200
-// operations on the default scene, over half of them the rounded box's
-// trace) against 12 bytes of output per pixel, so the device memory is idle; the path state (ray, throughput,
-// radiance, MIS bookkeeping) lives in registers for all bounces, and the
-// scene and material tables in shared memory. Where the tensor code
-// evaluates every lobe and selects, this code branches on the material
-// kind and stops a path at its first miss or when its throughput dies:
-// the selected values are the same, the rest never reaches the output.
-// Neighbouring paths diverge after the first bounce, which is the cost
-// left. Built with -fmad=false (ops/_build.py): a contracted multiply-add
-// moves sampling decisions (a lobe, a TIR test, a Fresnel roulette) away
-// from the plain version's, and one such decision changes a whole path.
-#include "frame_core.cuh"
+// operations on the default scene, 744 of them the rounded box's, in the
+// count of the JAX kernel's work) against 12 bytes of output per pixel, so
+// the device memory is idle; the path state (ray, throughput, radiance,
+// MIS bookkeeping) lives in registers for all bounces, and the scene and
+// material tables in shared memory, gathered from the scene's own tensors
+// (frame_body.cuh:TableParts). Where the tensor code evaluates every lobe
+// and selects, this code branches on the material kind and stops a path at
+// its first miss or when its throughput dies: the selected values are the
+// same, the rest never reaches the output.
+//
+// The design follows a census of the lanes (path_kernel.census,
+// PERF.md): on the default scene at 1080p the box cull (shade_core.cuh:
+// box_may_hit) passes under 1% of the trace's rays and 0.3% of the light
+// test's, so each trace and light test culls the box lane by lane (CULL),
+// which leaves t, oid and visibility bit for bit; and eight
+// resident blocks of 128 threads per SM (64 registers) hide more of the
+// latency of the divergent paths than five did. A warp still runs the
+// fifth bounce for the ~3% of paths that reach it, and the block-wide
+// designs that compact the box's rays or the paths' tails cost more in
+// barriers and registers than they saved (PERF.md). Built with
+// -fmad=false (ops/_build.py): a contracted multiply-add moves sampling
+// decisions (a lobe, a TIR test, a Fresnel roulette) away from the plain
+// version's, and one such decision changes a whole path.
+#include "frame_body.cuh"
 
 namespace kpt {
 
@@ -175,10 +187,47 @@ __device__ __forceinline__ void bsdf_sample(int kind, const float rho_d[3], cons
   pdf = z * INV_PI;
 }
 
+#ifdef PATH_CENSUS
+// The census (path_kernel.census): per sample and pixel, CENSUS_BITS = 5
+// bits a bounce b at 5b: the segment is traced; its ray may reach a box
+// (the cull passes it, tmax the nearest plane or sphere hit); the light is
+// tested from its vertex; that test finds no plane or sphere in the way
+// (and so, uncut, runs the boxes); the cull passes the light test's
+// segment. Reading only: the image is unchanged.
+__device__ uint32_t* g_census;
+
+// Can the segment o + t·d, 0 <= t <= tmax, meet a box other than `excl`
+// (shade_core.cuh:box_may_hit)?
+__device__ __forceinline__ bool boxes_may_hit(const Tables& T, V3 o, V3 d, float tmax, int excl = -1) {
+  for (int bx = 0; bx < T.nB; ++bx)
+    if (T.box_ids[bx] != excl && box_may_hit(T.f + T.boxes + bx * 7, o, d, tmax)) return true;
+  return false;
+}
+
+__device__ __forceinline__ uint32_t census_trace(const Tables& T, V3 ro, V3 rd, int excl, int bounce) {
+  float bt;
+  int bid;
+  trace<float, true, false, false, false>(T, ro, rd, excl, bt, bid);
+  return (1u | (boxes_may_hit(T, ro, rd, bt) ? 2u : 0u)) << (5 * bounce);
+}
+
+__device__ __forceinline__ uint32_t census_nee(const Tables& T, V3 o, V3 d, int oid, int bounce) {
+  float t_light;
+  const bool reach = light_visible<false, false>(T, o, d, oid, &t_light);
+  const bool need = reach && boxes_may_hit(T, o, d, t_light, oid);
+  return (4u | (reach ? 8u : 0u) | (need ? 16u : 0u)) << (5 * bounce);
+}
+#define CENSUS(expr) census |= (expr)
+#else
+#define CENSUS(expr)
+#endif
+
 // One radiance sample of the path from (ro, rd) (path_kernel.path_block).
 // `stream0` is pid·0x85EBCA6B; kinds/iors are the per-id material tables.
+// `census` gathers the census bits of the sample (PATH_CENSUS builds).
 __device__ void path_sample(const Tables& T, const int* kinds, const float* iors, const PathParams& P,
-                            const Gloss& G, V3 ro, V3 rd, uint32_t n_idx, uint32_t stream0, float rad[3]) {
+                            const Gloss& G, V3 ro, V3 rd, uint32_t n_idx, uint32_t stream0, float rad[3],
+                            uint32_t& census) {
   float tp[3] = {1.0f, 1.0f, 1.0f};
   rad[0] = rad[1] = rad[2] = 0.0f;
   int excl = -1;
@@ -188,7 +237,8 @@ __device__ void path_sample(const Tables& T, const int* kinds, const float* iors
   for (int bounce = 0; bounce < P.max_depth; ++bounce) {
     float t;
     int oid;
-    trace<float, true>(T, ro, rd, excl, t, oid);
+    CENSUS(census_trace(T, ro, rd, excl, bounce));
+    trace<float, true, false, true>(T, ro, rd, excl, t, oid);
     if (oid == 0) break;  // a miss ends the path: nothing more reaches rad
     const V3 hl = mk(ro.x + rd.x * t, ro.y + rd.y * t, ro.z + rd.z * t);
 
@@ -226,7 +276,8 @@ __device__ void path_sample(const Tables& T, const int* kinds, const float* iors
     light_sample(T, hl, u1, u2, l_wi, l_pdf, l_ok);
     if (l_ok && !is_light) {
       const V3 ro_off = mk(hl.x + n.x * EPS, hl.y + n.y * EPS, hl.z + n.z * EPS);
-      if (light_visible(T, ro_off, l_wi, oid)) {
+      CENSUS(census_nee(T, ro_off, l_wi, oid, bounce));
+      if (light_visible<true>(T, ro_off, l_wi, oid)) {
         float f_cos[3], b_pdf;
         bsdf_eval_pdf(kind, rho_d, rho_s, n, rd, l_wi, G, f_cos, b_pdf);
         const float w_nee = l_pdf / fmaxf(1e-12f, l_pdf + b_pdf);
@@ -258,23 +309,24 @@ __device__ void path_sample(const Tables& T, const int* kinds, const float* iors
   }
 }
 
-__global__ void __launch_bounds__(128) path_kernel(const float* __restrict__ ftab, const int* __restrict__ itab,
-                                                   const int* __restrict__ kinds, const float* __restrict__ iors,
-                                                   PathParams P, float* __restrict__ out) {
+// Eight resident blocks of 128 threads per SM: 64 registers a thread.
+__global__ void __launch_bounds__(BLOCK, 8) path_kernel(TableParts tp, const int* __restrict__ kinds,
+                                                        const float* __restrict__ iors, PathParams P,
+                                                        float* __restrict__ out) {
   extern __shared__ float smem[];
   const FrameParams& F = P.F;
-  const Tables T = load_tables(smem, ftab, itab, F);
+  const Tables T = load_table_parts(smem, tp, F);
   // The material kinds and iors follow the scene tables in shared memory.
   int* s_kinds = reinterpret_cast<int*>(smem + table_floats(F.nP, F.nS, F.nB, F.nK)) + table_ints(F.nP, F.nS, F.nB);
   float* s_iors = reinterpret_cast<float*>(s_kinds + F.nK);
-  for (int i = threadIdx.y * blockDim.x + threadIdx.x; i < F.nK; i += blockDim.x * blockDim.y) {
+  for (int i = threadIdx.x; i < F.nK; i += BLOCK) {
     s_kinds[i] = kinds[i];
     s_iors[i] = iors[i];
   }
   __syncthreads();
 
-  const int x = blockIdx.x * blockDim.x + threadIdx.x;
-  const int y = blockIdx.y * blockDim.y + threadIdx.y;
+  const int x = blockIdx.x * TILE_W + threadIdx.x % TILE_W;
+  const int y = blockIdx.y * TILE_H + threadIdx.x / TILE_W;
   if (x >= F.width || y >= F.height) return;
 
   V3 ro, rd;
@@ -284,8 +336,13 @@ __global__ void __launch_bounds__(128) path_kernel(const float* __restrict__ fta
   float acc[3] = {0.0f, 0.0f, 0.0f};
   for (int s = 0; s < P.spp; ++s) {
     float rad[3];
-    path_sample(T, s_kinds, s_iors, P, G, ro, rd, (uint32_t)F.frame * (uint32_t)P.spp + (uint32_t)s, stream0, rad);
+    uint32_t census = 0u;
+    path_sample(T, s_kinds, s_iors, P, G, ro, rd, (uint32_t)F.frame * (uint32_t)P.spp + (uint32_t)s, stream0, rad,
+                census);
     for (int c = 0; c < 3; ++c) acc[c] = acc[c] + rad[c];
+#ifdef PATH_CENSUS
+    g_census[((size_t)s * F.height + y) * F.width + x] = census;
+#endif
   }
   const size_t o = ((size_t)y * (size_t)F.width + (size_t)x) * 3;
   for (int c = 0; c < 3; ++c) out[o + c] = acc[c] / (float)P.spp;
@@ -293,17 +350,22 @@ __global__ void __launch_bounds__(128) path_kernel(const float* __restrict__ fta
 
 }  // namespace kpt
 
-extern "C" int kpt_pathtrace(const float* ftab, const int* itab, const int* kinds, const float* iors, int nP, int nS,
-                             int nB, int nK, int width, int height, float fov, int frame, int spp, int max_depth,
-                             int gloss, float* out, void* stream) {
+extern "C" int kpt_pathtrace(const kpt::TableParts* tp, const int* kinds, const float* iors, int nP, int nS, int nB,
+                             int nK, int width, int height, float fov, int frame, int spp, int max_depth, int gloss,
+                             float* out, void* stream) {
   kpt::PathParams P{};
   P.F.nP = nP; P.F.nS = nS; P.F.nB = nB; P.F.nK = nK;
   P.F.width = width; P.F.height = height; P.F.fov = fov; P.F.frame = frame;
   P.F.rows = height;
   P.spp = spp; P.max_depth = max_depth; P.gloss = gloss;
   const size_t shmem = kpt::table_smem(nP, nS, nB, nK, false) + (size_t)nK * (sizeof(int) + sizeof(float));
-  const dim3 block(16, 8);
-  const dim3 grid((width + block.x - 1) / block.x, (height + block.y - 1) / block.y);
-  kpt::path_kernel<<<grid, block, shmem, (cudaStream_t)stream>>>(ftab, itab, kinds, iors, P, out);
+  const dim3 grid((width + kpt::TILE_W - 1) / kpt::TILE_W, (height + kpt::TILE_H - 1) / kpt::TILE_H);
+  kpt::path_kernel<<<grid, kpt::BLOCK, shmem, (cudaStream_t)stream>>>(*tp, kinds, iors, P, out);
   return (int)cudaGetLastError();
 }
+
+#ifdef PATH_CENSUS
+extern "C" int kpt_path_census(void* buffer) {
+  return (int)cudaMemcpyToSymbol(kpt::g_census, &buffer, sizeof(buffer));
+}
+#endif

@@ -244,7 +244,7 @@ __device__ __forceinline__ float sphere_t_far(const Tables& T, int s, V3 o, V3 d
   return t > 0.0f ? t : -b + sq;
 }
 
-// The box cull of the frame kernels K1 and K8 (CULL below): can the ray
+// The box cull of K1, K4, K7 and K8 (CULL below): can the ray
 // o + t·d, 0 <= t <= tmax, meet rounded box B (center B[0..2], half extents
 // B[3..5], rounding radius B[6])? A slab test against the box's bounds grown
 // by the rounding radius and by a margin far above the rounding of this test
@@ -279,8 +279,11 @@ __device__ __forceinline__ bool box_may_hit(const float* B, V3 o, V3 d, float tm
 // (frame_adjoint.cuh reverses its t alone): plane p → p, sphere s → 256 + s,
 // rounded box bx → 512 + 32·bx + part, part 0-5 a face (2k + si), 6-17 an
 // edge cylinder (6 + 4k + 2ii + jj), 18-25 a corner sphere (18 + c). With
-// CULL (K1 and K8), a box that `box_may_hit` rules out is skipped.
-template <typename S, bool INSIDE_HITS = false, bool RECORD = false, bool CULL = false>
+// CULL (K1, K4, K7 and K8), a box that `box_may_hit` rules out is skipped.
+// Without BOXES (K7's census) the boxes are skipped and the nearest plane or
+// sphere hit is returned unpulled (no eps, no ZFAR clamp): the tmax of the
+// box cull.
+template <typename S, bool INSIDE_HITS = false, bool RECORD = false, bool CULL = false, bool BOXES = true>
 __device__ void trace(const Tables& T, V3T<S> ro, V3T<S> rd, int excl, S& t_out, int& id_out,
                       int* win = nullptr) {
   S best_t = INF_T;
@@ -308,7 +311,7 @@ __device__ void trace(const Tables& T, V3T<S> ro, V3T<S> rd, int excl, S& t_out,
     }
     consider(t, T.sphere_ids[s], disc > 0.0f, 256 + s);
   }
-  for (int bx = 0; bx < T.nB; ++bx) {
+  for (int bx = 0; bx < (BOXES ? T.nB : 0); ++bx) {
     const int q = T.boxes + bx * 7;
     if constexpr (CULL) {
       if (!box_may_hit(T.f + q, vval(ro), vval(rd), val(best_t))) continue;
@@ -370,6 +373,11 @@ __device__ void trace(const Tables& T, V3T<S> ro, V3T<S> rd, int excl, S& t_out,
                    (oc.z + d[2] * t) * sz > 0.0f,
                512 + 32 * bx + 18 + c);
     }
+  }
+  if constexpr (!BOXES) {
+    t_out = best_t;
+    id_out = best_id;
+    return;
   }
   // Pull back by eps; clamp misses (common.glsl:289-294).
   S t = best_t - EPS;
@@ -438,8 +446,9 @@ __device__ inline bool box_occludes(const Tables& T, int bx, V3 o, V3 dv, float 
 
 // True where the analytic target hit is the nearest scene hit from o along d.
 // skip_sphere: a sphere id that is the target itself (or any value no sphere
-// has). With CULL, a box that `box_may_hit` rules out is not tested.
-template <bool CULL = false>
+// has). With CULL, a box that `box_may_hit` rules out is not tested; without
+// BOXES (K7's census) no box is.
+template <bool CULL = false, bool BOXES = true>
 __device__ inline bool nearest_is_target(const Tables& T, V3 o, V3 d, int excl, float t_target,
                                   bool target_valid, bool use_skip, int skip_sphere) {
   if (!target_valid) return false;
@@ -455,7 +464,7 @@ __device__ inline bool nearest_is_target(const Tables& T, V3 o, V3 d, int excl, 
     if (disc > 0.0f && t > 0.0f && sid != excl && t < t_target && !(use_skip && sid == skip_sphere))
       return false;
   }
-  for (int bx = 0; bx < T.nB; ++bx) {
+  for (int bx = 0; bx < (BOXES ? T.nB : 0); ++bx) {
     if constexpr (CULL) {
       if (!box_may_hit(T.f + T.boxes + bx * 7, o, d, t_target)) continue;
     }
@@ -464,9 +473,11 @@ __device__ inline bool nearest_is_target(const Tables& T, V3 o, V3 d, int excl, 
   return t_target - EPS <= ZFAR;
 }
 
-// Occlusion-style `nearest hit == light` (common.glsl:348-353).
-template <bool CULL = false>
-__device__ inline bool light_visible(const Tables& T, V3 o, V3 d, int excl) {
+// Occlusion-style `nearest hit == light` (common.glsl:348-353). Without
+// BOXES (K7's census) no box is tested, and *t_light gets the light's
+// distance, the tmax of the box cull.
+template <bool CULL = false, bool BOXES = true>
+__device__ inline bool light_visible(const Tables& T, V3 o, V3 d, int excl, float* t_light = nullptr) {
   const float* L = T.f + T.light;
   V3 oc = mk(o.x - L[0], o.y - L[1], o.z - L[2]);
   float b = dot(oc, d);
@@ -474,7 +485,8 @@ __device__ inline bool light_visible(const Tables& T, V3 o, V3 d, int excl) {
   float disc = b * b - c2;
   float t_l = -b - sqrtf(fmaxf(disc, 1e-12f));
   bool valid = disc > 0.0f && t_l > 0.0f && T.light_id != excl;
-  return nearest_is_target<CULL>(T, o, d, excl, t_l, valid, true, T.light_id);
+  if constexpr (!BOXES) *t_light = t_l;
+  return nearest_is_target<CULL, BOXES>(T, o, d, excl, t_l, valid, true, T.light_id);
 }
 
 // ------------------------------------------------------------ materials

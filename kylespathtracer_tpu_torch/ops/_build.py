@@ -52,11 +52,14 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 
 
-# The structs that K1 and K8 take by pointer, packed by the wrappers:
-# csrc/frame_body.cuh:TableParts (15 f32 and 4 i32 pointers, then their 15
-# and 4 lengths) and csrc/frame_kernel.cu:FrameOut (K1's 7 output planes).
+# The structs that K1, K4, K7 and K8 take by pointer, packed by the
+# wrappers: csrc/frame_body.cuh:TableParts (15 f32 and 4 i32 pointers, then
+# their 15 and 4 lengths), csrc/frame_kernel.cu:FrameOut (K1's 7 output
+# planes) and csrc/shade_kernel.cu:ShadeIO (K4's G-buffer in and estimator
+# pair out: normal, depth, ray_dir, obj_id, seed, est_d, est_s).
 TABLE_PARTS = struct.Struct("=19Q19i")
 FRAME_OUT = struct.Struct("=7Q")
+SHADE_IO = struct.Struct("=7Q")
 
 
 _SIGNATURES = {
@@ -86,10 +89,10 @@ _SIGNATURES = {
     ),
     # ftab, itab, nP, nS, nB, nK, width, height, fov, out_f, out_oid, stream
     "kpt_geometry_pass": (_P, _P, _I, _I, _I, _I, _I, _I, _F, _P, _P, _P),
-    # ftab, itab, kinds, iors, nP, nS, nB, nK, width, height, fov, frame,
-    # spp, max_depth, gloss, out, stream
+    # parts, kinds, iors, nP, nS, nB, nK, width, height, fov, frame, spp,
+    # max_depth, gloss, out, stream
     "kpt_pathtrace": (
-        _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _I, _P, _P,
+        _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _I, _P, _P,
     ),
     # parts, prev loc, prev orient, nP, nS, nB, nK, width, height, fov,
     # frame, smp, decorrelate, biased, soft_beta, gloss, K, inv_asp,
@@ -99,11 +102,8 @@ _SIGNATURES = {
         _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _I, _F, _I, _I, _F, _F,
         _F, _F, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
     ),
-    # ftab, itab, nP, nS, nB, nK, width, height, soft_beta, gloss, normal,
-    # obj_id, depth, ray_dir, seed, est_d, est_s, stream
-    "kpt_dual_mis": (
-        _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P, _P, _P, _P, _P, _P, _P, _P,
-    ),
+    # parts, nP, nS, nB, nK, width, height, soft_beta, gloss, io, stream
+    "kpt_dual_mis": (_P, _I, _I, _I, _I, _I, _I, _F, _I, _P, _P),
 }
 
 
@@ -118,19 +118,22 @@ def _nvcc() -> str:
     return str(path)
 
 
-def _digest() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode() + repr(SOURCE_FLAGS).encode())
-    for name in SOURCES + HEADERS:
-        h.update((CSRC / name).read_bytes())
+def _digest(sources, defines) -> str:
+    h = hashlib.sha256(" ".join((*NVCC_FLAGS, *defines)).encode() + repr(SOURCE_FLAGS).encode())
+    for name in (*sources, *HEADERS):
+        h.update(name.encode() + (CSRC / name).read_bytes())
     return h.hexdigest()[:16]
 
 
-def build(verbose: bool = False) -> Path:
+def build(verbose: bool = False, sources=None, defines=()) -> Path:
     """Compile `csrc/` into build/kernels/libkpt_kernels_<hash>.so unless
     that file exists; return its path. The sources compile in parallel, one
     nvcc each. `verbose` adds `-Xptxas -v` and prints the compiler's report
-    (registers, stack frame, spills) of every kernel."""
-    out = BUILD_DIR / f"libkpt_kernels_{_digest()}.so"
+    (registers, stack frame, spills) of every kernel. `sources` (default
+    SOURCES) and `defines` (macros set with -D) make another library, such
+    as the census build of K7 (path_kernel.census)."""
+    sources = SOURCES if sources is None else tuple(sources)
+    out = BUILD_DIR / f"libkpt_kernels_{_digest(sources, defines)}.so"
     if out.exists() and not verbose:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -138,10 +141,10 @@ def build(verbose: bool = False) -> Path:
     nvcc = _nvcc()
     ptxas = ["-Xptxas", "-v"] if verbose else []
     objs, procs = [], []
-    for src in SOURCES:
+    for src in sources:
         obj = BUILD_DIR / f"{tag}.{Path(src).stem}.o"
-        cmd = [nvcc, *NVCC_FLAGS, *SOURCE_FLAGS.get(src, ()), *ptxas, "-c", "-o", str(obj),
-               str(CSRC / src)]
+        cmd = [nvcc, *NVCC_FLAGS, *SOURCE_FLAGS.get(src, ()), *(f"-D{d}" for d in defines), *ptxas, "-c", "-o",
+               str(obj), str(CSRC / src)]
         procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                             stderr=subprocess.STDOUT, text=True)))
         objs.append(obj)
@@ -160,7 +163,7 @@ def build(verbose: bool = False) -> Path:
         for obj in objs:
             obj.unlink(missing_ok=True)
     if verbose:
-        for (_, text, _), src in zip(reports, SOURCES):
+        for (_, text, _), src in zip(reports, sources):
             print(f"--- {src}\n{text}")
     os.replace(tmp, out)
     return out

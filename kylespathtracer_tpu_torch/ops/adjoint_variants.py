@@ -1,8 +1,10 @@
-"""Where the time of the hand-written frame kernels goes: the reverse-mode
-gradient kernels K5 and K6, and (with --frame) the forward frame kernels K1
-and K8.
+"""Where the time of the hand-written kernels goes: the reverse-mode
+gradient kernels K5 and K6, (with --frame) the forward frame kernels K1
+and K8, and (with --path) the path-tracing kernel K7 and the pass
+pipeline's shade kernel K4.
 
-    python -m kylespathtracer_tpu_torch.ops.adjoint_variants [--parent CSRC] [--frame] [VARIANT ...]
+    python -m kylespathtracer_tpu_torch.ops.adjoint_variants [--parent CSRC] [--frame | --path] [VARIANT ...]
+    python -m kylespathtracer_tpu_torch.ops.adjoint_variants --path --turns ROOT
 
 Needs a CUDA device. For each variant it builds the kernel library from a
 copy of kylespathtracer_tpu_torch/csrc under build/variants/ with one
@@ -43,6 +45,40 @@ The breakdown of the frame kernels before their redesign (PERF.md, PR 6)
 came from this tool's first form, whose edits targeted
 frame_core.cuh:frame_pixel and shade_core.cuh:shade_core.
 
+With --path it times K7 at bench.py's wavefront cell (default scene,
+1920×1080, 4 spp, depth 6, camera (3,2,-3) orient (0,0.7), frame 0) and on
+the JAX package's config 3 (512×512, mirror, dielectric and diffuse
+spheres), and K4 at 1920×1080 on the default scene's G-buffer, each alone
+(CUDA events around its launch) and with its wrapper (`pathtrace`,
+`dual_mis`), holds every variant whose image is right to K7's plain
+version bit for bit, and prints the static instruction mix of both.
+Variants, joined by `+` to combine them:
+
+- `committed`; `minblocks=N`: K7 under `__launch_bounds__(128, N)`,
+  `k4_minblocks=N` K4; `uncut`: K7 without its box cull (the earlier
+  design); `depth=D`: the build at max_depth D (the
+  marginal time of each bounce);
+- `no_box`: the rounded box gone from the scene (the image is wrong; the
+  floor of any treatment of the box); `cull_all`: the box cull's slab
+  tests run but rule out every box, and `cull_free`: the cull rules out
+  every box without its tests (both images wrong; what the cull and the
+  box's code cost by themselves); `no_nee`: the light test skipped (every
+  light sample counts as visible);
+- `census`: an instrumented build that records, per sample, pixel and
+  bounce, whether the segment is traced, whether the box cull passes its
+  ray, and whether the light test runs, finds no plane or sphere in the
+  way, and passes the cull. The image is unchanged. It prints per bounce
+  the live lanes, the warps with a live lane (a warp: two rows of 16
+  pixels of a 16×8 block), and the warps that run the box's candidates
+  uncut, culled lane by lane, and deferred to the block (⌈n/32⌉ warps for
+  the block's n rays), and the warp iterations of the nested loop against
+  the flat one and the ideal.
+
+`--turns ROOT` times K7 and K4 with their wrappers and alone (their
+kernels' device time in a torch.profiler trace) from another checkout
+ROOT and from this one, in turns (ROOT, this, this, ROOT), each in a
+process of its own.
+
 With `--parent CSRC` (the csrc directory of another checkout) it first
 compiles the kernels that the group leaves alone from both trees and says
 whether `cuobjdump -sass` prints the same code for each.
@@ -52,12 +88,16 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import io
+import json
+import os
 import re
 import shutil
 import statistics
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -69,13 +109,17 @@ from kylespathtracer_tpu_torch.ops import frame_grad as fg
 from kylespathtracer_tpu_torch.ops import frame_hist as fh
 from kylespathtracer_tpu_torch.ops import frame_kernel as fk
 from kylespathtracer_tpu_torch.ops import loss_kernel as lk
+from kylespathtracer_tpu_torch.ops import path_kernel as pk
+from kylespathtracer_tpu_torch.ops import shade_kernel as sk
+from kylespathtracer_tpu_torch.render import gbuffer, passes
 from kylespathtracer_tpu_torch.render.camera import Camera
 from kylespathtracer_tpu_torch.render.passes import Channel
-from kylespathtracer_tpu_torch.scene.scene import default_scene
+from kylespathtracer_tpu_torch.scene.scene import default_scene, sphere_scene
+from kylespathtracer_tpu_torch.scene.types import BSDF
 from kylespathtracer_tpu_torch.utils.config import RenderConfig
 
 ROOT = Path(__file__).resolve().parents[2]
-ADJ, SHADE, BODY, HIST = "frame_adjoint.cuh", "shade_core.cuh", "frame_body.cuh", "frame_hist.cu"
+ADJ, SHADE, BODY, HIST, PATH = "frame_adjoint.cuh", "shade_core.cuh", "frame_body.cuh", "frame_hist.cu", "path_kernel.cu"
 # The edits of each variant: (source, text, replacement) each.
 SWITCH_OFF = {
     "no_atomics": [(ADJ, "    if (v == 0.0f) return;\n", "    return;\n")],
@@ -96,10 +140,8 @@ FRAME_OFF = {
         (BODY, "  const bool lhit = light_visible<true>(T, hl2, sample_dir, po_sel);", "  const bool lhit = true;")],
     "no_direct": [(BODY, "    vis = light_visible<true>(T, hl, dl_dir, ho) ? 1.0f : 0.0f;\n", "    vis = 1.0f;\n")],
     "no_box": [
-        (SHADE, "  for (int bx = 0; bx < T.nB; ++bx) {\n    const int q = T.boxes + bx * 7;\n    if constexpr (CULL)",
-         "  for (int bx = 0; bx < 0; ++bx) {\n    const int q = T.boxes + bx * 7;\n    if constexpr (CULL)"),
-        (SHADE, "  for (int bx = 0; bx < T.nB; ++bx) {\n    if constexpr (CULL) {\n      if (!box_may_hit",
-         "  for (int bx = 0; bx < 0; ++bx) {\n    if constexpr (CULL) {\n      if (!box_may_hit")],
+        (SHADE, "  for (int bx = 0; bx < (BOXES ? T.nB : 0); ++bx) {", "  for (int bx = 0; bx < 0; ++bx) {"),
+        (SHADE, "  for (int bx = 0; bx < (BOXES ? T.nB : 0); ++bx) {", "  for (int bx = 0; bx < 0; ++bx) {")],
     "no_cull": [(SHADE, "__device__ __forceinline__ bool box_may_hit(const float* B, V3 o, V3 d, float tmax) {\n",
                  "__device__ __forceinline__ bool box_may_hit(const float* B, V3 o, V3 d, float tmax) {\n"
                  "  return true;\n")],
@@ -119,6 +161,19 @@ FRAME_OFF = {
                       "    out_ene[2 * p] = vals[9];\n    out_ene[2 * p + 1] = vals[10];\n"
                       "    out_oid[p] = oid;\n    return;\n  }\n  // Anchors: the hit point for diffuse")],
 }
+PATH_OFF = {
+    "no_box": [(PATH, "  const Tables T = load_table_parts(smem, tp, F);\n",
+                "  Tables T = load_table_parts(smem, tp, F);\n  T.nB = 0;\n")],
+    "cull_all": [(SHADE, "  return t0 <= t1;\n}", "  return t0 <= t1 && tmax < -1.0f;\n}")],
+    "cull_free": [(SHADE, "  const float oc[3] = {o.x - B[0], o.y - B[1], o.z - B[2]};\n  const float dv[3] = {d.x, d.y, d.z};\n"
+                          "  float t0 = 0.0f, t1 = tmax;",
+                   "  return false;\n  const float oc[3] = {o.x - B[0], o.y - B[1], o.z - B[2]};\n"
+                   "  const float dv[3] = {d.x, d.y, d.z};\n  float t0 = 0.0f, t1 = tmax;")],
+    "no_nee": [(PATH, "      CENSUS(census_nee(T, ro_off, l_wi, oid, bounce));\n      if (",
+                "      CENSUS(census_nee(T, ro_off, l_wi, oid, bounce));\n      if (true || ")],
+    "uncut": [(PATH, "    trace<float, true, false, true>(T, ro, rd, excl, t, oid);", "    trace<float, true>(T, ro, rd, excl, t, oid);"),
+              (PATH, "      if (light_visible<true>(T, ro_off, l_wi, oid)) {", "      if (light_visible(T, ro_off, l_wi, oid)) {")],
+}
 # Each group: its variants, the sources whose launch bounds minblocks=N
 # sets, its kernels' (label, source), and the sources it leaves alone
 # (compared by --parent).
@@ -130,6 +185,9 @@ GROUPS = {
               (("K1", "frame_kernel.cu"), ("K8", "frame_hist.cu")),
               ("reproject_kernel.cu", "geometry_kernel.cu", "shade_kernel.cu", "frame_grad.cu",
                "loss_kernel.cu", "path_kernel.cu")),
+    "path": (PATH_OFF, ("path_kernel.cu",), (("K7", "path_kernel.cu"), ("K4", "shade_kernel.cu")),
+             ("frame_kernel.cu", "reproject_kernel.cu", "geometry_kernel.cu", "frame_grad.cu", "loss_kernel.cu",
+              "frame_hist.cu")),
 }
 
 
@@ -162,26 +220,40 @@ def ptxas_lines(report: str, source: str) -> str:
                      if re.search(r"Used \d+ registers|bytes stack frame", ln))
 
 
-def edit(csrc: Path, variant: str, group: str) -> None:
-    """Apply `variant` of `group` to the copy of the sources in `csrc`."""
+def edits_of(variant: str, group: str) -> list:
+    """The edits of one variant of `group` (parts joined by `+`): (source,
+    text, replacement) each; text None sets the launch bounds' minimum
+    blocks. Runtime options (depth=D, census) have none."""
     off, bounded = GROUPS[group][:2]
     edits = []
-    if variant.startswith("minblocks="):
-        n = int(variant.split("=", 1)[1])
-        edits = [(src, None, n) for src in bounded]
-    elif variant.startswith("tile=") and group == "frame":
-        w, h = (int(v) for v in variant.split("=", 1)[1].split("x"))
-        edits = [(BODY, "constexpr int BLOCK = 128, TILE_W = 16, TILE_H = 8;",
-                  f"constexpr int BLOCK = 128, TILE_W = {w}, TILE_H = {h};")]
-    elif variant != "committed":
-        edits = off[variant]
-    for src, old, new in edits:
+    for part in variant.split("+"):
+        if part.startswith("minblocks="):
+            edits += [(src, None, int(part.split("=", 1)[1])) for src in bounded]
+        elif part.startswith("tile=") and group == "frame":
+            w, h = (int(v) for v in part.split("=", 1)[1].split("x"))
+            edits.append((BODY, "constexpr int BLOCK = 128, TILE_W = 16, TILE_H = 8;",
+                          f"constexpr int BLOCK = 128, TILE_W = {w}, TILE_H = {h};"))
+        elif part.startswith("k4_minblocks=") and group == "path":
+            edits.append(("shade_kernel.cu", None, int(part.split("=", 1)[1])))
+        elif (part.startswith("depth=") or part == "census") and group == "path":
+            continue
+        elif part != "committed":
+            edits += off[part]
+    return edits
+
+
+def edit(csrc: Path, variant: str, group: str) -> None:
+    """Apply `variant` of `group` to the copy of the sources in `csrc`;
+    raise where an edit's text is not in its source."""
+    for src, old, new in edits_of(variant, group):
         text = (csrc / src).read_text()
         if old is None:
             changed = re.sub(r"__launch_bounds__\((128|BLOCK)(, \d+)?\)", rf"__launch_bounds__(\1, {new})", text)
+            ok = changed != text or re.search(rf"__launch_bounds__\((128|BLOCK), {new}\)", text)
         else:
             changed = text.replace(old, new, 1)
-        if changed == text and not (old is None and re.search(rf"__launch_bounds__\((128|BLOCK), {new}\)", text)):
+            ok = changed != text
+        if not ok:
             raise SystemExit(f"adjoint_variants: {variant} does not apply to {src}")
         (csrc / src).write_text(changed)
 
@@ -222,17 +294,19 @@ MIX = ("FCHK", "MUFU.RCP", "MUFU.RSQ", "MUFU.SIN", "MUFU.COS", "MUFU.EX2", "MUFU
 INSN = re.compile(r"\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P[T0-9]\s+)?([A-Z][A-Z0-9_.]*)")
 
 
-def sass_mix(sources) -> None:
-    """The static instruction mix of `sources` (this tree): instructions in
-    all and per opcode class."""
+def sass_mix(sources, parent: Path | None = None) -> None:
+    """The static instruction mix of `sources` (this tree, and the `parent`
+    csrc's where given): instructions in all and per opcode class."""
     out = ROOT / "build" / "variants" / "sass"
     out.mkdir(parents=True, exist_ok=True)
-    _compile([(_build.CSRC, src, out / f"mix_{src}.o") for src in sources])
-    for src in sources:
-        ops = [m.group(1) for m in map(INSN.match, _sass(out / f"mix_{src}.o")) if m]
-        counts = {k: sum(1 for op in ops if op == k or op.startswith(k + ".")) for k in MIX}
-        print(f"SASS mix {src}: {len(ops)} instructions; " + ", ".join(f"{k} {v}" for k, v in counts.items()),
-              flush=True)
+    trees = [("this", _build.CSRC)] + ([("parent", parent)] if parent else [])
+    _compile([(tree, src, out / f"mix_{tag}_{src}.o") for tag, tree in trees for src in sources])
+    for tag, _ in trees:
+        for src in sources:
+            ops = [m.group(1) for m in map(INSN.match, _sass(out / f"mix_{tag}_{src}.o")) if m]
+            counts = {k: sum(1 for op in ops if op == k or op.startswith(k + ".")) for k in MIX}
+            print(f"SASS mix {src} ({tag}): {len(ops)} instructions; "
+                  + ", ".join(f"{k} {v}" for k, v in counts.items()), flush=True)
 
 
 def adjoint_times(dev, rng) -> callable:
@@ -302,41 +376,174 @@ def frame_times(dev, rng) -> callable:
     return run
 
 
+def config3(dev):
+    """The JAX package's config 3 (bench_configs.py:282-289): a mirror, a
+    dielectric and a diffuse sphere on a floor → (scene, camera, config at
+    512×512, 4 spp, depth 6), as chip_smoke.py phase 14 builds it."""
+    scene = sphere_scene(
+        [[-1.5, 1.0, 6.0], [1.5, 1.2, 6.5], [0.0, 0.8, 4.5]], [1.0, 1.2, 0.8],
+        [[0.9, 0.9, 0.9], [0.7, 0.8, 0.9], [0.9, 0.6, 0.5]],
+        kinds=[BSDF.MIRROR, BSDF.DIELECTRIC, BSDF.DIFFUSE], iors=[1.5, 1.5, 1.5], device=dev)
+    cam = Camera.create(loc=(0.0, 2.0, -2.0), orient=(-0.1, 0.0), device=dev)
+    return scene, cam, RenderConfig(width=512, height=512, spp=4, max_depth=6)
+
+
+def path_cells(dev) -> dict:
+    """The cells of the --path group: K7 at bench.py's wavefront cell and on
+    config 3, K4 on the default scene's G-buffer at 1920×1080 (the inputs of
+    chip_smoke.py phase 19)."""
+    scene = default_scene(device=dev)
+    cam = Camera.create(loc=(3.0, 2.0, -3.0), orient=(0.0, 0.7), device=dev)
+    cfg_p = RenderConfig(width=1920, height=1080, pipeline="pass", shade_backend="pallas")
+    gb = gbuffer.geometry_pass(scene, cam, cfg_p)
+    _, seed = passes._shade_common(scene, cfg_p, gb, cam, 3)
+    return {"k7": (scene, cam, RenderConfig(width=1920, height=1080, spp=4, max_depth=6)), "k7_3": config3(dev),
+            "k4": (scene, gb, cam, seed, cfg_p)}
+
+
+def path_times(dev) -> callable:
+    """The K7/K4 timing of one variant → a function that prints it."""
+    cells = path_cells(dev)
+    refs = {key: pk.pathtrace_plain(*cells[key], 0) for key in ("k7", "k7_3")}
+    k4_ref = sk.dual_mis_plain(*cells["k4"])
+    torch.cuda.synchronize()
+
+    def run(variant, card):
+        parts = variant.split("+")
+        depth = next((int(v.split("=", 1)[1]) for v in parts if v.startswith("depth=")), 6)
+        scene, cam, cfg = cells["k7"]
+        cfg = dataclasses.replace(cfg, max_depth=depth)
+        if "census" in parts:
+            for line in pk.census_report(pk.census(scene, cam, cfg, 0), depth):
+                print(f"[{variant}] census {line}", flush=True)
+            return
+        k7, img = pk.path_launch(scene, cam, cfg, 0)
+        k7_3, img3 = pk.path_launch(*cells["k7_3"], 0)
+        k4, (est_d, est_s) = sk.dual_mis_launch(*cells["k4"])
+        times = (
+            cuda_ms(k7, reps=10, warmup=2),
+            cuda_ms(lambda: pk.pathtrace(scene, cam, cfg, 0), reps=10, warmup=1),
+            cuda_ms(k7_3, reps=20, warmup=2),
+            cuda_ms(lambda: pk.pathtrace(*cells["k7_3"], 0), reps=20, warmup=1),
+            cuda_ms(k4, reps=20, warmup=2),
+            cuda_ms(lambda: sk.dual_mis(*cells["k4"]), reps=20, warmup=1),
+        )
+        print(f"[{variant}] alone / with wrapper: K7 1920x1080 4 spp depth {depth} {times[0]:.4f} / "
+              f"{times[1]:.4f} ms, K7 config 3 512x512 {times[2]:.4f} / {times[3]:.4f} ms, K4 1920x1080 "
+              f"{times[4]:.4f} / {times[5]:.4f} ms [{card}]", flush=True)
+        if depth == 6 and not {"no_box", "no_nee", "cull_all", "cull_free"} & set(parts):
+            k4_err = max((est_d - k4_ref[0]).abs().max().item(), (est_s - k4_ref[1]).abs().max().item())
+            print(f"[{variant}] K7 bitwise its plain version: 1080p {torch.equal(img, refs['k7'])} (max |d| "
+                  f"{(img - refs['k7']).abs().max().item():.3g}), config 3 {torch.equal(img3, refs['k7_3'])} "
+                  f"(max |d| {(img3 - refs['k7_3']).abs().max().item():.3g}); K4 max |d| from its plain version "
+                  f"{k4_err:.3g}", flush=True)
+
+    return run
+
+
+def kernel_ms(fn, name: str, reps: int) -> float:
+    """Device milliseconds per call of the CUDA kernels whose name holds
+    `name`, from a torch.profiler trace of `reps` calls of fn()."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == DeviceType.CUDA and name in e.name)
+    return us / reps / 1e3
+
+
+def tree_times() -> dict:
+    """K7 and K4 of the checkout this process imports: with their wrappers
+    (CUDA events) and alone (kernel_ms)."""
+    dev = torch.device("cuda")
+    cells = path_cells(dev)
+    t0 = time.perf_counter()
+    _build.load()
+    out = {"build_s": time.perf_counter() - t0, "tree": str(Path(pk.__file__).resolve().parents[2])}
+    for key, fn, kernel, reps in (
+            ("k7", lambda: pk.pathtrace(*cells["k7"], 0), "path_kernel", 10),
+            ("k7_3", lambda: pk.pathtrace(*cells["k7_3"], 0), "path_kernel", 20),
+            ("k4", lambda: sk.dual_mis(*cells["k4"]), "shade_kernel", 20)):
+        out[key] = {"with_wrapper": cuda_ms(fn, reps=reps, warmup=2), "alone": kernel_ms(fn, kernel, reps)}
+    return out
+
+
+def turns(root: Path, card: str) -> None:
+    """tree_times of `root` and of this checkout in turns: root, this, this,
+    root, each in a process of its own."""
+    for tree in (root, ROOT, ROOT, root):
+        env = dict(os.environ, PYTHONPATH=str(tree.resolve()))
+        proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--tree-times"], cwd=tree, env=env,
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise SystemExit(f"adjoint_variants: --tree-times in {tree} failed:\n{proc.stdout}\n{proc.stderr}")
+        r = json.loads(proc.stdout.strip().splitlines()[-1])
+        print(f"[turns {'parent' if tree == root else 'this'}] {r['tree']}: built in {r['build_s']:.1f} s; "
+              f"with wrapper / alone: K7 1920x1080 {r['k7']['with_wrapper']:.4f} / {r['k7']['alone']:.4f} ms, "
+              f"K7 config 3 {r['k7_3']['with_wrapper']:.4f} / {r['k7_3']['alone']:.4f} ms, K4 1920x1080 "
+              f"{r['k4']['with_wrapper']:.4f} / {r['k4']['alone']:.4f} ms [{card}]", flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", type=Path, help="csrc directory of another checkout, for the SASS check")
-    ap.add_argument("--frame", action="store_true", help="the forward frame kernels K1 and K8")
+    group_arg = ap.add_mutually_exclusive_group()
+    group_arg.add_argument("--frame", action="store_true", help="the forward frame kernels K1 and K8")
+    group_arg.add_argument("--path", action="store_true", help="the path kernel K7 and the shade kernel K4")
+    ap.add_argument("--turns", type=Path, help="with --path: time K7 and K4 of checkout ROOT and of this one in turns")
+    ap.add_argument("--tree-times", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("variants", nargs="*", default=["committed"])
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("adjoint_variants: needs a CUDA device")
-    group = "frame" if args.frame else "adjoint"
+    if args.tree_times:
+        print(json.dumps(tree_times()), flush=True)
+        return 0
+    group = "frame" if args.frame else "path" if args.path else "adjoint"
     kernels, others = GROUPS[group][2:]
     card = card_line()
     print(f"card {card}", flush=True)
     if args.parent:
         same_sass(args.parent, others)
-    if args.frame:
-        sass_mix([src for _, src in kernels])
+    if group != "adjoint":
+        sass_mix([src for _, src in kernels], args.parent)
+    if args.turns:
+        turns(args.turns, card)
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(1)
-    run = (frame_times if args.frame else adjoint_times)(dev, rng)
+    run = {"frame": frame_times, "adjoint": adjoint_times}[group](dev, rng) if group != "path" else path_times(dev)
     committed = (_build.CSRC, _build.BUILD_DIR)
+    everything = (_build.SOURCES, _build._SIGNATURES)
+    if group == "path":  # its variants build K7, K4 and K1 (whose source has kpt_error_string) alone
+        _build.SOURCES = ("frame_kernel.cu", "path_kernel.cu", "shade_kernel.cu")
+        _build._SIGNATURES = {k: everything[1][k] for k in ("kpt_frame_forward", "kpt_pathtrace", "kpt_dual_mis")}
+    built = {}  # the edits of a build → its csrc, so variants with the same sources share one build
     try:
         for variant in args.variants:
-            csrc = ROOT / "build" / "variants" / variant / "csrc"
-            shutil.rmtree(csrc, ignore_errors=True)
-            shutil.copytree(committed[0], csrc)
-            edit(csrc, variant, group)
+            key = repr(edits_of(variant, group))
+            if key not in built:
+                csrc = ROOT / "build" / "variants" / variant / "csrc"
+                shutil.rmtree(csrc, ignore_errors=True)
+                shutil.copytree(committed[0], csrc)
+                edit(csrc, variant, group)
+                _build.CSRC, _build.BUILD_DIR, _build._lib = csrc, csrc.parent / "kernels", None
+                report = io.StringIO()
+                with contextlib.redirect_stdout(report):
+                    _build.build(verbose=True)
+                for label, src in kernels:
+                    print(f"[{variant}] ptxas {label}: {ptxas_lines(report.getvalue(), src)}", flush=True)
+                built[key] = csrc
+            csrc = built[key]
             _build.CSRC, _build.BUILD_DIR, _build._lib = csrc, csrc.parent / "kernels", None
-            report = io.StringIO()
-            with contextlib.redirect_stdout(report):
-                _build.build(verbose=True)
-            for label, src in kernels:
-                print(f"[{variant}] ptxas {label}: {ptxas_lines(report.getvalue(), src)}", flush=True)
             run(variant, card)
-        if not args.frame:
+        if group == "adjoint":
             _build.CSRC, _build.BUILD_DIR, _build._lib = committed[0], committed[1], None
             _, start, views = inverse.recovery_scenes(10, 5, device=dev)
             c_rec = RenderConfig(width=192, height=128, soft_shadows=0.05, pipeline="fused")
@@ -349,6 +556,7 @@ def main() -> int:
                   flush=True)
     finally:
         _build.CSRC, _build.BUILD_DIR, _build._lib = committed[0], committed[1], None
+        _build.SOURCES, _build._SIGNATURES = everything
     return 0
 
 

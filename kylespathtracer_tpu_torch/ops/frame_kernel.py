@@ -369,8 +369,9 @@ def part_sizes(nP: int, nS: int, nB: int, nK: int):
 
 
 def table_parts(scene: Scene, camera):
-    """The tensors that K1 and K8 gather into their shared-memory tables in
-    place of `pack_tables`' two buffers (csrc/frame_body.cuh:TableParts) →
+    """The tensors that K1, K4, K7 and K8 gather into their shared-memory
+    tables in place of `pack_tables`' two buffers
+    (csrc/frame_body.cuh:TableParts) →
     (f32 tensors, i32 tensors), each contiguous, in `_table_tensors`' order.
     Raises unless every tensor has its dtype, the scene's device and the
     size `part_sizes` gives it."""
@@ -393,7 +394,7 @@ def table_parts_struct(f, i) -> bytes:
 
 
 def box_cull_plain(boxes, o, d, tmax):
-    """csrc/shade_core.cuh:box_may_hit, the box cull of K1 and K8, on
+    """csrc/shade_core.cuh:box_may_hit, the box cull of K1, K4, K7 and K8, on
     tensors: boxes [B,7], ray origins and directions [...,3], tmax [...] →
     bool [...,B], False only where the ray o + t·d, 0 <= t <= tmax, cannot
     meet the rounded box. A slab test against the box's bounds grown by its

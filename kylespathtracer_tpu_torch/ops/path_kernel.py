@@ -284,10 +284,23 @@ def pathtrace(scene: Scene, camera, config, frame=0) -> torch.Tensor:
     """HDR radiance image f32[H, W, 3]: `config.spp` samples per pixel at
     depth `config.max_depth`, one launch. The scene's device picks the
     route: CUDA launches the kernel (or raises), CPU runs `pathtrace_plain`."""
-    global LAUNCHES
     device = scene.device
     if device.type == "cpu":
         return pathtrace_plain(scene, camera, config, frame)
+    launch, out = path_launch(scene, camera, config, frame)
+    launch()
+    return out
+
+
+def path_launch(scene: Scene, camera, config, frame=0, lib=None):
+    """`pathtrace`'s CUDA route in two steps → (launch, out): the arguments
+    are checked and the image allocated here; launch() launches K7 once
+    into it and counts it. The kernel gathers the scene's tables from the
+    scene's own tensors (`frame_kernel.table_parts`) and the BSDF kinds and
+    iors from `_tables`; nothing is packed. chip_smoke.py and
+    ops/adjoint_variants.py time launch() alone beside `pathtrace`. `lib`:
+    another build of the kernel (`census`), whose launches are not counted."""
+    device = scene.device
     if device.type != "cuda":
         raise ValueError(f"pathtrace: unsupported device {device}")
     fk._check_scene(scene, camera, device)
@@ -296,18 +309,97 @@ def pathtrace(scene: Scene, camera, config, frame=0) -> torch.Tensor:
         raise ValueError(f"the path kernel needs an integral gloss >= 1 (got {gloss})")
     H, W = int(config.height), int(config.width)
     spp, depth = max(1, int(config.spp)), int(config.max_depth)
-    ftab, itab = fk.pack_tables(scene, camera)
+    parts = fk.table_parts(scene, camera)
     kinds, iors = _tables(scene)
     out = torch.empty((H, W, 3), dtype=torch.float32, device=device)
-    err = _build.load().kpt_pathtrace(
-        ftab.data_ptr(), itab.data_ptr(), kinds.data_ptr(), iors.data_ptr(),
-        *fk._counts(scene), scene.materials.num_ids, W, H, float(config.fov),
-        fk._wrap32(int(frame)), spp, depth, int(gloss), out.data_ptr(),
-        torch.cuda.current_stream(device).cuda_stream,
-    )
-    _build.check(err, "kpt_pathtrace")
-    LAUNCHES += 1
-    return out
+    args = (*fk._counts(scene), scene.materials.num_ids, W, H, float(config.fov), fk._wrap32(int(frame)),
+            spp, depth, int(gloss), out.data_ptr(), torch.cuda.current_stream(device).cuda_stream)
+
+    def launch():
+        global LAUNCHES
+        err = (lib or _build.load()).kpt_pathtrace(fk.table_parts_struct(*parts), kinds.data_ptr(),
+                                                    iors.data_ptr(), *args)
+        _build.check(err, "kpt_pathtrace")
+        if lib is None:
+            LAUNCHES += 1
+
+    return launch, out
+
+
+# K7 built alone with PATH_CENSUS (csrc/path_kernel.cu): the census build.
+CENSUS_BUILD = {"sources": ("path_kernel.cu",), "defines": ("PATH_CENSUS",)}
+CENSUS_BITS = 5
+
+
+def census(scene: Scene, camera, config, frame=0) -> torch.Tensor:
+    """Where K7's lanes spend a launch: the census build run once on this
+    image → int32[spp, H, W], per sample and pixel CENSUS_BITS bits for each
+    bounce b at CENSUS_BITS·b: the segment is traced (bit 0); the box cull
+    passes its ray, tmax the nearest plane or sphere hit (1); the light is
+    tested from its vertex (2); that test finds no plane or sphere in the way
+    and so, uncut, runs the boxes (3); the cull passes the test's segment
+    (4). The census only reads: the image is K7's. Needs max_depth <= 6."""
+    import ctypes
+
+    if not 0 < int(config.max_depth) <= 32 // CENSUS_BITS:
+        raise ValueError(f"the census holds up to {32 // CENSUS_BITS} bounces (max_depth {config.max_depth})")
+    lib = ctypes.CDLL(str(_build.build(**CENSUS_BUILD)))
+    lib.kpt_pathtrace.argtypes, lib.kpt_pathtrace.restype = list(_build._SIGNATURES["kpt_pathtrace"]), ctypes.c_int
+    lib.kpt_path_census.argtypes, lib.kpt_path_census.restype = [ctypes.c_void_p], ctypes.c_int
+    launch, _ = path_launch(scene, camera, config, frame, lib=lib)
+    buf = torch.zeros((max(1, int(config.spp)), int(config.height), int(config.width)), dtype=torch.int32,
+                      device=scene.device)
+    _build.check(lib.kpt_path_census(buf.data_ptr()), "kpt_path_census")
+    launch()
+    torch.cuda.synchronize(scene.device)
+    return buf
+
+
+def census_report(c: torch.Tensor, depth: int) -> list:
+    """`census` → lines: per bounce the live lanes, the warps with a live
+    lane (a warp: two rows of 16 pixels of K7's 16×8 block, as the nested
+    loop of the earlier design ran them) and the idle lanes in them; for
+    the trace and for the light test the lanes that need the box and the
+    warps that run its candidates uncut, culled lane by lane, and deferred to
+    the block (⌈n/32⌉ warps for the block's n rays); then the warp
+    iterations of the launch: the nested loop (a warp runs each sample to
+    its longest path), the flat loop (a lane starts its next sample as its
+    path ends), the flat loop run by the block in step, and the ideal."""
+    spp, H, W = c.shape
+    c = c.to(torch.int64)
+
+    def warps(v):  # [spp, H, W] → [spp, H/8, W/16, 4 warps, 32 lanes]
+        return v.reshape(spp, H // 8, 4, 2, W // 16, 16).permute(0, 1, 4, 2, 3, 5).reshape(spp, H // 8, W // 16, 4, 32)
+
+    def deferred(need):
+        return int(torch.ceil(warps(need).sum((-1, -2)) / 32).sum())
+
+    lanes = spp * H * W
+    lines = []
+    for b in range(depth):
+        alive, t_need, nee, reach, l_need = (((c >> (CENSUS_BITS * b + k)) & 1).bool() for k in range(5))
+        n_alive = int(alive.sum())
+        if n_alive == 0:
+            lines.append(f"bounce {b}: no live lanes")
+            continue
+        live_warps = int(warps(alive).any(-1).sum())
+        lines.append(
+            f"bounce {b}: live lanes {n_alive / lanes:.4f} of W·H·spp; warps with a live lane {live_warps}, "
+            f"idle lanes in them {1 - n_alive / (32 * live_warps):.4f}; trace: live lanes the cull passes "
+            f"{int(t_need.sum()) / n_alive:.4f}, warps running the box uncut {live_warps} / culled "
+            f"{int(warps(t_need).any(-1).sum())} / deferred {deferred(t_need)}; light test: lanes "
+            f"{int(nee.sum()) / n_alive:.4f} of the live, reaching the boxes {int(reach.sum()) / n_alive:.4f}, the "
+            f"cull passes {int(l_need.sum()) / n_alive:.4f}; warps running the box uncut "
+            f"{int(warps(reach).any(-1).sum())} / culled {int(warps(l_need).any(-1).sum())} / deferred "
+            f"{deferred(l_need)}")
+    length = warps(sum(((c >> (CENSUS_BITS * b)) & 1) for b in range(depth)))  # segments per sample and lane
+    nested = int(length.amax(-1).sum())
+    flat = int(length.sum(0).amax(-1).sum())
+    block = int(length.sum(0).amax((-1, -2)).sum()) * 4
+    ideal = int(length.sum()) / 32
+    lines.append(f"warp iterations: nested loop {nested}, flat loop {flat} ({flat / nested:.4f}), the block's "
+                 f"flat loop {block} ({block / nested:.4f}), ideal {ideal:.1f} ({ideal / nested:.4f})")
+    return lines
 
 
 def disagreement(img: torch.Tensor, ref: torch.Tensor) -> dict:

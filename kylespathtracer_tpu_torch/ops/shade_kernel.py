@@ -603,14 +603,28 @@ def dual_mis(scene, gb, camera, seed, config):
     """The dual-MIS estimator pair from a G-buffer → (est_d, est_s), each
     f32[H,W,3], masked to shaded pixels. CUDA tensors launch the shade
     kernel (or raise); CPU tensors run `dual_mis_plain`."""
-    global LAUNCHES
+    from kylespathtracer_tpu_torch.ops import frame_kernel as fk
+
+    if gb.obj_id.device.type == "cpu":
+        fk.check_planes_for_biased(scene, config)
+        return dual_mis_plain(scene, gb, camera, seed, config)
+    launch, out = dual_mis_launch(scene, gb, camera, seed, config)
+    launch()
+    return out
+
+
+def dual_mis_launch(scene, gb, camera, seed, config):
+    """`dual_mis`' CUDA route in two steps → (launch, (est_d, est_s)): the
+    arguments are checked and the outputs allocated here; launch()
+    launches K4 once into them and counts it. The kernel gathers the
+    scene's tables from the scene's own tensors
+    (`frame_kernel.table_parts`); nothing is packed. chip_smoke.py and
+    ops/adjoint_variants.py time launch() alone beside `dual_mis`."""
     from kylespathtracer_tpu_torch.ops import _build
     from kylespathtracer_tpu_torch.ops import frame_kernel as fk
 
     fk.check_planes_for_biased(scene, config)
     device = gb.obj_id.device
-    if device.type == "cpu":
-        return dual_mis_plain(scene, gb, camera, seed, config)
     if device.type != "cuda":
         raise ValueError(f"dual_mis: unsupported device {device}")
     (nP, nS, nB, nK, _, _, _), (_, _, _, soft_beta, gloss) = fk.kernel_args(scene, camera, config)
@@ -622,15 +636,18 @@ def dual_mis(scene, gb, camera, seed, config):
         ("seed", seed, i32, (H, W)),
     ):
         _build.check_tensor(name, t, dt, shape, device)
-    ftab, itab = fk.pack_tables(scene, camera)
+    parts = fk.table_parts(scene, camera)
     est_d = torch.empty((H, W, 3), dtype=f32, device=device)
     est_s = torch.empty((H, W, 3), dtype=f32, device=device)
-    err = _build.load().kpt_dual_mis(
-        ftab.data_ptr(), itab.data_ptr(), nP, nS, nB, nK, W, H, soft_beta, gloss,
-        gb.normal.data_ptr(), gb.obj_id.data_ptr(), gb.depth.data_ptr(), gb.ray_dir.data_ptr(),
-        seed.data_ptr(), est_d.data_ptr(), est_s.data_ptr(),
-        torch.cuda.current_stream(device).cuda_stream,
-    )
-    _build.check(err, "kpt_dual_mis")
-    LAUNCHES += 1
-    return est_d, est_s
+    io = _build.SHADE_IO.pack(*(t.data_ptr() for t in (
+        gb.normal, gb.depth, gb.ray_dir, gb.obj_id, seed, est_d, est_s)))
+    stream = torch.cuda.current_stream(device).cuda_stream
+
+    def launch():
+        global LAUNCHES
+        err = _build.load().kpt_dual_mis(fk.table_parts_struct(*parts), nP, nS, nB, nK, W, H, soft_beta, gloss,
+                                         io, stream)
+        _build.check(err, "kpt_dual_mis")
+        LAUNCHES += 1
+
+    return launch, (est_d, est_s)

@@ -26,7 +26,7 @@ from kylespathtracer_tpu_torch.render import gbuffer, passes, pipeline, wavefron
 from kylespathtracer_tpu_torch.render.camera import Camera
 from kylespathtracer_tpu_torch.render.passes import Channel
 from kylespathtracer_tpu_torch.scene.scene import default_scene, sphere_scene
-from kylespathtracer_tpu_torch.scene.types import BSDF
+from kylespathtracer_tpu_torch.scene.types import BSDF, OBJ
 from kylespathtracer_tpu_torch.utils.config import RenderConfig
 
 pytestmark = pytest.mark.cuda
@@ -317,14 +317,42 @@ def _glossy(dev):
     return scene, Camera.create(loc=(0.0, 2.0, 0.0), orient=(0.0, 0.0), device=dev)
 
 
-@pytest.mark.parametrize("case", ["default", "config3", "glossy"])
+def _with_boxes(scene, boxes, kind=BSDF.DIFFUSE):
+    """`scene` with its rounded boxes replaced by `boxes` ([B,7]), each with
+    an object ID of its own past the scene's and the default box's material,
+    of BSDF `kind` (ior 1.5)."""
+    m = scene.materials
+    k0 = m.num_ids
+    rows = torch.full((len(boxes),), OBJ.BOX, dtype=torch.long, device=scene.device)
+    grown = {f.name: torch.cat([getattr(m, f.name), getattr(m, f.name)[rows]])
+             for f in dataclasses.fields(m) if getattr(m, f.name) is not None}
+    grown["bsdf"][k0:] = int(kind)
+    grown["ior"][k0:] = 1.5
+    ids = torch.arange(k0, k0 + len(boxes), dtype=torch.int32, device=scene.device)
+    return dataclasses.replace(scene, boxes=torch.tensor(boxes, dtype=torch.float32, device=scene.device),
+                               box_ids=ids, materials=dataclasses.replace(m, **grown))
+
+
+# The default room's box and two more (tests/test_torch_frame_body.py:BOXES).
+THREE_BOXES = [[7.5, 0.93, -7.5, 0.8, 0.8, 0.8, 0.1], [2.0, 1.0, 3.0, 0.3, 1.2, 0.5, 0.25],
+               [-4.0, 2.5, 0.5, 1.5, 0.2, 0.9, 0.02]]
+
+
+@pytest.mark.parametrize("case", ["default", "config3", "glossy", "three_boxes", "dielectric_box"])
 def test_path_kernel_matches_plain(dev, case):
     """K7 against its plain version at tests/test_pallas_small.py:340-341's
-    bar (finite, median |Δ| < 1e-5, under 2% beyond 3e-2)."""
+    bar (finite, median |Δ| < 1e-5, under 2% beyond 3e-2): also with three
+    boxes (the block's box lists hold rays of several boxes) and with the
+    default room's box dielectric (rays inside a box)."""
     if case == "config3":
         scene, cam = _config3(dev)
     elif case == "glossy":
         scene, cam = _glossy(dev)
+    elif case in ("three_boxes", "dielectric_box"):
+        base = default_scene(device=dev)
+        boxes = THREE_BOXES if case == "three_boxes" else THREE_BOXES[:1]
+        scene = _with_boxes(base, boxes, BSDF.DIFFUSE if case == "three_boxes" else BSDF.DIELECTRIC)
+        cam = Camera.create(loc=(3.0, 2.0, -3.0), orient=(0.0, 0.7), device=dev)
     else:
         scene = default_scene(device=dev)
         cam = Camera.create(loc=(3.0, 2.0, -3.0), orient=(0.0, 0.7), device=dev)
@@ -453,11 +481,13 @@ def test_mono_frame_on_card_matches_cpu(dev):
     assert (hists["cuda"].diffuse.oid == hists["cpu"].diffuse.oid).float().mean() >= 0.999
 
 
-@pytest.mark.parametrize("case", ["default", "spheres_soft"])
+@pytest.mark.parametrize("case", ["default", "spheres_soft", "three_boxes"])
 def test_shade_kernel_matches_plain(dev, case):
     """K4 against its plain version on the G-buffer (chip_smoke.py phase
     19's classifier); misses and the light are exactly zero."""
-    scene = _spheres(dev) if case == "spheres_soft" else default_scene(device=dev)
+    scene = {"spheres_soft": lambda: _spheres(dev),
+             "three_boxes": lambda: _with_boxes(default_scene(device=dev), THREE_BOXES)}.get(
+        case, lambda: default_scene(device=dev))()
     kw = dict(soft_shadows=0.05) if case == "spheres_soft" else {}
     cfg = RenderConfig(width=160, height=96, pipeline="pass", shade_backend="pallas", **kw)
     cam = Camera.create(loc=(3.0, 2.0, -3.0), orient=(0.0, 0.7), device=dev)
@@ -484,3 +514,28 @@ def test_pass_pipeline_on_card_runs_the_shade_kernel(dev):
     torch.cuda.synchronize()
     assert sk.LAUNCHES == before + 2
     assert torch.isfinite(img).all() and img.min() >= 0 and img.max() <= 1
+
+
+def test_path_and_shade_wrappers_pack_no_tables(dev):
+    """K7's and K4's wrappers hand the kernels the scene's own tensors
+    (frame_kernel.table_parts): one call of each launches its kernel and
+    no concatenation."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    scene = default_scene(device=dev)
+    cam = Camera.create(loc=(3.0, 2.0, -3.0), orient=(0.0, 0.7), device=dev)
+    cfg_p = RenderConfig(width=64, height=32, pipeline="pass", shade_backend="pallas")
+    gb = gbuffer.geometry_pass(scene, cam, cfg_p)
+    _, seed = passes._shade_common(scene, cfg_p, gb, cam, 3)
+    calls = {"path_kernel": lambda: pk.pathtrace(scene, cam, RenderConfig(width=64, height=32, spp=1), 0),
+             "shade_kernel": lambda: sk.dual_mis(scene, gb, cam, seed, cfg_p)}
+    for kernel, call in calls.items():
+        call()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        names = [(e.device_type, e.name) for e in prof.events()]
+        assert any(t == DeviceType.CUDA and kernel in n for t, n in names), f"{kernel} did not launch"
+        assert not any("cat" in n for t, n in names if t == DeviceType.CPU), f"{kernel}'s wrapper packs tables"

@@ -10,7 +10,12 @@
   `scene/intersect.py:_box_hits` finds hitting a rounded box, and every
   segment that its occlusion test (`ops/shade_kernel.py:_box_occludes`)
   finds blocked, must pass the cull, on seeded rays: random, grazing the
-  boxes' bounds, from inside a box, and parallel to the axes; three boxes.
+  boxes' bounds, from inside a box, parallel to the axes, and the path
+  tracer's (K7's) own: path rays leaving plane, sphere and box surfaces
+  and light-test segments toward the light; three boxes. Where the cull
+  rules out every box, the path tracer's inside-hit trace
+  (`ops/path_kernel.py:_trace_inside`) must find what it finds without the
+  boxes, bit for bit.
 """
 
 import dataclasses
@@ -22,6 +27,7 @@ import torch
 
 from _torch_helpers import to_torch_camera, to_torch_scene
 from kylespathtracer_tpu.ops import frame_kernel as jfk
+from kylespathtracer_tpu.ops import path_kernel as jpk
 from kylespathtracer_tpu.ops import shade_kernel as jsk
 from kylespathtracer_tpu.render.camera import Camera
 from kylespathtracer_tpu.scene import default_scene
@@ -85,10 +91,71 @@ def test_table_parts_raise_on_a_wrong_part(fault):
         fk.table_parts(bad, cam)
 
 
+EPS = 1e-3
+LIGHT = np.array([6.0, 5.0, -4.0, 1.0], np.float32)  # the default room's light sphere
+
+
+def _surface_points(rng):
+    """Seeded points [N,3] on the three-box room's surfaces, with their
+    outward unit normals: a third on the planes within 4 units of a box,
+    a third on the light sphere, a third on the rounded boxes (faces, edges
+    and corners: a core-box point nearest to a random point around it,
+    pushed out by the rounding radius)."""
+    kind = rng.integers(0, 3, N)
+    box = BOXES[rng.integers(0, len(BOXES), N)]
+    planes = np.array([[0.0, 1.0, 0.0, 0.0], [0.0, -1.0, 0.0, 10.0], [-1.0, 0.0, 0.0, 10.0],
+                       [0.0, 0.0, 1.0, 10.0]], np.float32)[rng.integers(0, 4, N)]
+    near = box[:, :3] + rng.uniform(-4.0, 4.0, (N, 3))
+    p_plane = near - planes[:, :3] * (np.sum(near * planes[:, :3], -1) + planes[:, 3])[:, None]
+    v = rng.normal(size=(N, 3))
+    v /= np.linalg.norm(v, axis=-1, keepdims=True)
+    p_sphere, n_sphere = LIGHT[:3] + v * LIGHT[3], v
+    h, r = box[:, 3:6], box[:, 6:7]
+    e = box[:, :3] + rng.uniform(-1.6, 1.6, (N, 3)) * (h + r)
+    q = box[:, :3] + np.clip(e - box[:, :3], -h, h)
+    out = e - q
+    n_box = np.where(np.linalg.norm(out, axis=-1, keepdims=True) > 1e-6, out, v)
+    n_box /= np.linalg.norm(n_box, axis=-1, keepdims=True)
+    p_box = q + n_box * r
+    pick = kind[:, None]
+    p = np.where(pick == 0, p_plane, np.where(pick == 1, p_sphere, p_box))
+    n = np.where(pick == 0, planes[:, :3], np.where(pick == 1, n_sphere, n_box))
+    return p, n
+
+
+def _cos_hemisphere(n, rng):
+    """Cosine-weighted unit directions [N,3] around the unit normals n."""
+    u1, u2 = rng.random(N), rng.random(N)
+    a = np.where(np.abs(n[:, :1]) < 0.9, np.array([[1.0, 0.0, 0.0]]), np.array([[0.0, 1.0, 0.0]]))
+    f = np.cross(n, a)
+    f /= np.linalg.norm(f, axis=-1, keepdims=True)
+    g = np.cross(n, f)
+    rad, phi = np.sqrt(u1)[:, None], 2.0 * np.pi * u2[:, None]
+    d = f * rad * np.cos(phi) + g * rad * np.sin(phi) + n * np.sqrt(1.0 - u1)[:, None]
+    return d / np.linalg.norm(d, axis=-1, keepdims=True)
+
+
 def _rays(family: str, rng):
-    """Seeded rays (origins, unit directions) [N,3] of one family."""
+    """Seeded rays (origins, unit directions) [N,3] of one family, and for
+    the light-test segments (`nee`) their lengths [N]."""
     def unit(v):
         return v / np.linalg.norm(v, axis=-1, keepdims=True)
+
+    if family == "path":
+        # Leaving a surface off its normal by ±EPS, as K7's continuation
+        # rays do: reflected into the cosine hemisphere, or transmitted
+        # into the body.
+        p, n = _surface_points(rng)
+        side = np.where(rng.random((N, 1)) < 0.5, 1.0, -1.0)
+        return ((p + n * side * EPS).astype(np.float32), _cos_hemisphere(n * side, rng).astype(np.float32),
+                None)
+    if family == "nee":
+        # From a surface point off its normal toward a point on the light.
+        p, n = _surface_points(rng)
+        o = p + n * EPS
+        v = unit(rng.normal(size=(N, 3)))
+        seg = LIGHT[:3] + v * LIGHT[3] - o
+        return o.astype(np.float32), unit(seg).astype(np.float32), np.linalg.norm(seg, axis=-1).astype(np.float32)
 
     box = BOXES[rng.integers(0, len(BOXES), N)]
     grown = box[:, 3:6] + box[:, 6:7]
@@ -114,10 +181,10 @@ def _rays(family: str, rng):
         d[rng.random((N, 3)) < 0.5] = 0.0
         d[np.all(d == 0.0, axis=-1), 0] = 1.0
         d = unit(d)
-    return o.astype(np.float32), d.astype(np.float32)
+    return o.astype(np.float32), d.astype(np.float32), None
 
 
-FAMILIES = ["random", "grazing", "inside", "axis"]
+FAMILIES = ["random", "grazing", "inside", "axis", "path", "nee"]
 
 
 @pytest.mark.parametrize("family", FAMILIES)
@@ -125,7 +192,7 @@ def test_box_cull_passes_every_hit(family):
     """Every (ray, box) that _box_hits finds passes the cull, with tmax the
     far bound (INF_T) and with tmax the hit itself (the kernels cull with
     the nearest hit so far, which is no nearer than a hit that wins)."""
-    o, d = _rays(family, np.random.default_rng(FAMILIES.index(family)))
+    o, d, _ = _rays(family, np.random.default_rng(FAMILIES.index(family)))
     scene = _scenes()["three_boxes"]
     t = np.asarray(_box_hits(scene, jnp.asarray(o), jnp.asarray(d)))  # [N, B]
     hit = t < 1e8
@@ -145,8 +212,9 @@ def test_box_cull_passes_every_occluded_segment(family):
     """Every segment (0, tmax) that the occlusion test finds blocked by a
     box passes the cull with that tmax."""
     rng = np.random.default_rng(10 + FAMILIES.index(family))
-    o, d = _rays(family, rng)
-    tmax = rng.uniform(0.05, 20.0, N).astype(np.float32)
+    o, d, tmax = _rays(family, rng)
+    if tmax is None:
+        tmax = rng.uniform(0.05, 20.0, N).astype(np.float32)
     sc = {"boxes": jnp.asarray(BOXES)}
     oj, dj = tuple(jnp.asarray(o[:, k]) for k in range(3)), tuple(jnp.asarray(d[:, k]) for k in range(3))
     cull = fk.box_cull_plain(torch.from_numpy(BOXES), torch.from_numpy(o), torch.from_numpy(d),
@@ -157,3 +225,30 @@ def test_box_cull_passes_every_occluded_segment(family):
         blocked_any += int(blocked.sum())
         assert cull[blocked, b].all(), f"box {b}: {(~cull[blocked, b]).sum()} blocked segments culled"
     assert blocked_any > 100, "too few blocked segments; the check is vacuous"
+
+
+# From inside a box's bounds the cull passes every ray: nothing to check there.
+@pytest.mark.parametrize("family", [f for f in FAMILIES if f != "inside"])
+def test_box_cull_leaves_the_inside_hit_trace(family):
+    """K7 traces with far sphere roots and culls each box with tmax the
+    nearest plane or sphere hit: where the cull rules out every box, the
+    JAX package's inside-hit trace with the boxes finds the same t and oid,
+    bit for bit, as without them (so every ray on which a box wins passes
+    the cull)."""
+    o, d, _ = _rays(family, np.random.default_rng(20 + FAMILIES.index(family)))
+    jscene = _scenes()["three_boxes"]
+    sc = dict(zip(jfk.SC_KEYS, jfk.small_operands(jscene, CAM, 0)[:17]))
+    oj, dj = tuple(jnp.asarray(o[:, k]) for k in range(3)), tuple(jnp.asarray(d[:, k]) for k in range(3))
+    excl = jnp.full((N,), -1, jnp.int32)
+    nP, nS = int(jscene.planes.shape[0]), int(jscene.spheres.shape[0])
+    t_all, id_all = (np.asarray(a) for a in jpk._trace_inside(sc, oj, dj, excl, nP, nS, len(BOXES)))
+    t_ps, id_ps = (np.asarray(a) for a in jpk._trace_inside(sc, oj, dj, excl, nP, nS, 0))
+    # The unpulled nearest plane or sphere hit; none (or beyond ZFAR): no bound.
+    tmax = np.where(id_ps > 0, t_ps + EPS, 1e9).astype(np.float32)
+    cull = fk.box_cull_plain(torch.from_numpy(BOXES), torch.from_numpy(o), torch.from_numpy(d),
+                             torch.from_numpy(tmax)).numpy()
+    ruled_out = ~cull.any(-1)
+    box_wins = (t_all != t_ps) | (id_all != id_ps)
+    assert ruled_out.sum() > 100 and box_wins.sum() > 100, "the check is vacuous"
+    np.testing.assert_array_equal(t_all[ruled_out], t_ps[ruled_out])
+    np.testing.assert_array_equal(id_all[ruled_out], id_ps[ruled_out])
