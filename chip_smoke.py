@@ -27,7 +27,21 @@ it and read just after:
 - the pass pipeline (`render_animation` at 1920×1080 with pipeline="pass",
   shade_backend="pallas", the shade kernel K4; phase 20), after K4 is held
   against its plain version at 1080p (phase 19), and the `render` CLI at
-  1920×1080 (its fused default, K1 + K2) and at 256×128 (`--pipeline pass`).
+  1920×1080 (its fused default, K1 + K2) and at 256×128 (`--pipeline pass`);
+- the sharded renderer and trainer (`parallel/shard.py`): 3 tiles of 360
+  rows at 1920×1080 in this process, two frames each of the split frame
+  (K1 row mode + K2 tile mode) and the mono frame (K8 tile mode) from a
+  populated history, stitched and held against the unsharded frame, each
+  tile launch held against its plain version (phase 21); the tiled training
+  step (K1 + K5 row mode) at 1920×1080 in 3 tiles and at the 192×128
+  recovery view in 2, held against the unsharded `train_step` (phase 22);
+  and 3 gloo ranks sharing this card through `multihost.initialize_from_env`
+  (`render_frame_tiled` with its halo exchange, `train_step_tiled` with its
+  all-reduce), held against the in-process tiles, with the halo exchange's
+  and the frame's time per rank and end to end (phase 23). Three ranks on
+  one card share it: their times are no scaling figure. The `kernels`
+  line's launches of the four tile and row modes are phase 23's, counted
+  on each rank and summed over the ranks.
 
 Gradient tables are held to max|Δ| <= 1e-4·max|ref| of their plain
 versions: K5 and K6 at 256×128 with every pixel (phases 8-9), K6 (mean) at
@@ -50,7 +64,8 @@ fails without one.
 
     python3 chip_smoke.py
 
-The second-to-last line of stdout is a JSON object describing every kernel
+(`python3 chip_smoke.py --rank-worker DIR` is one rank of phase 23, which
+starts it.) The second-to-last line of stdout is a JSON object describing every kernel
 of the path; the last line is `{"ok": true, "device": {...}}`.
 """
 
@@ -60,6 +75,7 @@ import contextlib
 import dataclasses
 import io
 import json
+import os
 import re
 import statistics
 import struct
@@ -264,7 +280,7 @@ def stage_split(fn, stages, frames: int) -> dict:
             by_name[e.name[:60]] = by_name.get(e.name[:60], 0.0) + us
             if "kpt::frame_kernel" in e.name:
                 by_stage["frame.k1"] += us
-            elif "kpt::reproject_kernel" in e.name:
+            elif "kpt::reproject" in e.name:
                 by_stage["frame.reproject"] += us
         elif e.device_type == DeviceType.CPU and e.kernels:
             p = e
@@ -332,6 +348,359 @@ def plain_image(ref: dict, config) -> torch.Tensor:
 
     return torch.stack(lk._composite_planes(ch("alb", 3), ch("ene", 2), ch("add_d", 3), ch("add_s", 3),
                                             float(config.brightness)), dim=-1)
+
+
+# The sharded phases (21-23): 3 tiles of 360 rows, a multiple of the tile
+# kernels' 8-row block, so the fused frames run K8's tile mode or K1's row
+# mode and K2's tile mode. Their cameras move ~1.5 px in pitch and ~0.8 px
+# in yaw a frame, so the reprojection's taps cross the tiles' edges.
+TILES = 3
+
+
+def tile_camera(i: int, device):
+    from kylespathtracer_tpu_torch.render.camera import Camera
+
+    return Camera.create(loc=CAM_LOC, orient=(CAM_ORIENT[0] - 1.8e-3 * i, CAM_ORIENT[1] + 1e-3 * i),
+                         device=device)
+
+
+def history_tensors(hist) -> dict:
+    """A History as a dict of tensors (torch.save between processes)."""
+    return {"d_rgb": hist.diffuse.rgb, "d_cnt": hist.diffuse.cnt, "d_oid": hist.diffuse.oid,
+            "s_rgb": hist.specular.rgb, "s_cnt": hist.specular.cnt, "s_oid": hist.specular.oid,
+            "loc": hist.camera.loc, "orient": hist.camera.orient}
+
+
+def history_from(t: dict, device):
+    from kylespathtracer_tpu_torch.render.camera import Camera
+    from kylespathtracer_tpu_torch.render.passes import Channel
+    from kylespathtracer_tpu_torch.render.pipeline import History
+
+    g = {k: v.to(device) for k, v in t.items()}
+    return History(Channel(g["d_rgb"], g["d_cnt"], g["d_oid"]), Channel(g["s_rgb"], g["s_cnt"], g["s_oid"]),
+                   Camera(loc=g["loc"], orient=g["orient"]))
+
+
+def stitch(parts: list):
+    """The tiles' (image, History) pairs stacked by rows in tile order."""
+    from kylespathtracer_tpu_torch.render.passes import Channel
+    from kylespathtracer_tpu_torch.render.pipeline import History
+
+    def cat(get):
+        return torch.cat([get(p) for p in parts])
+
+    ch = lambda name: Channel(*(cat(lambda p, f=f: getattr(getattr(p[1], name), f)) for f in ("rgb", "cnt", "oid")))
+    return cat(lambda p: p[0]), History(ch("diffuse"), ch("specular"), parts[0][1].camera)
+
+
+def frame_gaps(a, b) -> dict:
+    """max |Δ| of two (image, History) results, and whether each part is
+    bitwise the other's."""
+    pairs = {"image": (a[0], b[0])}
+    for name in ("diffuse", "specular"):
+        for f in ("rgb", "cnt", "oid"):
+            pairs[f"{name}.{f}"] = (getattr(getattr(a[1], name), f), getattr(getattr(b[1], name), f))
+    gaps = {k: (x.float() - y.float()).abs().max().item() for k, (x, y) in pairs.items()}
+    gaps["bitwise"] = all(torch.equal(x, y) for x, y in pairs.values())
+    return gaps
+
+
+def hold_frame_gaps(gaps: dict, what: str) -> None:
+    """The JAX package's bars for a tiled frame against the unsharded one
+    (tests/test_sharding.py:90-96): image 1e-5, history 1e-4, oid exact."""
+    bar = {"image": 1e-5, "rgb": 1e-4, "cnt": 1e-4, "oid": 0.0}
+    bad = [k for k, v in gaps.items() if k != "bitwise" and v > bar[k.split(".")[-1]]]
+    if bad:
+        raise AssertionError(f"{what}: beyond the bars on {bad}: {gaps}")
+
+
+def seeded_history(scene, dev):
+    """The sharded phases' start: numpy-seeded rgb in [0, 2) and integer
+    counts in [0, 16] on the object IDs that K1 sees from tile_camera(0)."""
+    from kylespathtracer_tpu_torch.ops import frame_kernel as fk
+    from kylespathtracer_tpu_torch.render.passes import Channel
+    from kylespathtracer_tpu_torch.render.pipeline import History
+    from kylespathtracer_tpu_torch.utils.config import RenderConfig
+
+    oid = fk.frame_forward(scene, tile_camera(0, dev), 0, RenderConfig(width=W, height=H, pipeline="fused"))["oid"]
+
+    def channel(seed):
+        rng = np.random.default_rng(seed)
+        return Channel(rgb=torch.from_numpy(rng.uniform(0, 2, (H, W, 3)).astype(np.float32)).to(dev),
+                       cnt=torch.from_numpy(rng.integers(0, 17, (H, W)).astype(np.float32)).to(dev),
+                       oid=oid.clone())
+
+    return History(channel(21), channel(22), tile_camera(0, dev))
+
+
+def render_tiles(scene, cfg_x, hist, i, dev):
+    """Frame i in TILES tiles, one after another in this process, each on
+    the window tile_window cuts from `hist` → the stitched (image, History)."""
+    from kylespathtracer_tpu_torch.parallel import shard
+
+    rows, halo = H // TILES, shard.BLOCK_ROWS
+    return stitch([shard._render_row_block(scene, tile_camera(i, dev), shard.tile_window(hist, r * rows, rows, halo),
+                                           i, cfg_x, r * rows, rows, buffer_row0=r * rows - halo, halo=halo)
+                   for r in range(TILES)])
+
+
+def tiled_frames(scene, hist0, dev):
+    """Frames 1 and 2 of the split and the mono frame in TILES tiles from
+    `hist0`, the fallback warning an error, each fusion's launch counts set
+    to 0 just before and read just after → ({fusion: (image, History)},
+    {fusion: launches})."""
+    import warnings
+
+    from kylespathtracer_tpu_torch.ops import frame_hist as fh
+    from kylespathtracer_tpu_torch.ops import frame_kernel as fk
+    from kylespathtracer_tpu_torch.ops import reproject_kernel as rk
+    from kylespathtracer_tpu_torch.utils.config import RenderConfig
+
+    tiled, launches = {}, {}
+    for fusion in ("split", "mono"):
+        cfg_x = RenderConfig(width=W, height=H, pipeline="fused", temporal_fusion=fusion)
+        hist = hist0
+        fk.LAUNCHES = fk.ROW_LAUNCHES = rk.LAUNCHES = rk.TILE_LAUNCHES = fh.LAUNCHES = fh.TILE_LAUNCHES = 0
+        with warnings.catch_warnings():
+            warnings.filterwarnings("error", message="fused tiled path")
+            for i in (1, 2):
+                img, hist = render_tiles(scene, cfg_x, hist, i, dev)
+        torch.cuda.synchronize()
+        launches[fusion] = {"frame": fk.LAUNCHES, "frame rows": fk.ROW_LAUNCHES, "reproject": rk.LAUNCHES,
+                            "reproject tile": rk.TILE_LAUNCHES, "frame_hist": fh.LAUNCHES,
+                            "frame_hist tile": fh.TILE_LAUNCHES}
+        tiled[fusion] = (img, hist)
+    return tiled, launches
+
+
+def dim_target(scene, dev):
+    """The training target of phases 10 and 22-23: the room under a light
+    20% dimmer, frame 3."""
+    from kylespathtracer_tpu_torch.diff import inverse
+    from kylespathtracer_tpu_torch.render.camera import Camera
+    from kylespathtracer_tpu_torch.utils.config import RenderConfig
+
+    return inverse.render_once(dataclasses.replace(scene, light_color=scene.light_color * 0.8),
+                               Camera.create(loc=CAM_LOC, orient=CAM_ORIENT, device=dev),
+                               RenderConfig(width=W, height=H, pipeline="fused"), 3)
+
+
+def step_optimizer():
+    from kylespathtracer_tpu_torch.diff import inverse
+
+    return inverse.ClippedAdam(5e-2, 3, 0.05, clip=1.0)
+
+
+def tiled_step(params, opt, scn, cam, target, frame, cfg_x, n):
+    """The in-process reference of train_step_tiled on n ranks (phase 23
+    drives train_step_tiled itself): its per-rank tile_loss_and_grad on
+    each of n tiles, one after another, the losses and gradients summed as
+    its all-reduce sums them, then the update → (new params, loss)."""
+    from kylespathtracer_tpu_torch.parallel import shard
+
+    rows = cfg_x.height // n
+    parts = [shard.tile_loss_and_grad(params, scn, cam, target[r * rows:(r + 1) * rows], frame, cfg_x, r * rows, rows)
+             for r in range(n)]
+    new = opt.update({k: sum(p[1][k] for p in parts) for k in params}, opt.init(params), params)
+    return {k: v.clone() for k, v in new.items()}, sum(p[0] for p in parts).item()
+
+
+def rank_phase(backend: str, hist0, tiled, params, new_params, loss, target, card: str) -> list:
+    """TILES ranks of one process group, each a process started here
+    through the KPT_* launch contract (the kernels are built: the ranks
+    only load them): gloo on this card, or NCCL with a card per rank. They
+    render the tiled frames and take the tiled step; held against the
+    in-process tiles `tiled` and `new_params` → the ranks' reports."""
+    per_rank = "a card per rank" if backend == "nccl" else f"{TILES} ranks share it"
+    log(f"phase 23: {TILES} {backend} ranks ({per_rank}) through multihost.initialize_from_env: "
+        "render_frame_tiled (split, mono; 2 frames held, 7 timed), the halo exchange, train_step_tiled")
+    host = lambda d: {k: v.cpu() for k, v in d.items()}
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.save({"hist": host(history_tensors(hist0)),
+                    **{f: (tiled[f][0].cpu(), host(history_tensors(tiled[f][1]))) for f in tiled},
+                    "params": host(params), "new_params": host(new_params), "target": target.cpu()},
+                   f"{tmp}/inputs.pt")
+        port = free_port()
+        procs = []
+        try:
+            for r in range(TILES):
+                env = dict(os.environ, KPT_COORDINATOR=f"127.0.0.1:{port}", KPT_NUM_PROCESSES=str(TILES),
+                           KPT_PROCESS_ID=str(r), GLOO_SOCKET_IFNAME="lo")
+                procs.append(subprocess.Popen([sys.executable, __file__, "--rank-worker", tmp, backend], env=env,
+                                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+            deadline = time.monotonic() + 300
+            outs = [p.communicate(timeout=max(deadline - time.monotonic(), 1.0)) for p in procs]
+        except subprocess.TimeoutExpired:
+            for p in procs:
+                p.kill()
+            said = "\n".join(f"rank {r}: {out[-1500:]}\n{err[-1500:]}"
+                             for r, (out, err) in enumerate(p.communicate() for p in procs))
+            raise AssertionError(f"the {backend} ranks did not end within 300 s:\n{said}") from None
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+    reports = []
+    for r, (p, (out, err)) in enumerate(zip(procs, outs)):
+        lines = [ln for ln in out.splitlines() if ln.startswith("RANK ")]
+        if p.returncode != 0 or not lines:
+            raise AssertionError(f"rank {r} failed ({p.returncode}):\n{out[-3000:]}\n{err[-3000:]}")
+        reports.append(json.loads(lines[-1][5:]))
+    for rep in reports:
+        log(f"  rank {rep['rank']} on {rep['device']} ({rep['info']}): split launches {rep['split']['launches']}, "
+            f"mono launches {rep['mono']['launches']}, train launches {rep['train']['launches']}; frame ms on this "
+            f"rank / until every rank is done: split {rep['split']['frame_ms_rank']:.4f} / "
+            f"{rep['split']['frame_ms_all']:.4f}, mono {rep['mono']['frame_ms_rank']:.4f} / "
+            f"{rep['mono']['frame_ms_all']:.4f}; halo exchange {rep['exchange_ms']:.4f} ms; train step "
+            f"{rep['train']['step_ms_rank']:.4f} / {rep['train']['step_ms_all']:.4f} ms [{card}; {per_rank}]")
+        if rep["split"]["launches"] != {"frame": 2, "frame rows": 2, "reproject": 4, "reproject tile": 4,
+                                        "frame_hist": 0, "frame_hist tile": 0} or \
+                rep["mono"]["launches"]["frame_hist tile"] != 2 or \
+                rep["train"]["launches"] != {"frame rows": 1, "backward rows": 1}:
+            raise AssertionError(f"rank {rep['rank']} did not run through the tile modes: {rep}")
+    rank0 = reports[0]
+    for fusion in ("split", "mono"):
+        log(f"  {fusion}: the {TILES} ranks' gathered rows vs the in-process tiles, max |d|: {rank0[fusion]['gaps']}")
+        hold_frame_gaps(rank0[fusion]["gaps"], f"{TILES} {backend} ranks vs the in-process {fusion} tiles")
+    log(f"  train_step_tiled on {TILES} ranks vs the in-process tiles' update, |d|/max|ref|: "
+        f"{rank0['train']['update_gap']}; loss {rank0['train']['loss']:.7g} (in process {loss:.7g})")
+    if not all(v <= 1e-4 for v in rank0["train"]["update_gap"].values()):
+        raise AssertionError(f"train_step_tiled on the {backend} ranks parts from the in-process tiles")
+    return reports
+
+
+def nccl_main() -> int:
+    """`chip_smoke.py --nccl`: the sharded path on NCCL, one card per rank
+    (needs TILES cards): builds the kernels, renders the in-process tiles
+    and takes the tiled step on card 0 as the reference, then phase 23 with
+    NCCL."""
+    from kylespathtracer_tpu_torch.diff import inverse
+    from kylespathtracer_tpu_torch.ops import _build
+    from kylespathtracer_tpu_torch.render.camera import Camera
+    from kylespathtracer_tpu_torch.scene.scene import default_scene
+    from kylespathtracer_tpu_torch.utils.config import RenderConfig
+
+    card = card_line()
+    count = torch.cuda.device_count()
+    log(f"phase 0: {count} cards, {card} | torch {torch.__version__} cuda {torch.version.cuda}")
+    if count < TILES:
+        sys.exit(f"chip_smoke --nccl: needs {TILES} cards, found {count}")
+    t0 = time.perf_counter()
+    path = _build.build()
+    _build.load()
+    log(f"phase 1: built {path.name} in {time.perf_counter() - t0:.1f} s")
+    dev = torch.device("cuda", 0)
+    scene = default_scene(device=dev)
+    hist0 = seeded_history(scene, dev)
+    tiled, launches = tiled_frames(scene, hist0, dev)
+    log(f"  the reference: {TILES} tiles in one process on {dev}, launches {launches}")
+    target = dim_target(scene, dev)
+    params = inverse.extract_params(scene, ("spheres", "light_color"))
+    new, loss = tiled_step(params, step_optimizer(), scene, Camera.create(loc=CAM_LOC, orient=CAM_ORIENT, device=dev),
+                           target, 3, RenderConfig(width=W, height=H, pipeline="fused"), TILES)
+    rank_phase("nccl", hist0, tiled, params, new, loss, target, card)
+    log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                           "count": count}}))
+    return 0
+
+
+def rank_worker(tmp: str, backend: str) -> int:
+    """One rank of phase 23: joins the group through the KPT_* environment
+    (gloo: the ranks share card 0; NCCL: a card per rank), renders phase
+    21's two frames of the split and the mono frame with render_frame_tiled
+    and takes phase 22's 1080p step with train_step_tiled; rank 0 gathers
+    the rows and measures their distance from the in-process tiles. Then
+    times frames, the halo exchange and the step. Prints one line,
+    RANK <json>."""
+    import warnings
+
+    import torch.distributed as dist
+
+    from kylespathtracer_tpu_torch.diff import inverse
+    from kylespathtracer_tpu_torch.ops import frame_grad as fg
+    from kylespathtracer_tpu_torch.ops import frame_hist as fh
+    from kylespathtracer_tpu_torch.ops import frame_kernel as fk
+    from kylespathtracer_tpu_torch.ops import reproject_kernel as rk
+    from kylespathtracer_tpu_torch.parallel import mesh as mesh_mod
+    from kylespathtracer_tpu_torch.parallel import multihost, shard
+    from kylespathtracer_tpu_torch.render.camera import Camera
+    from kylespathtracer_tpu_torch.scene.scene import default_scene
+    from kylespathtracer_tpu_torch.utils.config import RenderConfig
+
+    if not multihost.initialize_from_env(device="cuda", backend=backend):
+        raise SystemExit("rank worker: the environment asks for no process group")
+    mesh = multihost.global_mesh(device="cuda:0" if backend == "gloo" else None)
+    dev = mesh.device
+    data = torch.load(f"{tmp}/inputs.pt")
+    scene = default_scene(device=dev)
+    rows = H // mesh.size
+    report = {"rank": mesh.rank, "size": mesh.size, "rows": rows, "device": str(dev), "info": multihost.process_info()}
+
+    def timed(fn):
+        """fn() between barriers → (its result, ms on this rank, ms until
+        every rank is done)."""
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        dist.barrier()
+        return out, (t1 - t0) * 1e3, (time.perf_counter() - t0) * 1e3
+
+    for fusion in ("split", "mono"):
+        cfg = RenderConfig(width=W, height=H, pipeline="fused", temporal_fusion=fusion)
+        hist = mesh_mod.shard_image_pytree(history_from(data["hist"], dev), mesh, H)
+        fk.LAUNCHES = fk.ROW_LAUNCHES = rk.LAUNCHES = rk.TILE_LAUNCHES = fh.LAUNCHES = fh.TILE_LAUNCHES = 0
+        with warnings.catch_warnings():
+            warnings.filterwarnings("error", message="fused tiled path")
+            for i in (1, 2):
+                img, hist = shard.render_frame_tiled(scene, tile_camera(i, dev), hist, i, cfg, mesh)
+        torch.cuda.synchronize()
+        r = {"launches": {"frame": fk.LAUNCHES, "frame rows": fk.ROW_LAUNCHES, "reproject": rk.LAUNCHES,
+                          "reproject tile": rk.TILE_LAUNCHES, "frame_hist": fh.LAUNCHES,
+                          "frame_hist tile": fh.TILE_LAUNCHES}}
+        full = mesh_mod.gather_rows((img, hist), mesh, rows)
+        if mesh.rank == 0:
+            r["gaps"] = frame_gaps(full, (data[fusion][0].to(dev), history_from(data[fusion][1], dev)))
+        times = [timed(lambda i=i: shard.render_frame_tiled(scene, tile_camera(i, dev), hist, i, cfg, mesh))[1:]
+                 for i in range(3, 10)]
+        r["frame_ms_rank"] = statistics.median(t[0] for t in times)
+        r["frame_ms_all"] = statistics.median(t[1] for t in times)
+        report[fusion] = r
+
+    report["exchange_ms"] = statistics.median(timed(lambda: shard.exchange_halo(hist, mesh, shard.BLOCK_ROWS))[1]
+                                              for _ in range(10))
+    cam = Camera.create(loc=CAM_LOC, orient=CAM_ORIENT, device=dev)
+    cfg_f = RenderConfig(width=W, height=H, pipeline="fused")
+    params = {k: v.to(dev) for k, v in data["params"].items()}
+    target = data["target"].to(dev)[mesh.rank * rows:(mesh.rank + 1) * rows]
+    opt = step_optimizer()
+    fk.LAUNCHES = fk.ROW_LAUNCHES = fg.LAUNCHES = fg.ROW_LAUNCHES = 0
+    new, _, loss = shard.train_step_tiled(params, opt.init(params), opt, scene, cam, target, 3, cfg_f, mesh)
+    torch.cuda.synchronize()
+    report["train"] = {"launches": {"frame rows": fk.ROW_LAUNCHES, "backward rows": fg.ROW_LAUNCHES},
+                       "loss": loss.item()}
+    if mesh.rank == 0:
+        report["train"]["update_gap"] = {
+            k: (new[k] - data["new_params"][k].to(dev)).abs().max().item()
+            / data["new_params"][k].abs().max().item() for k in new}
+    steps = [timed(lambda: shard.train_step_tiled(params, opt.init(params), opt, scene, cam, target, 3, cfg_f,
+                                                  mesh))[1:] for _ in range(3)]
+    report["train"]["step_ms_rank"] = statistics.median(t[0] for t in steps)
+    report["train"]["step_ms_all"] = statistics.median(t[1] for t in steps)
+    print("RANK " + json.dumps(report), flush=True)
+    dist.destroy_process_group()
+    return 0
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
 
 
 def main() -> int:
@@ -649,9 +1018,8 @@ def main() -> int:
     log(f"phase 10: generic training path, train_step x3 at {W}x{H} (K1 + K5)")
     cfg_f = RenderConfig(width=W, height=H, pipeline="fused")
     # The target: the room under a light 20% dimmer.
-    target_1080 = inverse.render_once(dataclasses.replace(scene, light_color=scene.light_color * 0.8),
-                                      camera(), cfg_f, 3)
-    opt = inverse.ClippedAdam(5e-2, 3, 0.05, clip=1.0)
+    target_1080 = dim_target(scene, dev)
+    opt = step_optimizer()
     params = inverse.extract_params(scene, ("spheres", "light_color"))
     state = opt.init(params)
     fk.LAUNCHES = fg.LAUNCHES = lk.LAUNCHES = 0
@@ -1019,6 +1387,168 @@ def main() -> int:
         if pw != (256, 128, 128 * (1 + 256 * 3)):
             raise AssertionError(f"the pass CLI's PNG is malformed: {pw}")
 
+    # Phase 21: the sharded renderer's tiles, one at a time in this process,
+    # each on the history window tile_window cuts (what a rank's halo
+    # exchange assembles): two frames of the split and the mono frame from a
+    # seeded history, against the unsharded frame.
+    from kylespathtracer_tpu_torch.parallel import shard
+    from kylespathtracer_tpu_torch.render.camera import ray_dirs_window
+
+    rows_t, halo_t = H // TILES, shard.BLOCK_ROWS
+    log(f"phase 21: sharded renderer, {TILES} tiles of {rows_t} rows at {W}x{H} in this process "
+        f"(_render_row_block on {halo_t}-row halo windows, the fallback warning an error), 2 frames each of "
+        "split and mono from a seeded history")
+    hist0 = seeded_history(scene, dev)
+    tiled, tile_launches = tiled_frames(scene, hist0, dev)
+    for fusion in ("split", "mono"):
+        cfg_x = RenderConfig(width=W, height=H, pipeline="fused", temporal_fusion=fusion)
+        img_t = tiled[fusion][0]
+        hist_r = hist0
+        for i in (1, 2):
+            img_r, hist_r = pipeline.render_frame(scene, tile_camera(i, dev), hist_r, i, cfg_x)
+        gaps = frame_gaps(tiled[fusion], (img_r, hist_r))
+        log(f"  {fusion}: launches {tile_launches[fusion]}; stitched vs unsharded after 2 frames, max |d|: {gaps}; "
+            f"mean diffuse count {hist_r.diffuse.cnt.mean().item():.4f}")
+        hold_frame_gaps(gaps, f"{TILES} tiles vs the unsharded {fusion} frame")
+        if img_t.shape != (H, W, 3) or not torch.isfinite(img_t).all():
+            raise AssertionError(f"tiled {fusion} image not finite or of the wrong shape")
+    want = {"split": {"frame": 6, "frame rows": 6, "reproject": 12, "reproject tile": 12, "frame_hist": 0,
+                      "frame_hist tile": 0},
+            "mono": {"frame": 0, "frame rows": 0, "reproject": 0, "reproject tile": 0, "frame_hist": 6,
+                     "frame_hist tile": 6}}
+    if tile_launches != want:
+        raise AssertionError(f"the tiled frames did not run through the tile modes: {tile_launches}")
+
+    # Each tile mode against its plain version on the middle tile (both
+    # halos real), frame 1's inputs; then their times.
+    r0, cam1 = rows_t, tile_camera(1, dev)
+    win = shard.tile_window(hist0, r0, rows_t, halo_t)
+    k1r = fk.frame_forward(scene, cam1, 1, cfg, r0, rows_t)
+    torch.cuda.synchronize()
+    k1r_ref = fk.frame_forward_plain(scene, cam1, 1, cfg, r0, rows_t)
+    k1r_stats = frame_agreement(k1r, k1r_ref, f"K1 row mode, rows [{r0}, {r0 + rows_t})")
+    hl_t = cam1.loc + ray_dirs_window(cam1, W, H, r0, rows_t, cfg.fov) * k1r_ref["depth"][..., None]
+    q_t = rk._queries(hist0.camera, hl_t, k1r_ref["oid"], cfg.fov, H, W, row0=r0)
+    k2t_args = (k1r_ref["oid"], *q_t, win.diffuse, K, H, r0, halo_t)
+    rgb_kt, cnt_kt = rk.reproject_set(*k2t_args)
+    torch.cuda.synchronize()
+    rgb_pt, cnt_pt = rk.reproject_window_plain(*k2t_args)
+    k2t_err = max((rgb_kt - rgb_pt).abs().max().item(), (cnt_kt - cnt_pt).abs().max().item())
+    log(f"  K2 tile mode, rows [{r0}, {r0 + rows_t}) of {H}, {halo_t}-row halo, K={K}: max |d| rgb "
+        f"{(rgb_kt - rgb_pt).abs().max().item():.3g}, cnt {(cnt_kt - cnt_pt).abs().max().item():.3g}; mean "
+        f"reprojected count {cnt_kt.mean().item():.4f}")
+    torch.testing.assert_close(rgb_kt, rgb_pt, atol=1e-5, rtol=0)
+    torch.testing.assert_close(cnt_kt, cnt_pt, atol=1e-4, rtol=0)
+    tile_kw = dict(block_rows=halo_t, row_base=r0, rows=rows_t, hist_halo=halo_t)
+    k8t_args = (scene, cam1, hist0.camera, win.diffuse, win.specular, 1, cfg_m)
+    k8t = fh.frame_hist(*k8t_args, **tile_kw)
+    torch.cuda.synchronize()
+    k8t_ref = fh.frame_hist_plain(*k8t_args, **tile_kw)
+    k8t_stats = fh.check_agreement(k8t, k8t_ref, "K8 tile mode vs plain")
+    log(f"  K8 tile mode vs plain (median |d|, share beyond 1e-3): {k8t_stats}; mean reprojected diffuse count "
+        f"{k8t_ref['d_cnt'].mean().item():.4f}")
+    if k8t_ref["d_cnt"].mean().item() <= 2.0 or cnt_kt.mean().item() <= 1.0:
+        raise AssertionError("the tile checks carried almost no history; they are vacuous")
+    k1r_ms = cuda_ms(lambda: fk.frame_forward(scene, cam1, 1, cfg, r0, rows_t), reps=20, warmup=2)
+    k1r_alone_ms = cuda_ms(fk.frame_launch(scene, cam1, 1, cfg, r0, rows_t)[0], reps=20, warmup=2)
+    k1r_plain_ms = cuda_ms(lambda: fk.frame_forward_plain(scene, cam1, 1, cfg, r0, rows_t), reps=3)
+    k2t_ms = cuda_ms(lambda: rk.reproject_set(*k2t_args), reps=50, warmup=3)
+    k2t_plain_ms = cuda_ms(lambda: rk.reproject_window_plain(*k2t_args), reps=20, warmup=2)
+    k8t_ms = cuda_ms(lambda: fh.frame_hist(*k8t_args, **tile_kw), reps=20, warmup=2)
+    k8t_alone_ms = cuda_ms(fh.frame_hist_launch(*k8t_args, **tile_kw)[0], reps=20, warmup=2)
+    k8t_plain_ms = cuda_ms(lambda: fh.frame_hist_plain(*k8t_args, **tile_kw), reps=3)
+    log(f"  one tile of {rows_t}x{W}: K1 row mode {k1r_ms:.4f} ms with its wrapper, {k1r_alone_ms:.4f} alone, "
+        f"plain {k1r_plain_ms:.4f}; K2 tile mode (one set) {k2t_ms:.4f}, plain {k2t_plain_ms:.4f}; K8 tile mode "
+        f"{k8t_ms:.4f} with its wrapper, {k8t_alone_ms:.4f} alone, plain {k8t_plain_ms:.4f} [{card}]")
+    tile_state = {f: (3, tiled[f][1]) for f in tiled}
+
+    def tiles_frame(fusion):
+        cfg_x = RenderConfig(width=W, height=H, pipeline="fused", temporal_fusion=fusion)
+
+        def run():
+            i, h = tile_state[fusion]
+            tile_state[fusion] = (i + 1, render_tiles(scene, cfg_x, h, i, dev)[1])
+        return run
+
+    turns_t = [(name, cuda_ms(fn, reps=10, warmup=2)) for name, fn in (
+        ("unsharded split", temporal_frame), ("3 tiles split", tiles_frame("split")),
+        ("3 tiles mono", tiles_frame("mono")), ("unsharded mono", mono_frame))]
+    log(f"  {W}x{H} frame in turns, ms: " + ", ".join(f"{n} {t:.4f}" for n, t in turns_t)
+        + f" (the tiles one after another in this process) [{card}]")
+    for fusion in ("split", "mono"):
+        sp = stage_split(tiles_frame(fusion), pipeline.STAGES, frames=5)
+        log(f"  3 tiles {fusion}, torch.profiler: device {sp['device_ms']:.4f} ms in {sp['launches']:.1f} launches "
+            "per frame; by stage: " + ", ".join(f"{k} {v:.4f}" for k, v in sp["stages"].items())
+            + "; by kernel: " + ", ".join(f"{k} {v:.4f}" for k, v in sp["top"]))
+
+    # Phase 22: the tiled training step in this process, the tiles' losses
+    # and gradients summed as train_step_tiled's all-reduce sums them.
+    log(f"phase 22: tiled training step (K1 + K5 row mode), {TILES} tiles at {W}x{H} and 2 at the 192x128 "
+        "recovery view, against the unsharded train_step")
+
+    def hold_step(new, loss, ref, loss_r, what):
+        gaps = {k: (new[k] - ref[k]).abs().max().item() / ref[k].abs().max().item() for k in new}
+        rel = abs(loss - loss_r) / abs(loss_r)
+        log(f"  {what}: loss {loss:.7g} vs unsharded {loss_r:.7g} (rel {rel:.3g}); update |d|/max|ref| {gaps}")
+        if not (rel <= 1e-5 and all(v <= 1e-4 for v in gaps.values())):
+            raise AssertionError(f"{what}: the tiled step parts from the unsharded one")
+        return gaps
+
+    opt_t = step_optimizer()
+    params_t = inverse.extract_params(scene, ("spheres", "light_color"))
+    fk.LAUNCHES = fk.ROW_LAUNCHES = fg.LAUNCHES = fg.ROW_LAUNCHES = lk.LAUNCHES = 0
+    new_t, loss_t = tiled_step(params_t, opt_t, scene, camera(), target_1080, 3, cfg_f, TILES)
+    torch.cuda.synchronize()
+    step_launches = {"frame": fk.LAUNCHES, "frame rows": fk.ROW_LAUNCHES, "backward": fg.LAUNCHES,
+                     "backward rows": fg.ROW_LAUNCHES, "loss": lk.LAUNCHES}
+    log(f"  launches {step_launches}")
+    if step_launches != {"frame": TILES, "frame rows": TILES, "backward": TILES, "backward rows": TILES,
+                         "loss": 0}:
+        raise AssertionError(f"the tiled step did not run through K1's and K5's row modes: {step_launches}")
+    ref_t, _, loss_rt = inverse.train_step(params_t, opt_t.init(params_t), opt_t, scene, camera(), target_1080, 3,
+                                           cfg_f)
+    hold_step(new_t, loss_t, {k: v.clone() for k, v in ref_t.items()}, loss_rt.item(), f"{TILES} tiles at {W}x{H}")
+    params_r = inverse.extract_params(start)
+    new_r, loss_r2 = tiled_step(params_r, opt_t, start, views[0], target_rec, f0, c_rec, 2)
+    ref_r, _, loss_rr = inverse.train_step(params_r, opt_t.init(params_r), opt_t, start, views[0], target_rec, f0,
+                                           c_rec)
+    hold_step(new_r, loss_r2, ref_r, loss_rr.item(), "2 tiles at the 192x128 recovery view")
+    # K5's row mode against its plain version on the middle tile: random
+    # cotangents on 13 planes, every table, the ill-conditioned pixels
+    # masked as in phase 12 (logged with every pixel).
+    k1m = fk.frame_forward(scene, camera(), 3, cfg, r0, rows_t)
+    bad_t = fk.ill_conditioned(k1m, fk.frame_forward_plain(scene, camera(), 3, cfg, r0, rows_t))
+    g_t = {k: randn(k1m[k].shape) for k in fg.OUT_KEYS[:6]}
+
+    def k5_rows(g):
+        got = fg.frame_backward(scene, camera(), 3, g, cfg, None, r0, rows_t)
+        torch.cuda.synchronize()
+        return got, fg.frame_backward_plain(scene, camera(), 3, g, cfg, None, r0, rows_t)
+
+    ti, entry_i, rel_i = worst_entry(*k5_rows(g_t))
+    log(f"  K5 row mode, rows [{r0}, {r0 + rows_t}), all pixels: worst {fg.DIFF_NAMES[ti]}[{entry_i}], "
+        f"|Δ|/max|ref| {rel_i:.3g} (not held)")
+    k5r_err = table_check(*k5_rows(keep_planes(g_t, bad_t)),
+                          f"K5 row mode, rows [{r0}, {r0 + rows_t}), random cotangents, every table, "
+                          f"{int(bad_t.sum())} ill-conditioned pixels masked")
+    k5r_ms = cuda_ms(lambda: fg.frame_backward(scene, camera(), 3, g_t, cfg, None, r0, rows_t), reps=10)
+    k5r_plain_ms = cuda_ms(lambda: fg.frame_backward_plain(scene, camera(), 3, g_t, cfg, None, r0, rows_t), reps=1)
+    log(f"  one tile of {rows_t}x{W}: K5 row mode, 13 planes, every table {k5r_ms:.4f} ms, plain "
+        f"{k5r_plain_ms:.4f} [{card}]")
+
+    # Phase 23: the same frames and step on 3 ranks of one gloo group
+    # sharing this card (NCCL refuses two ranks on one card).
+    torch.cuda.empty_cache()
+    reports = rank_phase("gloo", hist0, tiled, params_t, new_t, loss_t, target_1080, card)
+    # The tile modes' launches on the slice's path: render_frame_tiled's
+    # two split and two mono frames and train_step_tiled's step, counted
+    # on each rank (set to 0 just before, read just after) and summed over
+    # the ranks.
+    rank_launches = {key: sum(rep[part]["launches"][key] for rep in reports for part in parts)
+                     for key, parts in (("frame rows", ("split", "train")), ("reproject tile", ("split",)),
+                                        ("frame_hist tile", ("mono",)), ("backward rows", ("train",)))}
+    log(f"  tile-mode launches summed over the {TILES} ranks: {rank_launches}")
+
     # Bounds, from this run's inputs (frame_ops, bound).
     ops1 = frame_ops(scene, cfg, ref["oid"])
     tab_bytes = sum(t.numel() * t.element_size() for t in fk.pack_tables(scene, camera()))
@@ -1052,6 +1582,19 @@ def main() -> int:
     ops4 = shade_ops(scene, cfg_p, gbuf_p.obj_id, 1) + W * H * 6
     k4_io = (gbuf_p.normal, gbuf_p.obj_id, gbuf_p.depth, gbuf_p.ray_dir, seed_p, *k4)
     k4_bound = bound(ops4, tab_bytes + sum(t.numel() * t.element_size() for t in k4_io))
+    # The tile launches (phases 21-22): their share of the frame's work, on
+    # the middle tile's data.
+    k1r_bound = bound(frame_ops(scene, cfg, k1r_ref["oid"]), tab_bytes + rows_t * W * (13 * 4 + 4))
+    k2t_io = (k1r_ref["oid"], *q_t[:2], *q_t[2], win.diffuse.rgb, win.diffuse.cnt, win.diffuse.oid, rgb_kt, cnt_kt)
+    k2t_bound = bound(rows_t * W * 4 * 10, sum(t.numel() * t.element_size() for t in k2t_io))
+    ops8t = frame_ops(scene, cfg_m, k8t_ref["oid"]) + rows_t * W * HIST_OPS
+    win_bytes = sum(t.numel() * t.element_size() for ch in (win.diffuse, win.specular)
+                    for t in (ch.rgb, ch.cnt, ch.oid))
+    k8t_bound = bound(ops8t, tab_bytes + 5 * 4 + win_bytes + sum(t.numel() * t.element_size() for t in k8t.values()))
+    k5r_bound = bound(3 * frame_ops(scene, cfg, k1m["oid"]), tab_bytes + sum(v.numel() * 4 for v in g_t.values()))
+    log(f"  bounds of one {rows_t}-row tile: K1 row mode {k1r_bound[0]:.4f} ms ({k1r_bound[1]}), K2 tile mode "
+        f"{k2t_bound[0]:.4f} ms ({k2t_bound[1]}), K8 tile mode {k8t_bound[0]:.4f} ms ({k8t_bound[1]}), K5 row mode "
+        f"{k5r_bound[0]:.4f} ms ({k5r_bound[1]})")
     # Without FMA (-fmad=false: K3-K8) an f32 lane retires one operation a
     # clock: 132 SMs x 128 lanes x the SM clock.
     no_fma = 132 * 128 * sm_clock_mhz() * 1e6
@@ -1091,7 +1634,18 @@ def main() -> int:
               k8_stats["max_abs"], k8_ms, k8_plain_ms, k8_bound),
         entry("dual_mis", "shade_kernel.cu", "shade_kernel.py:836", pass_launches["dual_mis"],
               k4_stats["max_abs"], k4_ms, k4_plain_ms, k4_bound),
+        entry("frame_forward (rows)", "frame_kernel.cu", "frame_kernel.py:299", rank_launches["frame rows"],
+              k1r_stats["max_abs"], k1r_ms, k1r_plain_ms, k1r_bound),
+        entry("reproject_window (tile)", "reproject_kernel.cu", "reproject_kernel.py:211",
+              rank_launches["reproject tile"], k2t_err, k2t_ms, k2t_plain_ms, k2t_bound),
+        entry("frame_hist (tile)", "frame_hist.cu", "frame_hist.py:241", rank_launches["frame_hist tile"],
+              k8t_stats["max_abs"], k8t_ms, k8t_plain_ms, k8t_bound),
+        entry("frame_backward (rows)", "frame_grad.cu", "frame_grad.py:117", rank_launches["backward rows"],
+              k5r_err, k5r_ms, k5r_plain_ms, k5r_bound),
     ]
+    idle = [k["name"] for k in kernels if k["launches"] < 1]
+    if idle:
+        raise AssertionError(f"kernels never launched on their paths: {idle}")
     log(card_line())
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
@@ -1100,4 +1654,10 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] in (["--rank-worker"], ["--nccl"]) and not torch.cuda.is_available():
+        sys.exit("chip_smoke: no CUDA device; this smoke run needs a GPU")
+    if sys.argv[1:2] == ["--rank-worker"]:
+        sys.exit(rank_worker(sys.argv[2], sys.argv[3]))
+    if sys.argv[1:2] == ["--nccl"]:
+        sys.exit(nccl_main())
     sys.exit(main())

@@ -12,6 +12,12 @@
 // gradient floats; the work is the frame's own per-pixel math and its
 // reverse sweep, about three times the forward's operations.
 //
+// Row mode (frame_backward_pallas's `row_base`/`rows`, run by the sharded
+// trainer, parallel/shard.py): the cotangent planes cover image rows
+// [row_base, row_base+rows) of the height-row image, the grid covers those
+// rows only, NDC and seeds stay the full image's, and the result is the
+// tile's partial gradient, which the trainer sums over the ranks.
+//
 // Design: one reverse-mode pass over the pixels, as the JAX kernel's
 // jax.vjp. Each thread reads its pixel's present cotangents and runs
 // frame_adjoint.cuh:frame_pixel_adjoint (the forward recomputed in float,
@@ -52,19 +58,20 @@ __global__ void __launch_bounds__(128, 5) frame_grad_kernel(const float* __restr
 
 }  // namespace kpt
 
-// g: the present cotangent planes [popcount(present)][height][width] in
-// output order (bit k of `present`: plane k). out_g[n_seeds] must be zeroed;
-// seeds[i] is the flat-table entry whose gradient lands in out_g[i].
+// g: the present cotangent planes [popcount(present)][rows][width] of image
+// rows [row_base, row_base+rows), in output order (bit k of `present`: plane
+// k). out_g[n_seeds] must be zeroed; seeds[i] is the flat-table entry whose
+// gradient lands in out_g[i].
 extern "C" int kpt_frame_backward(const float* ftab, const int* itab, const int* seeds, int n_seeds, int nP,
-                                  int nS, int nB, int nK, int width, int height, float fov, int frame, int smp,
-                                  int decorrelate, int biased, float soft_beta, int gloss, const float* g,
-                                  int present, float* out_g, void* stream) {
+                                  int nS, int nB, int nK, int width, int height, float fov, int frame, int row_base,
+                                  int rows, int smp, int decorrelate, int biased, float soft_beta, int gloss,
+                                  const float* g, int present, float* out_g, void* stream) {
   if (nP > kpt::MAX_PLANES) return (int)cudaErrorInvalidValue;
   if (n_seeds <= 0 || present == 0) return 0;
-  kpt::FrameParams P{nP, nS, nB, nK, width, height, fov, frame, 0, height,
+  kpt::FrameParams P{nP, nS, nB, nK, width, height, fov, frame, row_base, rows,
                      smp, decorrelate, biased, soft_beta, gloss};
   const size_t shmem = kpt::table_smem(nP, nS, nB, nK, true);
-  const dim3 grid((width + 15) / 16, (height + 7) / 8);
+  const dim3 grid((width + 15) / 16, (rows + 7) / 8);
   kpt::frame_grad_kernel<<<grid, dim3(16, 8), shmem, (cudaStream_t)stream>>>(ftab, itab, seeds, n_seeds, P, g,
                                                                               present, out_g);
   return (int)cudaGetLastError();

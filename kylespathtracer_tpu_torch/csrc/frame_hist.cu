@@ -1,7 +1,7 @@
 // K8: the mono temporal frame: the whole history-path frame in one kernel.
 //
 // Replaces kylespathtracer_tpu/ops/frame_hist.py:frame_hist_pallas (its body
-// `_frame_hist_kernel`), full-frame mode. Per pixel:
+// `_frame_hist_kernel`), in full-frame and in tile mode. Per pixel:
 //
 //   K1's frame (frame_body.cuh: frame_body)        → 13 planes and the oid
 //   → hit point + curvature-pushed specular anchor  (specular.frag:45-49)
@@ -18,6 +18,15 @@
 // The TPU kernel clamps the window K to its row-block height (its history
 // halo is one block); here the taps are a direct, bounded gather, so any K
 // works, and the wrapper computes K as the JAX code does.
+//
+// Tile mode (the sharded renderer's, parallel/shard.py): the kernel renders
+// image rows [row_base, row_base+rows) of the height-row image (NDC, seeds
+// and the previous-camera projection stay the full image's) into [rows][W]
+// outputs, and reads the history from the window of rows + 2·halo rows that
+// the halo exchange assembles, whose first row is image row hist_row0 =
+// row_base − halo. A tap's window row is its image row less hist_row0; taps
+// reach at most K ≤ halo rows (the wrapper checks). The full frame is the
+// same launch with row_base = 0, rows = height and no halo.
 //
 // Rounding: built with -fmad=false (ops/_build.py), so the frame part and
 // the head round as the plain version's per-operation tensor code does
@@ -116,12 +125,13 @@ __device__ __forceinline__ void accumulate(const float (&acc)[4], const float* a
 // reproject_core.cuh:tap_sum with the four taps' loads issued together:
 // every live tap's object ID, rgb and count are read before any is
 // compared, so the gathers of a pixel wait on memory once, not once per
-// tap. The sum is tap_sum's, term for term.
+// tap. The sum is tap_sum's, term for term; the history's first row is
+// image row hist_row0, as there.
 __device__ __forceinline__ void tap_sum_gathered(const float* __restrict__ hist_rgb,
                                                  const float* __restrict__ hist_cnt,
                                                  const int* __restrict__ hist_oid, int id, int y, int x, int dy,
                                                  int dx, const float (&wy)[2], const float (&wx)[2], int K, int H,
-                                                 int W, float (&acc)[4]) {
+                                                 int W, int hist_row0, float (&acc)[4]) {
   bool live[4];
   int tid[4];
   float v[4][4];
@@ -135,7 +145,7 @@ __device__ __forceinline__ void tap_sum_gathered(const float* __restrict__ hist_
       // queries; out-of-image taps carry zero weight and are skipped.
       live[j] = !(dx < -K - tx || dx > K - tx || dy < -K - ty || dy > K - ty) && sy >= 0 && sy < H && sx >= 0 &&
                 sx < W;
-      const size_t q = live[j] ? (size_t)sy * W + sx : 0;
+      const size_t q = live[j] ? (size_t)(sy - hist_row0) * W + sx : 0;
       tid[j] = live[j] ? hist_oid[q] : 0;
       v[j][0] = live[j] ? hist_rgb[3 * q] : 0.0f;
       v[j][1] = live[j] ? hist_rgb[3 * q + 1] : 0.0f;
@@ -164,13 +174,16 @@ struct PrevCamera {
   const float *loc, *orient;
 };
 
+// Output row r is image row P.row_base + r of P.rows; the history's first
+// row is image row hist_row0 (the full frame: row_base = hist_row0 = 0).
 __global__ void __launch_bounds__(BLOCK, 5)
     frame_hist_kernel(TableParts tp, FrameParams P, HistParams Q, PrevCamera prev,
                       const float* __restrict__ hd_rgb, const float* __restrict__ hd_cnt,
                       const int* __restrict__ hd_oid, const float* __restrict__ hs_rgb,
                       const float* __restrict__ hs_cnt, const int* __restrict__ hs_oid, float* __restrict__ out_drgb,
                       float* __restrict__ out_dcnt, float* __restrict__ out_srgb, float* __restrict__ out_scnt,
-                      float* __restrict__ out_alb, float* __restrict__ out_ene, int* __restrict__ out_oid) {
+                      float* __restrict__ out_alb, float* __restrict__ out_ene, int* __restrict__ out_oid,
+                      int hist_row0) {
   extern __shared__ float smem[];
   const Tables T = load_table_parts(smem, tp, P);
   const Slot slot = thread_slot(smem, P);
@@ -188,12 +201,13 @@ __global__ void __launch_bounds__(BLOCK, 5)
   __syncthreads();
 
   const int x = blockIdx.x * TILE_W + threadIdx.x % TILE_W;
-  const int y = blockIdx.y * TILE_H + threadIdx.x / TILE_W;
+  const int r = blockIdx.y * TILE_H + threadIdx.x / TILE_W;  // output row
   const int W = P.width, H = P.height;
 
   float vals[13];
   int oid;
-  if (x >= W || y >= H) return;
+  if (x >= W || r >= P.rows) return;
+  const int y = P.row_base + r;  // image row
   V3 ro, rd;
   frame_body(T, P, B, slot, x, y, vals, oid, ro, rd);
 
@@ -205,15 +219,15 @@ __global__ void __launch_bounds__(BLOCK, 5)
   const float fac = __fdiv_rn(EPS, sqrtf(fmaxf(EPS, vals[12])));
   const V3 sl = rn_along(hl, rd, rn_mul(light_dist, fac));
 
-  const size_t p = (size_t)y * W + x;
+  const size_t p = (size_t)r * W + x;
 
   int dy, dx;
   float wy[2], wx[2], acc[4];
   query(hl, ptab, B.lf, B.r, B.u, x, y, W, H, P.fov, Q.inv_asp, dy, dx, wy, wx);
-  tap_sum_gathered(hd_rgb, hd_cnt, hd_oid, oid, y, x, dy, dx, wy, wx, Q.K, H, W, acc);
+  tap_sum_gathered(hd_rgb, hd_cnt, hd_oid, oid, y, x, dy, dx, wy, wx, Q.K, H, W, hist_row0, acc);
   accumulate(acc, vals + 0, B.limit, out_drgb + 3 * p, out_dcnt[p]);
   query(sl, ptab, B.lf, B.r, B.u, x, y, W, H, P.fov, Q.inv_asp, dy, dx, wy, wx);
-  tap_sum_gathered(hs_rgb, hs_cnt, hs_oid, oid, y, x, dy, dx, wy, wx, Q.K, H, W, acc);
+  tap_sum_gathered(hs_rgb, hs_cnt, hs_oid, oid, y, x, dy, dx, wy, wx, Q.K, H, W, hist_row0, acc);
   accumulate(acc, vals + 3, B.limit, out_srgb + 3 * p, out_scnt[p]);
 
 #pragma unroll
@@ -228,13 +242,14 @@ __global__ void __launch_bounds__(BLOCK, 5)
 extern "C" int kpt_frame_hist(const kpt::TableParts* tp, const float* prev_loc, const float* prev_orient, int nP,
                               int nS, int nB, int nK, int width, int height, float fov, int frame, int smp,
                               int decorrelate, int biased, float soft_beta, int gloss, int K, float inv_asp,
-                              float temporal, float two_t, float t_m1, const float* hd_rgb, const float* hd_cnt,
-                              const int* hd_oid, const float* hs_rgb, const float* hs_cnt, const int* hs_oid,
+                              float temporal, float two_t, float t_m1, int row_base, int rows, int hist_row0,
+                              const float* hd_rgb, const float* hd_cnt, const int* hd_oid, const float* hs_rgb,
+                              const float* hs_cnt, const int* hs_oid,
                               float* out_drgb, float* out_dcnt, float* out_srgb, float* out_scnt, float* out_alb,
                               float* out_ene, int* out_oid, void* stream) {
   if (nP > kpt::MAX_PLANES) return (int)cudaErrorInvalidValue;
-  kpt::FrameParams P{nP, nS, nB, nK, width, height, fov, frame, 0, height, smp, decorrelate, biased, soft_beta,
-                     gloss};
+  kpt::FrameParams P{nP, nS, nB, nK, width, height, fov, frame, row_base, rows, smp, decorrelate, biased,
+                     soft_beta, gloss};
   kpt::HistParams Q{K, inv_asp, temporal, two_t, t_m1};
   const size_t shmem = kpt::body_smem(nP, nS, nB, nK);
   if (shmem > 48 * 1024) {
@@ -242,9 +257,9 @@ extern "C" int kpt_frame_hist(const kpt::TableParts* tp, const float* prev_loc, 
         cudaFuncSetAttribute(kpt::frame_hist_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shmem);
     if (err != cudaSuccess) return (int)err;
   }
-  const dim3 grid((width + kpt::TILE_W - 1) / kpt::TILE_W, (height + kpt::TILE_H - 1) / kpt::TILE_H);
+  const dim3 grid((width + kpt::TILE_W - 1) / kpt::TILE_W, (rows + kpt::TILE_H - 1) / kpt::TILE_H);
   kpt::frame_hist_kernel<<<grid, kpt::BLOCK, shmem, (cudaStream_t)stream>>>(
       *tp, P, Q, kpt::PrevCamera{prev_loc, prev_orient}, hd_rgb, hd_cnt, hd_oid, hs_rgb, hs_cnt, hs_oid,
-      out_drgb, out_dcnt, out_srgb, out_scnt, out_alb, out_ene, out_oid);
+      out_drgb, out_dcnt, out_srgb, out_scnt, out_alb, out_ene, out_oid, hist_row0);
   return (int)cudaGetLastError();
 }

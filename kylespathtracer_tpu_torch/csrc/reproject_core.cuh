@@ -10,7 +10,9 @@
 // skipped (adding exactly zero). The four taps are summed from zero in the
 // TPU kernel's order (column offset outer, row offset inner) with no fused
 // multiply-add, so the sum matches the plain version bit for bit. History is
-// rgb [H][W][3], cnt [H][W], oid [H][W].
+// rgb [.][W][3], cnt [.][W], oid [.][W]: the whole image, or (tile mode) a
+// window of image rows whose first row is image row `hist_row0`; y, dy and
+// H are image rows either way, and the window must hold rows y-K..y+K.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -21,7 +23,7 @@ namespace kpt {
 __device__ __forceinline__ void tap_sum(const float* __restrict__ hist_rgb, const float* __restrict__ hist_cnt,
                                         const int* __restrict__ hist_oid, int id, int y, int x, int dy, int dx,
                                         const float (&wy)[2], const float (&wx)[2], int K, int H, int W,
-                                        float (&acc)[4]) {
+                                        int hist_row0, float (&acc)[4]) {
   acc[0] = acc[1] = acc[2] = acc[3] = 0.0f;
 #pragma unroll
   for (int tx = 0; tx < 2; ++tx) {
@@ -32,7 +34,7 @@ __device__ __forceinline__ void tap_sum(const float* __restrict__ hist_rgb, cons
       if (dy < -K - ty || dy > K - ty) continue;
       const int sy = y + dy + ty, sx = x + dx + tx;
       if (sy < 0 || sy >= H || sx < 0 || sx >= W) continue;  // zero weight
-      const size_t q = (size_t)sy * W + sx;
+      const size_t q = (size_t)(sy - hist_row0) * W + sx;
       if (hist_oid[q] != id) continue;
       const float w = __fmul_rn(wy[ty], wx[tx]);
       acc[0] = __fadd_rn(acc[0], __fmul_rn(w, hist_rgb[3 * q]));

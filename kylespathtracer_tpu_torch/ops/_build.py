@@ -70,14 +70,15 @@ _SIGNATURES = {
         _I, _I, _I, _F, _I, _P, _P,
     ),
     # ho, dyrel, dxrel, wy0, wy1, wx0, wx1, hist_rgb, hist_cnt, hist_oid,
-    # out_rgb, out_cnt, H, W, K, stream
+    # out_rgb, out_cnt, rows, H, W, K, row_base, hist_row0, stream
     "kpt_reproject_window": (
-        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P,
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P,
     ),
     # ftab, itab, seeds, n_seeds, nP, nS, nB, nK, width, height, fov, frame,
-    # smp, decorrelate, biased, soft_beta, gloss, g, present, out_g, stream
+    # row_base, rows, smp, decorrelate, biased, soft_beta, gloss, g, present,
+    # out_g, stream
     "kpt_frame_backward": (
-        _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I,
+        _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I,
         _I, _I, _I, _F, _I, _P, _I, _P, _P,
     ),
     # ftab, itab, seeds, n_seeds, nP, nS, nB, nK, width, height, fov, frame,
@@ -96,11 +97,11 @@ _SIGNATURES = {
     ),
     # parts, prev loc, prev orient, nP, nS, nB, nK, width, height, fov,
     # frame, smp, decorrelate, biased, soft_beta, gloss, K, inv_asp,
-    # temporal, two_t, t_m1, hist d rgb/cnt/oid, hist s rgb/cnt/oid, out
-    # d_rgb, d_cnt, s_rgb, s_cnt, alb, ene, oid, stream
+    # temporal, two_t, t_m1, row_base, rows, hist_row0, hist d rgb/cnt/oid,
+    # hist s rgb/cnt/oid, out d_rgb, d_cnt, s_rgb, s_cnt, alb, ene, oid, stream
     "kpt_frame_hist": (
         _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _I, _F, _I, _I, _F, _F,
-        _F, _F, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+        _F, _F, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
     ),
     # parts, nP, nS, nB, nK, width, height, soft_beta, gloss, io, stream
     "kpt_dual_mis": (_P, _I, _I, _I, _I, _I, _I, _F, _I, _P, _P),

@@ -4,7 +4,7 @@ and K8, and (with --path) the path-tracing kernel K7 and the pass
 pipeline's shade kernel K4.
 
     python -m kylespathtracer_tpu_torch.ops.adjoint_variants [--parent CSRC] [--frame | --path] [VARIANT ...]
-    python -m kylespathtracer_tpu_torch.ops.adjoint_variants --path --turns ROOT
+    python -m kylespathtracer_tpu_torch.ops.adjoint_variants (--path | --frame) --turns ROOT
 
 Needs a CUDA device. For each variant it builds the kernel library from a
 copy of kylespathtracer_tpu_torch/csrc under build/variants/ with one
@@ -23,8 +23,8 @@ spheres and alb_const, mse) on the recovery scene. Variants:
 With --frame it times K1 (frame 3) and K8 (frame 1 on a seeded history) at
 1920×1080 on the default scene and K1 at the recovery view, each alone (CUDA
 events around its launch) and with its wrapper (`frame_forward`,
-`frame_hist`), and prints the static instruction mix of both kernels
-(`cuobjdump -sass`). Variants:
+`frame_hist`), and prints the static instruction mix of both kernels and
+K2's (`cuobjdump -sass`). Variants:
 
 - `committed`, and `minblocks=N`: K1 and K8 under
   `__launch_bounds__(128, N)`; `tile=WxH`: the block's 128 threads on a
@@ -74,10 +74,13 @@ Variants, joined by `+` to combine them:
   the block's n rays), and the warp iterations of the nested loop against
   the flat one and the ideal.
 
-`--turns ROOT` times K7 and K4 with their wrappers and alone (their
-kernels' device time in a torch.profiler trace) from another checkout
-ROOT and from this one, in turns (ROOT, this, this, ROOT), each in a
-process of its own.
+`--turns ROOT` times the group's kernels with their wrappers and alone
+(their kernels' device time in a torch.profiler trace) from another
+checkout ROOT and from this one, in turns (ROOT, this, this, ROOT), each
+in a process of its own: with --path K7 and K4 on the cells above, with
+--frame K1 (frame 3), K8 (frame 1 on a seeded history) and K2 (one
+channel set of the split frame's reprojection, K = 8, on the same
+history) at 1920×1080, full frame.
 
 With `--parent CSRC` (the csrc directory of another checkout) it first
 compiles the kernels that the group leaves alone from both trees and says
@@ -110,6 +113,7 @@ from kylespathtracer_tpu_torch.ops import frame_hist as fh
 from kylespathtracer_tpu_torch.ops import frame_kernel as fk
 from kylespathtracer_tpu_torch.ops import loss_kernel as lk
 from kylespathtracer_tpu_torch.ops import path_kernel as pk
+from kylespathtracer_tpu_torch.ops import reproject_kernel as rk
 from kylespathtracer_tpu_torch.ops import shade_kernel as sk
 from kylespathtracer_tpu_torch.render import gbuffer, passes
 from kylespathtracer_tpu_torch.render.camera import Camera
@@ -145,15 +149,15 @@ FRAME_OFF = {
     "no_cull": [(SHADE, "__device__ __forceinline__ bool box_may_hit(const float* B, V3 o, V3 d, float tmax) {\n",
                  "__device__ __forceinline__ bool box_may_hit(const float* B, V3 o, V3 d, float tmax) {\n"
                  "  return true;\n")],
-    "no_taps": [(HIST, "  tap_sum_gathered(hd_rgb, hd_cnt, hd_oid, oid, y, x, dy, dx, wy, wx, Q.K, H, W, acc);",
+    "no_taps": [(HIST, "  tap_sum_gathered(hd_rgb, hd_cnt, hd_oid, oid, y, x, dy, dx, wy, wx, Q.K, H, W, hist_row0, acc);",
                  "  acc[0] = acc[1] = acc[2] = acc[3] = 0.0f;"),
-                (HIST, "  tap_sum_gathered(hs_rgb, hs_cnt, hs_oid, oid, y, x, dy, dx, wy, wx, Q.K, H, W, acc);",
+                (HIST, "  tap_sum_gathered(hs_rgb, hs_cnt, hs_oid, oid, y, x, dy, dx, wy, wx, Q.K, H, W, hist_row0, acc);",
                  "  acc[0] = acc[1] = acc[2] = acc[3] = 0.0f;")],
     "serial_taps": [(HIST, "  tap_sum_gathered(hd_rgb,", "  tap_sum(hd_rgb,"),
                     (HIST, "  tap_sum_gathered(hs_rgb,", "  tap_sum(hs_rgb,"),
                     (HIST, '#include "frame_body.cuh"\n', '#include "frame_body.cuh"\n#include "reproject_core.cuh"\n')],
     "no_head_tail": [(HIST, "  // Anchors: the hit point for diffuse",
-                      "  {\n    const size_t p = (size_t)y * W + x;\n"
+                      "  {\n    const size_t p = (size_t)r * W + x;\n"
                       "    for (int c = 0; c < 3; ++c) {\n"
                       "      out_drgb[3 * p + c] = vals[c];\n      out_srgb[3 * p + c] = vals[3 + c];\n"
                       "      out_alb[3 * p + c] = vals[6 + c];\n    }\n"
@@ -182,9 +186,8 @@ GROUPS = {
                 (("K5", "frame_grad.cu"), ("K6", "loss_kernel.cu")),
                 ("frame_kernel.cu", "geometry_kernel.cu", "shade_kernel.cu", "path_kernel.cu", "frame_hist.cu")),
     "frame": (FRAME_OFF, ("frame_kernel.cu", "frame_hist.cu"),
-              (("K1", "frame_kernel.cu"), ("K8", "frame_hist.cu")),
-              ("reproject_kernel.cu", "geometry_kernel.cu", "shade_kernel.cu", "frame_grad.cu",
-               "loss_kernel.cu", "path_kernel.cu")),
+              (("K1", "frame_kernel.cu"), ("K8", "frame_hist.cu"), ("K2", "reproject_kernel.cu")),
+              ("geometry_kernel.cu", "shade_kernel.cu", "frame_grad.cu", "loss_kernel.cu", "path_kernel.cu")),
     "path": (PATH_OFF, ("path_kernel.cu",), (("K7", "path_kernel.cu"), ("K4", "shade_kernel.cu")),
              ("frame_kernel.cu", "reproject_kernel.cu", "geometry_kernel.cu", "frame_grad.cu", "loss_kernel.cu",
               "frame_hist.cu")),
@@ -339,8 +342,11 @@ def adjoint_times(dev, rng) -> callable:
     return run
 
 
-def frame_times(dev, rng) -> callable:
-    """The K1/K8 timing of one variant → a function that prints it."""
+def frame_cells(dev, rng):
+    """The full-frame cells of the --frame group at 1920×1080 on the default
+    scene → (scene, cam, prev, cfg, hd, hs): the camera of frame 1 and the
+    one before it, and two seeded history channels on the previous frame's
+    object IDs."""
     scene = default_scene(device=dev)
     prev = Camera.create(loc=(3.0, 2.0, -3.0), orient=(0.0, 0.7), device=dev)
     cam = Camera.create(loc=(3.0, 2.0, -3.0), orient=(0.0, 0.701), device=dev)
@@ -352,7 +358,23 @@ def frame_times(dev, rng) -> callable:
                        cnt=torch.from_numpy(rng.integers(0, 17, (1080, 1920)).astype(np.float32)).to(dev),
                        oid=oid.clone())
 
-    hd, hs = channel(), channel()
+    return scene, cam, prev, cfg, channel(), channel()
+
+
+def k2_args(scene, cam, prev, cfg, hist) -> tuple:
+    """K2's arguments for one channel set of the split frame (the diffuse
+    anchor of K1's frame 1 on `cam`, K = 8) → reproject_set(*args)."""
+    from kylespathtracer_tpu_torch.render.camera import ray_dirs
+
+    ref = fk.frame_forward(scene, cam, 1, cfg)
+    hl = cam.loc + ray_dirs(cam, cfg.width, cfg.height, cfg.fov) * ref["depth"][..., None]
+    dyrel, dxrel, w4 = rk._queries(prev, hl, ref["oid"], cfg.fov, cfg.height, cfg.width)
+    return ref["oid"], dyrel, dxrel, w4, hist, 8
+
+
+def frame_times(dev, rng) -> callable:
+    """The K1/K8 timing of one variant → a function that prints it."""
+    scene, cam, prev, cfg, hd, hs = frame_cells(dev, rng)
     _, start, views = inverse.recovery_scenes(10, 5, device=dev)
     c_rec = RenderConfig(width=192, height=128, soft_shadows=0.05, pipeline="fused")
     f0 = inverse.SEED_BASE
@@ -458,36 +480,44 @@ def kernel_ms(fn, name: str, reps: int) -> float:
     return us / reps / 1e3
 
 
-def tree_times() -> dict:
-    """K7 and K4 of the checkout this process imports: with their wrappers
+def tree_times(group: str) -> dict:
+    """The kernels of `group` ("path": K7 and K4; "frame": K1, K8 and K2 at
+    full frame) of the checkout this process imports: with their wrappers
     (CUDA events) and alone (kernel_ms)."""
     dev = torch.device("cuda")
-    cells = path_cells(dev)
     t0 = time.perf_counter()
     _build.load()
-    out = {"build_s": time.perf_counter() - t0, "tree": str(Path(pk.__file__).resolve().parents[2])}
-    for key, fn, kernel, reps in (
-            ("k7", lambda: pk.pathtrace(*cells["k7"], 0), "path_kernel", 10),
-            ("k7_3", lambda: pk.pathtrace(*cells["k7_3"], 0), "path_kernel", 20),
-            ("k4", lambda: sk.dual_mis(*cells["k4"]), "shade_kernel", 20)):
-        out[key] = {"with_wrapper": cuda_ms(fn, reps=reps, warmup=2), "alone": kernel_ms(fn, kernel, reps)}
+    build_s = time.perf_counter() - t0
+    if group == "path":
+        cells = path_cells(dev)
+        jobs = (("K7 1920x1080", lambda: pk.pathtrace(*cells["k7"], 0), "path_kernel", 10),
+                ("K7 config 3", lambda: pk.pathtrace(*cells["k7_3"], 0), "path_kernel", 20),
+                ("K4 1920x1080", lambda: sk.dual_mis(*cells["k4"]), "shade_kernel", 20))
+    else:
+        scene, cam, prev, cfg, hd, hs = frame_cells(dev, np.random.default_rng(1))
+        k2 = k2_args(scene, cam, prev, cfg, hd)
+        jobs = (("K1 1920x1080", lambda: fk.frame_forward(scene, cam, 3, cfg), "frame_kernel", 20),
+                ("K8 1920x1080", lambda: fh.frame_hist(scene, cam, prev, hd, hs, 1, cfg), "frame_hist_kernel", 20),
+                ("K2 1920x1080", lambda: rk.reproject_set(*k2), "reproject_kernel", 50))
+    out = {"build_s": build_s, "tree": str(Path(pk.__file__).resolve().parents[2]), "times": {}}
+    for key, fn, kernel, reps in jobs:
+        out["times"][key] = {"with_wrapper": cuda_ms(fn, reps=reps, warmup=2), "alone": kernel_ms(fn, kernel, reps)}
     return out
 
 
-def turns(root: Path, card: str) -> None:
+def turns(root: Path, group: str, card: str) -> None:
     """tree_times of `root` and of this checkout in turns: root, this, this,
     root, each in a process of its own."""
     for tree in (root, ROOT, ROOT, root):
         env = dict(os.environ, PYTHONPATH=str(tree.resolve()))
-        proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--tree-times"], cwd=tree, env=env,
-                              capture_output=True, text=True)
+        proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), f"--{group}", "--tree-times"],
+                              cwd=tree, env=env, capture_output=True, text=True)
         if proc.returncode != 0:
             raise SystemExit(f"adjoint_variants: --tree-times in {tree} failed:\n{proc.stdout}\n{proc.stderr}")
         r = json.loads(proc.stdout.strip().splitlines()[-1])
         print(f"[turns {'parent' if tree == root else 'this'}] {r['tree']}: built in {r['build_s']:.1f} s; "
-              f"with wrapper / alone: K7 1920x1080 {r['k7']['with_wrapper']:.4f} / {r['k7']['alone']:.4f} ms, "
-              f"K7 config 3 {r['k7_3']['with_wrapper']:.4f} / {r['k7_3']['alone']:.4f} ms, K4 1920x1080 "
-              f"{r['k4']['with_wrapper']:.4f} / {r['k4']['alone']:.4f} ms [{card}]", flush=True)
+              "with wrapper / alone: " + ", ".join(f"{k} {v['with_wrapper']:.4f} / {v['alone']:.4f} ms"
+                                                   for k, v in r["times"].items()) + f" [{card}]", flush=True)
 
 
 def main() -> int:
@@ -496,16 +526,17 @@ def main() -> int:
     group_arg = ap.add_mutually_exclusive_group()
     group_arg.add_argument("--frame", action="store_true", help="the forward frame kernels K1 and K8")
     group_arg.add_argument("--path", action="store_true", help="the path kernel K7 and the shade kernel K4")
-    ap.add_argument("--turns", type=Path, help="with --path: time K7 and K4 of checkout ROOT and of this one in turns")
+    ap.add_argument("--turns", type=Path, help="with --path or --frame: time the group's kernels of checkout ROOT "
+                                               "and of this one in turns")
     ap.add_argument("--tree-times", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("variants", nargs="*", default=["committed"])
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("adjoint_variants: needs a CUDA device")
-    if args.tree_times:
-        print(json.dumps(tree_times()), flush=True)
-        return 0
     group = "frame" if args.frame else "path" if args.path else "adjoint"
+    if args.tree_times:
+        print(json.dumps(tree_times(group)), flush=True)
+        return 0
     kernels, others = GROUPS[group][2:]
     card = card_line()
     print(f"card {card}", flush=True)
@@ -514,7 +545,7 @@ def main() -> int:
     if group != "adjoint":
         sass_mix([src for _, src in kernels], args.parent)
     if args.turns:
-        turns(args.turns, card)
+        turns(args.turns, group, card)
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(1)

@@ -16,6 +16,11 @@ derivatives, hard visibility tests contribute zero, and
 `config.soft_shadows > 0` smooths the direct light's sphere occlusion.
 Only the tables that need a gradient are computed, and only the output
 planes that received a cotangent are read.
+
+Row mode (`row_base`/`rows`, the sharded trainer's, parallel/shard.py):
+the frame covers image rows [row_base, row_base+rows) with the full
+image's NDC and seeds, the cotangent planes are [rows, W], and the
+gradient is the tile's partial sum, which the trainer sums over the ranks.
 """
 
 from __future__ import annotations
@@ -26,8 +31,10 @@ from kylespathtracer_tpu_torch.ops import _build
 from kylespathtracer_tpu_torch.ops import frame_kernel as fk
 from kylespathtracer_tpu_torch.scene.types import Scene
 
-# Launches of the CUDA kernel by `frame_backward` in this process.
+# Launches of the CUDA kernel by `frame_backward` in this process, and the
+# row-mode launches among them.
 LAUNCHES = 0
+ROW_LAUNCHES = 0
 
 # Indices into the 20 small operands (frame_kernel.small_operands order)
 # that receive gradients: planes, spheres, boxes, light_color, light,
@@ -171,7 +178,8 @@ def leaf_grads(ops, leaves, grads) -> tuple:
     return tuple(by_k.get(k) for k in DIFF_IDX)
 
 
-def frame_backward_plain(scene: Scene, camera, frame, g: dict, config, needs=None):
+def frame_backward_plain(scene: Scene, camera, frame, g: dict, config, needs=None,
+                         row_base: int = 0, rows: int | None = None):
     """`frame_backward` as autograd through frame_kernel.frame_forward_plain
     (the plain version of K5) → DIFF_IDX-ordered gradients."""
     needs = needs_for(None) if needs is None else tuple(needs)
@@ -181,7 +189,7 @@ def frame_backward_plain(scene: Scene, camera, frame, g: dict, config, needs=Non
         return unpack_grads(scene, needs, torch.zeros(n, device=scene.device))
     ops, leaves = leaf_operands(scene, camera, frame, needs)
     with torch.enable_grad():
-        outs = fk.frame_planes(ops, scene, frame, config)
+        outs = fk.frame_planes(ops, scene, frame, config, row_base, rows)
         pairs = [(o, c) for o, c in zip(outs[:13], cot) if c is not None]
         grads = torch.autograd.grad(
             [o for o, _ in pairs], [ops[k] for k in leaves],
@@ -190,25 +198,29 @@ def frame_backward_plain(scene: Scene, camera, frame, g: dict, config, needs=Non
     return leaf_grads(ops, leaves, grads)
 
 
-def frame_backward(scene: Scene, camera, frame, g: dict, config, needs=None):
+def frame_backward(scene: Scene, camera, frame, g: dict, config, needs=None,
+                   row_base: int = 0, rows: int | None = None):
     """The vector-Jacobian product of the fused frame → tuple of gradients
     in DIFF_IDX order, each in its small operand's shape (None where
     `needs`, 14 flags, does not ask for it; all by default).
 
     `g` maps frame-dict keys to cotangents of the same shape; a missing or
-    None key is a plane the loss never touched, and is not read. The
-    scene's device picks the route: CUDA launches K5 (or raises), CPU runs
-    `frame_backward_plain`."""
-    global LAUNCHES
+    None key is a plane the loss never touched, and is not read. With
+    `rows`, the frame and the cotangents cover image rows [row_base,
+    row_base+rows) only. The scene's device picks the route: CUDA launches
+    K5 (or raises), CPU runs `frame_backward_plain`."""
+    global LAUNCHES, ROW_LAUNCHES
     fk.check_planes_for_biased(scene, config)
     device = scene.device
     needs = needs_for(None) if needs is None else tuple(needs)
     if device.type == "cpu":
-        return frame_backward_plain(scene, camera, frame, g, config, needs)
+        return frame_backward_plain(scene, camera, frame, g, config, needs, row_base, rows)
     if device.type != "cuda":
         raise ValueError(f"frame_backward: unsupported device {device}")
     counts, shading = fk.kernel_args(scene, camera, config)
-    H, W = config.height, config.width
+    H, W = (config.height if rows is None else int(rows)), config.width
+    if H < 1 or row_base < 0 or row_base + H > config.height:
+        raise ValueError(f"rows [{row_base}, {row_base + H}) outside the {config.height}-row image")
     cot = _present_planes(g)
     present = sum(1 << k for k, c in enumerate(cot) if c is not None)
     seeds = seed_indices(scene, needs, device)
@@ -221,11 +233,12 @@ def frame_backward(scene: Scene, camera, frame, g: dict, config, needs=None):
         ftab, itab = fk.pack_tables(scene, camera)
         err = _build.load().kpt_frame_backward(
             ftab.data_ptr(), itab.data_ptr(), seeds.data_ptr(), seeds.numel(),
-            *counts, fk._wrap32(int(frame)), *shading, planes.data_ptr(),
+            *counts, fk._wrap32(int(frame)), int(row_base), H, *shading, planes.data_ptr(),
             present, out_g.data_ptr(), torch.cuda.current_stream(device).cuda_stream,
         )
         _build.check(err, "kpt_frame_backward")
         LAUNCHES += 1
+        ROW_LAUNCHES += H != config.height
     return unpack_grads(scene, needs, out_g)
 
 
@@ -240,34 +253,39 @@ def _inputs(scene: Scene, camera) -> tuple:
 class FrameForward(torch.autograd.Function):
     """The fused frame with its recompute backward: forward is
     frame_kernel.frame_forward (K1), backward `frame_backward` (K5) for the
-    inputs that need a gradient and the output planes that received one."""
+    inputs that need a gradient and the output planes that received one,
+    over the same rows."""
 
     @staticmethod
-    def forward(ctx, scene, camera, frame, config, *tensors):
+    def forward(ctx, scene, camera, frame, config, row_base, rows, *tensors):
         ctx.set_materialize_grads(False)
         ctx.scene, ctx.camera, ctx.frame, ctx.config = scene, camera, frame, config
-        out = fk.frame_forward(scene, camera, frame, config)
+        ctx.row_base, ctx.rows = row_base, rows
+        out = fk.frame_forward(scene, camera, frame, config, row_base, rows)
         ctx.mark_non_differentiable(out["oid"])
         return tuple(out[k] for k in OUT_KEYS)
 
     @staticmethod
     def backward(ctx, *grads):
-        wanted = [n for n, need in zip(GRAD_NAMES, ctx.needs_input_grad[4:]) if need]
-        none = (None,) * (4 + len(GRAD_NAMES))
+        wanted = [n for n, need in zip(GRAD_NAMES, ctx.needs_input_grad[6:]) if need]
+        none = (None,) * (6 + len(GRAD_NAMES))
         if not wanted:
             return none
         g = dict(zip(OUT_KEYS[:6], grads[:6]))
         tables = frame_backward(ctx.scene, ctx.camera, ctx.frame, g, ctx.config,
-                                needs=needs_for(wanted))
+                                needs_for(wanted), ctx.row_base, ctx.rows)
         d_scene, d_camera = assemble_grads(ctx.scene, ctx.camera, tables,
                                            ctx.scene.light_index)
         d = {**d_scene, **d_camera}
-        return none[:4] + tuple(d[n] if n in wanted else None for n in GRAD_NAMES)
+        return none[:6] + tuple(d[n] if n in wanted else None for n in GRAD_NAMES)
 
 
-def frame_forward(scene: Scene, camera, frame, config) -> dict:
+def frame_forward(scene: Scene, camera, frame, config, row_base: int = 0,
+                  rows: int | None = None) -> dict:
     """Differentiable fused frame: the outputs of
-    frame_kernel.frame_forward, with gradients to the scene's and camera's
-    float tables through `FrameForward`."""
-    outs = FrameForward.apply(scene, camera, int(frame), config, *_inputs(scene, camera))
+    frame_kernel.frame_forward (over image rows [row_base, row_base+rows)
+    with `rows`), with gradients to the scene's and camera's float tables
+    through `FrameForward`."""
+    outs = FrameForward.apply(scene, camera, int(frame), config, int(row_base), rows,
+                              *_inputs(scene, camera))
     return dict(zip(OUT_KEYS, outs))

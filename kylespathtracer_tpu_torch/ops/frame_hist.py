@@ -1,7 +1,7 @@
 """The mono temporal frame: one CUDA kernel (K8) and its plain version.
 
-Port of kylespathtracer_tpu/ops/frame_hist.py (`temporal_fusion="mono"`),
-full-frame mode. The whole history-path frame in one pass:
+Port of kylespathtracer_tpu/ops/frame_hist.py (`temporal_fusion="mono"`).
+The whole history-path frame in one pass:
 
     raygen → intersect → normals → dual-MIS shade        (frame_block)
     → hit point + curvature-pushed specular anchor        (specular.frag:45-49)
@@ -16,12 +16,16 @@ normalizations guard with rsqrt(max(·, 1e-20)) and it divides fov by the
 denominator first, so the mono and the split frame part by association
 ulps, and a tap on a knife edge can flip between them.
 
-The JAX kernel's tile mode (`row_base`/`rows`/`hist_halo`, used by the
-sharded renderer) waits for ROADMAP Queue 1 #13.
+Tile mode (`row_base`/`rows`/`hist_halo`, the sharded renderer's,
+parallel/shard.py): the frame covers image rows [row_base, row_base+rows),
+with the full image's NDC, seeds and projection, and the history channels
+are the window of rows + 2·hist_halo rows around them that the halo
+exchange assembles.
 """
 
 from __future__ import annotations
 
+import math
 import warnings
 
 import torch
@@ -33,8 +37,10 @@ from kylespathtracer_tpu_torch.ops import reproject_kernel as rk
 from kylespathtracer_tpu_torch.ops import shade_kernel as sk
 from kylespathtracer_tpu_torch.render.passes import Channel
 
-# Launches of the CUDA kernel by `frame_hist` in this process.
+# Launches of the CUDA kernel by `frame_hist` in this process, and the
+# tile-mode launches among them.
 LAUNCHES = 0
+TILE_LAUNCHES = 0
 # How far a kernel's result dict may part from its plain version on the
 # same inputs, plane by plane (K8 here, K4's estimator pair too): the same
 # f32 math compiled differently flips a few decisions (a tap on a knife
@@ -46,13 +52,26 @@ FAR_SHARE = 1e-3
 OID_SHARE = 1e-3
 
 
+def auto_block_rows(config, rows: int | None = None, hist_halo: int = 0) -> int:
+    """The JAX kernel's row-block height when the caller gives none:
+    max(8, min(32, (65536 // (W·4)) & ~7)) rows (8 at 1920 wide, 32 at 64
+    wide). In tile mode, unlike the JAX code (which only caps it at `rows`,
+    and then may refuse its own choice), the largest multiple of 8 at most
+    that which divides both `rows` and `hist_halo`; 8 when none does, which
+    the tile checks then refuse."""
+    block_rows = max(8, min(32, (65536 // (config.width * 4)) & ~7))
+    if rows is None:
+        return block_rows
+    g = math.gcd(rows, hist_halo)
+    return next((b for b in range(min(block_rows, rows) // 8 * 8, 7, -8) if g % b == 0), 8)
+
+
 def window_k(config, block_rows: int | None = None) -> int:
     """The reprojection window K of the JAX kernel: its history halo is one
-    row block, so it clamps the window to the block height, whose auto
-    value is max(8, min(32, (65536 // (W·4)) & ~7)) rows (8 at 1920 wide,
-    32 at 64 wide), and warns when it clamps."""
+    row block, so it clamps the window to the block height (`block_rows`,
+    by default `auto_block_rows`), and warns when it clamps."""
     if block_rows is None:
-        block_rows = max(8, min(32, (65536 // (config.width * 4)) & ~7))
+        block_rows = auto_block_rows(config)
     if config.reproject_window > block_rows:
         warnings.warn(
             f"reproject window={config.reproject_window} exceeds the fused "
@@ -122,27 +141,47 @@ def _temporal_clamp_block(rgb, cnt, vv, temporal):
     return [c * scale for c in rgb], torch.where(over, limit, cnt)
 
 
-def _check_full_frame(row_base, rows, hist_halo) -> None:
-    if row_base != 0 or rows is not None or hist_halo != 0:
-        raise NotImplementedError(
-            "frame_hist: the tile mode (row_base/rows/hist_halo) waits for "
-            "the sharded renderer, ROADMAP Queue 1 #13")
+def tile_window_k(config, block_rows: int | None = None, row_base: int = 0,
+                  rows: int | None = None, hist_halo: int = 0) -> int:
+    """K for a frame over image rows [row_base, row_base+rows) (`rows` None:
+    the full frame) with a ±hist_halo history window, after the JAX
+    kernel's argument checks: in tile mode rows and hist_halo multiples of
+    the block height, hist_halo >= K (a smaller halo would let taps read
+    past the window), and the rows inside the image."""
+    if rows is None:
+        if row_base or hist_halo:
+            raise ValueError("frame_hist: row_base and hist_halo need rows (tile mode)")
+        return window_k(config, block_rows)
+    if block_rows is None:
+        block_rows = auto_block_rows(config, rows, hist_halo)
+    K = window_k(config, block_rows)
+    if rows % block_rows or hist_halo % block_rows:
+        raise ValueError(f"tile mode needs rows ({rows}) and hist_halo ({hist_halo}) "
+                         f"divisible by block_rows ({block_rows})")
+    if hist_halo < K:
+        raise ValueError(f"hist_halo ({hist_halo}) < reprojection window K ({K}): "
+                         "cross-tile taps would silently read wrong history rows")
+    if row_base < 0 or row_base + rows > config.height:
+        raise ValueError(f"rows [{row_base}, {row_base + rows}) outside the {config.height}-row image")
+    return K
 
 
 def _tap_sums(scene, camera, prev_camera, history_d: Channel, history_s: Channel, frame,
-              config, K: int):
-    """The frame's 14 planes, and each channel set's windowed tap sum before
-    the count floor → (planes, ((rgb_d, cnt_d), (rgb_s, cnt_s)), vv)."""
+              config, K: int, row_base: int = 0, rows: int | None = None, hist_halo: int = 0):
+    """The frame's 14 planes over image rows [row_base, row_base+rows), and
+    each channel set's windowed tap sum before the count floor →
+    (planes, ((rgb_d, cnt_d), (rgb_s, cnt_s)), vv)."""
     H, W = config.height, config.width
+    R = H if rows is None else rows
     ops = fk.small_operands(scene, camera, frame)
     sc = dict(zip(fk.SC_KEYS, ops[:17]))
     cam, orient = ops[17], ops[18]
-    outs = fk.frame_planes(ops, scene, frame, config)
+    outs = fk.frame_planes(ops, scene, frame, config, row_base, R)
     depth, curv, oid = outs[11], outs[12], outs[13]
 
     # Anchors: hit point for diffuse, curvature-pushed virtual-image point
     # for specular, on the frame's own primary rays.
-    px, py, ro, rd = fk._raygen((H, W), cam, orient, W, H, config.fov, 0, depth.device)
+    px, py, ro, rd = fk._raygen((R, W), cam, orient, W, H, config.fov, row_base, depth.device)
     hl = tuple(ro[k] + rd[k] * depth for k in range(3))
     lv = tuple(hl[k] - sc["light"][0, k] for k in range(3))
     light_dist = torch.sqrt(torch.clamp(sk._dot(lv, lv), min=1e-20))
@@ -157,21 +196,23 @@ def _tap_sums(scene, camera, prev_camera, history_d: Channel, history_s: Channel
 
     def taps(hist, anchor):
         dyrel, dxrel, w4 = _queries_block(anchor, prev_loc, basis, py, px, W, H, config.fov)
-        return rk.reproject_window_plain(oid, dyrel, dxrel, w4, hist, K)
+        return rk.reproject_window_plain(oid, dyrel, dxrel, w4, hist, K, H, row_base, hist_halo)
 
     return outs, (taps(history_d, hl), taps(history_s, sl)), vv
 
 
 def frame_hist_plain(scene, camera, prev_camera, history_d: Channel, history_s: Channel,
-                     frame, config, block_rows: int | None = None, row_base=0,
+                     frame, config, block_rows: int | None = None, row_base: int = 0,
                      rows: int | None = None, hist_halo: int = 0) -> dict:
     """The mono temporal frame as plain tensor ops, on the scene's device →
-    {"d_rgb", "s_rgb", "alb": f32[H,W,3]; "d_cnt", "s_cnt": f32[H,W];
-    "ene": f32[H,W,2]; "oid": i32[H,W]}. `block_rows` only sets K
-    (`window_k`)."""
-    _check_full_frame(row_base, rows, hist_halo)
-    K = window_k(config, block_rows)
-    outs, sums, vv = _tap_sums(scene, camera, prev_camera, history_d, history_s, frame, config, K)
+    {"d_rgb", "s_rgb", "alb": f32[R,W,3]; "d_cnt", "s_cnt": f32[R,W];
+    "ene": f32[R,W,2]; "oid": i32[R,W]} over image rows [row_base,
+    row_base+R), R = `rows` (tile mode) or the image's height; the history
+    channels hold R + 2·hist_halo rows. `block_rows` sets K and the tile
+    checks (`tile_window_k`)."""
+    K = tile_window_k(config, block_rows, row_base, rows, hist_halo)
+    outs, sums, vv = _tap_sums(scene, camera, prev_camera, history_d, history_s, frame, config, K,
+                               row_base, rows, hist_halo)
 
     def accumulate(rgb, cnt, add):
         # floor(cnt + 1e-4): exact counts survive f32 bilinear weights.
@@ -189,25 +230,26 @@ def frame_hist_plain(scene, camera, prev_camera, history_d: Channel, history_s: 
 
 
 def frame_hist(scene, camera, prev_camera, history_d: Channel, history_s: Channel,
-               frame, config, block_rows: int | None = None, row_base=0,
+               frame, config, block_rows: int | None = None, row_base: int = 0,
                rows: int | None = None, hist_halo: int = 0) -> dict:
-    """One mono temporal frame → the dict of `frame_hist_plain`. The scene's
-    device picks the route: CUDA launches the kernel (or raises), CPU runs
-    the plain version. Taps beyond K = `window_k(config, block_rows)` rows
-    or columns restart the history, as in the JAX kernel."""
-    _check_full_frame(row_base, rows, hist_halo)
+    """One mono temporal frame → the dict of `frame_hist_plain`, over the
+    same rows. The scene's device picks the route: CUDA launches the kernel
+    (or raises), CPU runs the plain version. Taps beyond
+    K = `tile_window_k(config, block_rows, ...)` rows or columns restart the
+    history, as in the JAX kernel."""
     fk.check_planes_for_biased(scene, config)
     if scene.device.type == "cpu":
         return frame_hist_plain(scene, camera, prev_camera, history_d, history_s, frame, config,
-                                block_rows)
+                                block_rows, row_base, rows, hist_halo)
     launch, out = frame_hist_launch(scene, camera, prev_camera, history_d, history_s, frame, config,
-                                    block_rows)
+                                    block_rows, row_base, rows, hist_halo)
     launch()
     return out
 
 
 def frame_hist_launch(scene, camera, prev_camera, history_d: Channel, history_s: Channel,
-                      frame, config, block_rows: int | None = None):
+                      frame, config, block_rows: int | None = None, row_base: int = 0,
+                      rows: int | None = None, hist_halo: int = 0):
     """`frame_hist`'s CUDA route in two steps → (launch, out): the arguments
     are checked and the result dict allocated here; launch() launches K8
     once into it and counts it. chip_smoke.py and ops/adjoint_variants.py
@@ -216,13 +258,15 @@ def frame_hist_launch(scene, camera, prev_camera, history_d: Channel, history_s:
     device = scene.device
     if device.type != "cuda":
         raise ValueError(f"frame_hist: unsupported device {device}")
-    K = window_k(config, block_rows)
-    (nP, nS, nB, nK, W, H, fov), shading = fk.kernel_args(scene, camera, config)
+    K = tile_window_k(config, block_rows, row_base, rows, hist_halo)
+    (nP, nS, nB, nK, W, height, fov), shading = fk.kernel_args(scene, camera, config)
+    H = height if rows is None else int(rows)
+    tile = rows is not None
     f32, i32 = torch.float32, torch.int32
     for name, ch in (("history_d", history_d), ("history_s", history_s)):
-        _build.check_tensor(f"{name}.rgb", ch.rgb, f32, (H, W, 3), device)
-        _build.check_tensor(f"{name}.cnt", ch.cnt, f32, (H, W), device)
-        _build.check_tensor(f"{name}.oid", ch.oid, i32, (H, W), device)
+        _build.check_tensor(f"{name}.rgb", ch.rgb, f32, (H + 2 * hist_halo, W, 3), device)
+        _build.check_tensor(f"{name}.cnt", ch.cnt, f32, (H + 2 * hist_halo, W), device)
+        _build.check_tensor(f"{name}.oid", ch.oid, i32, (H + 2 * hist_halo, W), device)
     for name, t, n in (("prev_camera.loc", prev_camera.loc, 3), ("prev_camera.orient", prev_camera.orient, 2)):
         _build.check_tensor(name, t, f32, (n,), device)
     parts = fk.table_parts(scene, camera)
@@ -233,11 +277,12 @@ def frame_hist_launch(scene, camera, prev_camera, history_d: Channel, history_s:
     stream = torch.cuda.current_stream(device).cuda_stream
 
     def launch():
-        global LAUNCHES
+        global LAUNCHES, TILE_LAUNCHES
         err = _build.load().kpt_frame_hist(
             fk.table_parts_struct(*parts), prev_camera.loc.data_ptr(),
-            prev_camera.orient.data_ptr(), nP, nS, nB, nK, W, H, fov,
-            fk._wrap32(int(frame)), *shading, int(K), 1.0 / (float(W) / float(H)), T, T * 2.0, T - 1.0,
+            prev_camera.orient.data_ptr(), nP, nS, nB, nK, W, height, fov,
+            fk._wrap32(int(frame)), *shading, int(K), 1.0 / (float(W) / float(height)), T, T * 2.0, T - 1.0,
+            int(row_base), H, int(row_base - hist_halo),
             history_d.rgb.data_ptr(), history_d.cnt.data_ptr(), history_d.oid.data_ptr(),
             history_s.rgb.data_ptr(), history_s.cnt.data_ptr(), history_s.oid.data_ptr(),
             *(out[k].data_ptr() for k in ("d_rgb", "d_cnt", "s_rgb", "s_cnt", "alb", "ene", "oid")),
@@ -245,6 +290,7 @@ def frame_hist_launch(scene, camera, prev_camera, history_d: Channel, history_s:
         )
         _build.check(err, "kpt_frame_hist")
         LAUNCHES += 1
+        TILE_LAUNCHES += tile
 
     return launch, out
 

@@ -21,8 +21,10 @@ from kylespathtracer_tpu_torch.ops import _build
 from kylespathtracer_tpu_torch.ops import shade_kernel as sk
 from kylespathtracer_tpu_torch.scene.types import Scene
 
-# Launches of the CUDA kernel by `frame_forward` in this process.
+# Launches of the CUDA kernel by `frame_forward` in this process, and the
+# row-mode launches (fewer rows than the image) among them.
 LAUNCHES = 0
+ROW_LAUNCHES = 0
 # csrc/shade_core.cuh MAX_PLANES: the roulette keeps one direction per plane.
 MAX_PLANES = 8
 
@@ -502,12 +504,13 @@ def frame_launch(scene: Scene, camera, frame, config, row_base: int = 0,
     stream = torch.cuda.current_stream(device).cuda_stream
 
     def launch():
-        global LAUNCHES
+        global LAUNCHES, ROW_LAUNCHES
         err = _build.load().kpt_frame_forward(
             table_parts_struct(*parts), nP, nS, nB, nK, W, height, fov,
             _wrap32(int(frame)), int(row_base), H, *shading, planes, stream,
         )
         _build.check(err, "kpt_frame_forward")
         LAUNCHES += 1
+        ROW_LAUNCHES += H != height
 
     return launch, out

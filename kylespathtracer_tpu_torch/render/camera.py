@@ -47,12 +47,19 @@ def camera_from_numpy(tree: dict, device=DEFAULT_DEVICE) -> Camera:
     )
 
 
-def ndc_grid(width: int, height: int, device=DEFAULT_DEVICE) -> torch.Tensor:
-    """Aspect-scaled NDC coords of pixel centers; f32[H, W, 2]."""
+def ndc_grid(width: int, height: int, device=DEFAULT_DEVICE, row0: int = 0,
+             rows: int | None = None) -> torch.Tensor:
+    """Aspect-scaled NDC coords of the pixel centers of image rows
+    [row0, row0+rows) (all rows by default); f32[rows, W, 2]. The divisors
+    are tensors on the device: on the card torch divides by a Python scalar
+    as a multiply by its reciprocal, an ulp off the true quotient that the
+    kernels compute."""
     asp = width / height
+    rows = height if rows is None else rows
     ar = lambda n: torch.arange(n, dtype=torch.float32, device=device)
-    x = (2.0 * (ar(width) + 0.5) / width - 1.0) * asp
-    y = 2.0 * (ar(height) + 0.5) / height - 1.0
+    div = lambda n: torch.tensor(float(n), dtype=torch.float32, device=device)
+    x = (2.0 * (ar(width) + 0.5) / div(width) - 1.0) * asp
+    y = 2.0 * (row0 + ar(rows) + 0.5) / div(height) - 1.0
     gy, gx = torch.meshgrid(y, x, indexing="ij")
     return torch.stack([gx, gy], dim=-1)
 
@@ -61,7 +68,15 @@ def ray_dirs(camera: Camera, width: int, height: int, fov: float = gmath.FOV
              ) -> torch.Tensor:
     """Primary ray directions f32[H, W, 3]:
     rd = rotateXY(normalize(vec3(ndca, FOV)), orient) (geometry.frag:67)."""
-    ndca = ndc_grid(width, height, camera.orient.device)
+    return ray_dirs_window(camera, width, height, 0, height, fov)
+
+
+def ray_dirs_window(camera: Camera, width: int, height: int, row0: int, rows: int,
+                    fov: float = gmath.FOV) -> torch.Tensor:
+    """Ray directions f32[rows, W, 3] of image rows [row0, row0+rows) of a
+    height-row image (a tile of the sharded renderer), bitwise the matching
+    rows of `ray_dirs`."""
+    ndca = ndc_grid(width, height, camera.orient.device, row0, rows)
     d = torch.cat([ndca, torch.full_like(ndca[..., :1], fov)], dim=-1)
     return gmath.rotate_xy(gmath.normalize_fast(d), camera.orient)
 

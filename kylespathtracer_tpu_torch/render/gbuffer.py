@@ -36,14 +36,17 @@ def use_tetra_normals(config) -> bool:
     return config.normal_mode == "tetra"
 
 
-def geometry_pass(scene: Scene, camera: cam_mod.Camera, config) -> GBuffer:
+def geometry_pass(scene: Scene, camera: cam_mod.Camera, config, row0: int = 0,
+                  rows: int | None = None) -> GBuffer:
     """Primary intersection + analytic normals and curvature at the hits
-    (reference: geometry.frag:66-72), on the scene's device."""
+    (reference: geometry.frag:66-72), on the scene's device; of image rows
+    [row0, row0+rows) with `rows` (a tile of the sharded renderer)."""
     if config.intersect_mode != "analytic" or use_tetra_normals(config):
         raise NotImplementedError(
             "geometry_pass: intersect_mode='march' and tetrahedron normals "
             "need scene/sdf.py, which waits for ROADMAP Queue 1 #11")
-    rd = cam_mod.ray_dirs(camera, config.width, config.height, config.fov)
+    rd = cam_mod.ray_dirs_window(camera, config.width, config.height, row0,
+                                 config.height if rows is None else rows, config.fov)
     ro = camera.loc.expand(rd.shape)
     t, oid = isect.intersect(scene, ro, rd, -1, config.steps)
     hl = ro + rd * t[..., None]

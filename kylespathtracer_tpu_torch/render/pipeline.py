@@ -189,12 +189,21 @@ def split_temporal_frame(
     prev_hist: History,
     frame,
     config,
-    rd: torch.Tensor,  # primary ray dirs f32[H,W,3] (normalize_fast)
+    rd: torch.Tensor,  # primary ray dirs f32[rows,W,3] (normalize_fast)
+    row_base: int = 0,
+    rows: int | None = None,
+    hist_halo: int = 0,
 ):
     """Frame kernel + one windowed reprojection per channel set + count
-    floor / velocity clamp / accumulate + ACES composite (full frame)."""
+    floor / velocity clamp / accumulate + ACES composite.
+
+    One body for the full frame (`rows` None) and the sharded renderer's
+    tile (parallel/shard.py): image rows [row_base, row_base+rows), with a
+    history window of rows + 2·hist_halo rows from the halo exchange, K1 in
+    row mode and K2 in tile mode."""
+    tile = rows is not None
     with record_function("frame.k1"):
-        out = fk.frame_forward(scene, camera, frame, config)
+        out = fk.frame_forward(scene, camera, frame, config, row_base, rows)
     with record_function("frame.anchors"):
         hl, sl = _anchors(scene, camera, rd, out)
         vv = gmath.length(camera.loc - prev_hist.camera.loc)
@@ -203,6 +212,8 @@ def split_temporal_frame(
             prev_hist.camera, hl, sl, out["oid"],
             prev_hist.diffuse, prev_hist.specular, config.fov,
             window=config.reproject_window,
+            image_height=config.height if tile else None,
+            row_base=row_base, hist_halo=hist_halo,
         )
 
     with record_function("frame.tail"):

@@ -58,18 +58,30 @@ def reproject(
     prev_cnt: torch.Tensor,     # f32[H,W]
     prev_id: torch.Tensor,      # i32[H,W]
     fov: float = gmath.FOV,
+    image_size: tuple[int, int] | None = None,
+    buffer_row0: int = 0,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """→ (rgb[...,3], cnt[...]): the history carried to this frame by an
-    exact bilinear 2×2 gather with per-tap object-ID rejection, any motion."""
-    H, W = prev_cnt.shape
+    exact bilinear 2×2 gather with per-tap object-ID rejection, any motion.
+
+    The query points may cover only a row window of the image (a tile);
+    `image_size` (H, W) fixes the NDC→pixel mapping (default: the history's
+    shape). The history may also be a row window (a tile plus its halo
+    rows, parallel/shard.py) whose first row is image row `buffer_row0`;
+    taps outside the window carry zero weight, so the history restarts
+    there as at an off-screen tap (common.glsl:673-674)."""
+    H, W = prev_cnt.shape if image_size is None else image_size
+    window = prev_cnt.shape[0]
     iuv, duv, inside = reproject_query(prev_loc, prev_orient, hl, fov, (H, W))
 
     def tap(dx, dy):
         xs = iuv[..., 0] + dx
-        ys = iuv[..., 1] + dy
+        ys = iuv[..., 1] + dy  # image row
         inb = (xs >= 0) & (xs < W) & (ys >= 0) & (ys < H)
+        yl = ys - buffer_row0  # row of the history window
+        inb = inb & (yl >= 0) & (yl < window)
         x = xs.clamp(0, W - 1).long()
-        y = ys.clamp(0, H - 1).long()
+        y = yl.clamp(0, window - 1).long()
         m = ((prev_id[y, x] == ho) & inb & inside).to(hl.dtype)
         return prev_rgb[y, x] * m[..., None], prev_cnt[y, x] * m
 

@@ -197,3 +197,72 @@ def pass_pan_matches_jax(kw: dict, width: int = 32, height: int = 16) -> None:
             np.testing.assert_array_equal(np_(a.oid), np.asarray(b.oid))
     top = np_(hist_t.diffuse.cnt).max()
     assert top == 1.0 if cfg.no_history else top > 2, "history not carried"
+
+
+def _stitch(parts: list):
+    """Tiles' History objects stacked by rows in order → one History."""
+    from kylespathtracer_tpu_torch.render.passes import Channel
+    from kylespathtracer_tpu_torch.render.pipeline import History
+    import torch
+
+    def cat(get):
+        return torch.cat([get(h) for h in parts])
+
+    return History(
+        diffuse=Channel(cat(lambda h: h.diffuse.rgb), cat(lambda h: h.diffuse.cnt), cat(lambda h: h.diffuse.oid)),
+        specular=Channel(cat(lambda h: h.specular.rgb), cat(lambda h: h.specular.cnt),
+                         cat(lambda h: h.specular.oid)),
+        camera=parts[0].camera)
+
+
+def render_tiles(scene, camera, hist, frame, config, n: int, halo_rows: int = 8):
+    """The n tiles of `parallel.shard.render_frame_tiled`, one at a time in
+    this process, each on the window `shard.tile_window` cuts from the
+    whole (port) history → the stitched (image, History)."""
+    import torch
+
+    from kylespathtracer_tpu_torch.parallel import shard
+
+    rows = config.height // n
+    halo = min(halo_rows, rows) if n > 1 else 0
+    outs = [shard._render_row_block(scene, camera, shard.tile_window(hist, r * rows, rows, halo), frame, config,
+                                    r * rows, rows, buffer_row0=r * rows - halo, halo=halo) for r in range(n)]
+    return torch.cat([o[0] for o in outs]), _stitch([o[1] for o in outs])
+
+
+def seeded_channel(oid, seed: int):
+    """A port Channel with numpy-seeded rgb in [0, 2) and integer counts in
+    [0, 16] on the object IDs `oid` (a torch i32[rows, W])."""
+    import torch
+
+    from kylespathtracer_tpu_torch.render.passes import Channel
+
+    r = np.random.default_rng(seed)
+    rows, width = oid.shape
+    return Channel(rgb=torch.from_numpy(r.uniform(0.0, 2.0, (rows, width, 3)).astype(np.float32)),
+                   cnt=torch.from_numpy(r.integers(0, 17, (rows, width)).astype(np.float32)),
+                   oid=oid.clone())
+
+
+def jax_channel(ch):
+    """A port Channel as a JAX Channel."""
+    import jax.numpy as jnp
+
+    from kylespathtracer_tpu.render.passes import Channel
+
+    return Channel(rgb=jnp.asarray(np_(ch.rgb)), cnt=jnp.asarray(np_(ch.cnt)), oid=jnp.asarray(np_(ch.oid)))
+
+
+def frame_anchors(cam_j, width: int, height: int, row0: int, rows: int):
+    """(hit points f32[rows,W,3], oid i32[rows,W]) of image rows [row0,
+    row0+rows) of the default scene seen by the JAX camera `cam_j`, through
+    the port's plain frame (torch, on the CPU)."""
+    from kylespathtracer_tpu_torch.ops import frame_kernel as fk
+    from kylespathtracer_tpu_torch.render.camera import ray_dirs_window
+    from kylespathtracer_tpu_torch.scene.scene import default_scene
+    from kylespathtracer_tpu_torch.utils.config import RenderConfig
+
+    cam = to_torch_camera(cam_j)
+    cfg = RenderConfig(width=width, height=height, pipeline="fused")
+    out = fk.frame_forward_plain(default_scene(device="cpu"), cam, 3, cfg, row0, rows)
+    return cam.loc + ray_dirs_window(cam, width, height, row0, rows, cfg.fov) * out["depth"][..., None], out["oid"]

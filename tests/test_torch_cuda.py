@@ -539,3 +539,113 @@ def test_path_and_shade_wrappers_pack_no_tables(dev):
         names = [(e.device_type, e.name) for e in prof.events()]
         assert any(t == DeviceType.CUDA and kernel in n for t, n in names), f"{kernel} did not launch"
         assert not any("cat" in n for t, n in names if t == DeviceType.CPU), f"{kernel}'s wrapper packs tables"
+
+
+# The tile modes that the sharded renderer and trainer run (parallel/shard.py):
+# K2's and K8's over image rows [32, 64) of a 160×96 image against an 8-row
+# history halo, K5's over rows [40, 88) of 256×128; each against its plain
+# version, with its launch counted as a tile launch.
+def _halo_window(ch: Channel, row0: int, rows: int, halo: int) -> Channel:
+    from kylespathtracer_tpu_torch.parallel import shard
+
+    return shard.tile_window(pipeline.History(ch, ch, None), row0, rows, halo).diffuse
+
+
+def test_reproject_tile_kernel_matches_plain(dev):
+    H, W, row0, rows, halo = 96, 160, 32, 32, 8
+    g = torch.Generator().manual_seed(1)
+    rng = np.random.default_rng(1)
+    ho = torch.from_numpy(rng.integers(0, 4, (rows, W)).astype(np.int32)).to(dev)
+    dy = torch.from_numpy(rng.integers(-5, 5, (rows, W)).astype(np.int32)).to(dev)
+    dx = torch.from_numpy(rng.integers(-5, 5, (rows, W)).astype(np.int32)).to(dev)
+    w4 = tuple((torch.rand((rows, W), generator=g) * 1.6 - 0.3).to(dev) for _ in range(4))
+    prev = _halo_window(Channel(
+        rgb=torch.rand((H, W, 3), generator=g).to(dev),
+        cnt=torch.randint(0, 17, (H, W), generator=g).float().to(dev),
+        oid=torch.from_numpy(rng.integers(0, 4, (H, W)).astype(np.int32)).to(dev)), row0, rows, halo)
+    before = (rk.LAUNCHES, rk.TILE_LAUNCHES)
+    rgb, cnt = rk.reproject_set(ho, dy, dx, w4, prev, 4, H, row0, halo)
+    torch.cuda.synchronize()
+    assert (rk.LAUNCHES, rk.TILE_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    rgb_p, cnt_p = rk.reproject_window_plain(ho, dy, dx, w4, prev, 4, H, row0, halo)
+    torch.testing.assert_close(rgb, rgb_p, atol=1e-5, rtol=0)
+    torch.testing.assert_close(cnt, cnt_p, atol=1e-4, rtol=0)
+    assert cnt.max() > 0
+
+
+def test_mono_tile_kernel_matches_plain(dev):
+    """K8's tile mode against its plain version (frame_hist.check_agreement),
+    and bitwise the full-frame kernel's rows on the same history."""
+    scene = default_scene(device=dev)
+    cfg = RenderConfig(width=160, height=96, pipeline="fused", temporal_fusion="mono")
+    prev = Camera.create(loc=(3.0, 2.0, -3.0), orient=(0.0, 0.7), device=dev)
+    cam = Camera.create(loc=(3.001, 1.999, -3.0), orient=(-0.01, 0.702), device=dev)
+    oid = fk.frame_forward(scene, prev, 0, cfg)["oid"]
+    hd, hs = _seeded_history(oid, 1), _seeded_history(oid, 2)
+    wd, ws = _halo_window(hd, 32, 32, 8), _halo_window(hs, 32, 32, 8)
+    tile = dict(block_rows=8, row_base=32, rows=32, hist_halo=8)
+    before = (fh.LAUNCHES, fh.TILE_LAUNCHES)
+    out = fh.frame_hist(scene, cam, prev, wd, ws, 1, cfg, **tile)
+    torch.cuda.synchronize()
+    assert (fh.LAUNCHES, fh.TILE_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    fh.check_agreement(out, fh.frame_hist_plain(scene, cam, prev, wd, ws, 1, cfg, **tile), "K8 tile")
+    full = fh.frame_hist(scene, cam, prev, hd, hs, 1, cfg, block_rows=8)
+    for k, v in out.items():
+        assert torch.equal(v, full[k][32:64]), k
+
+
+def test_backward_rows_kernel_matches_plain(dev):
+    scene, cam, cfg = _grad_case(dev, "default_hard")
+    out = fk.frame_forward(scene, cam, 3, cfg, row_base=40, rows=48)
+    g = {k: _randn(out[k].shape, dev, i) for i, k in enumerate(fg.OUT_KEYS[:6])}
+    before = (fg.LAUNCHES, fg.ROW_LAUNCHES)
+    got = fg.frame_backward(scene, cam, 3, g, cfg, row_base=40, rows=48)
+    torch.cuda.synchronize()
+    assert (fg.LAUNCHES, fg.ROW_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    _tables_agree(got, fg.frame_backward_plain(scene, cam, 3, g, cfg, row_base=40, rows=48))
+
+
+@pytest.mark.parametrize("fusion", ["split", "mono"])
+def test_tiles_on_card_match_unsharded_frame(dev, fusion):
+    """Four 16-row tiles of `_render_row_block` on the card (K1 row + K2
+    tile, or K8 tile), stitched, against `render_frame` on the card over two
+    pan frames: bitwise expected, held at the JAX package's bars."""
+    import warnings
+
+    from _torch_helpers import render_tiles
+
+    scene = default_scene(device=dev)
+    cfg = RenderConfig(width=128, height=64, pipeline="fused", temporal_fusion=fusion)
+    cam = Camera.create(loc=(3.0, 2.0, -3.0), orient=(0.0, 0.7), device=dev)
+    hist_r = hist_t = pipeline.init_history(cfg, cam)
+    for i in range(2):
+        cam = Camera(loc=cam.loc, orient=cam.orient + torch.tensor([-0.01, 2e-3], device=dev))
+        img_r, hist_r = pipeline.render_frame(scene, cam, hist_r, i, cfg)
+        with warnings.catch_warnings():
+            warnings.filterwarnings("error", message="fused tiled path")
+            img_t, hist_t = render_tiles(scene, cam, hist_t, i, cfg, 4)
+        torch.testing.assert_close(img_t, img_r, atol=1e-5, rtol=0)
+        torch.testing.assert_close(hist_t.diffuse.cnt, hist_r.diffuse.cnt, atol=1e-4, rtol=0)
+        torch.testing.assert_close(hist_t.specular.rgb, hist_r.specular.rgb, atol=1e-4, rtol=0)
+        assert torch.equal(hist_t.diffuse.oid, hist_r.diffuse.oid)
+
+
+def test_train_tiles_on_card_match_unsharded(dev):
+    """Two tiles' loss and gradient on the card (K1 and K5 in row mode)
+    against `inverse.loss_fn`'s through the whole frame (K1, K5)."""
+    from kylespathtracer_tpu_torch.parallel import shard
+
+    scene, cam, cfg = _grad_case(dev, "spheres_soft_smp2", 128, 64)
+    cfg = dataclasses.replace(cfg, pipeline="fused")
+    target = _randn((64, 128, 3), dev).sigmoid()
+    params = inverse.extract_params(scene)
+    p = {k: v.detach().requires_grad_() for k, v in params.items()}
+    loss = inverse.loss_fn(p, scene, cam, target, 3, cfg)
+    grads = torch.autograd.grad(loss, list(p.values()))
+    before = fg.ROW_LAUNCHES
+    tiles = [shard.tile_loss_and_grad(params, scene, cam, target[r:r + 32], 3, cfg, r, 32) for r in (0, 32)]
+    assert fg.ROW_LAUNCHES == before + 2
+    torch.testing.assert_close(tiles[0][0] + tiles[1][0], loss.detach(), rtol=1e-5, atol=0)
+    for k, gk in zip(p, grads):
+        torch.testing.assert_close(tiles[0][1][k] + tiles[1][1][k], gk, rtol=0,
+                                   atol=1e-4 * gk.abs().max().item())

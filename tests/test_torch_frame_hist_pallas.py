@@ -2,7 +2,7 @@
 version (`frame_hist_plain`, which the wrapper `frame_hist` runs on CPU
 tensors) against the JAX kernel `frame_hist_pallas(..., block_rows=8,
 interpret=True)`, K's clamp to the block height, and the tile mode's
-refusal; tests/test_torch_mono.py holds `render_frame` with
+rows against the full frame's; tests/test_torch_mono.py holds `render_frame` with
 `temporal_fusion="mono"` against the JAX package's.
 
 The kernel case follows tests/test_pallas_small.py's
@@ -113,10 +113,21 @@ def test_window_clamps_to_the_block_height():
 
 
 def test_tile_mode_waits_for_sharding():
+    """The tile mode that the sharded renderer runs (it waited for
+    parallel/shard.py, which now drives it): rows [8, 16) against an 8-row
+    history halo cut from the whole history are bitwise the full frame's
+    rows; tests/test_torch_shard_kernels.py holds it against the JAX
+    kernel's tile mode."""
+    from kylespathtracer_tpu_torch.parallel import shard
+
     scene = sphere_case()
     cfg = to_torch_config(RenderConfig(width=W, height=H))
-    cam = pan_cameras(0)[0]
-    h = to_torch_history(history_at(scene, cam, RenderConfig(width=W, height=H)))
-    with pytest.raises(NotImplementedError, match="#13"):
-        fh.frame_hist(to_torch_scene(scene), to_torch_camera(cam), h.camera, h.diffuse,
-                      h.specular, 0, cfg, row_base=8, rows=8, hist_halo=8)
+    prev_cam, cam = pan_cameras(1)
+    h = to_torch_history(history_at(scene, prev_cam, RenderConfig(width=W, height=H)))
+    args = (to_torch_scene(scene), to_torch_camera(cam), h.camera)
+    win = shard.tile_window(h, 8, 8, 8)
+    tile = fh.frame_hist(*args, win.diffuse, win.specular, 1, cfg, block_rows=8, row_base=8, rows=8,
+                         hist_halo=8)
+    full = fh.frame_hist(*args, h.diffuse, h.specular, 1, cfg, block_rows=8)
+    for k in KEYS + ("oid",):
+        np.testing.assert_array_equal(np_(tile[k]), np_(full[k])[8:16], err_msg=k)
