@@ -41,7 +41,20 @@ it and read just after:
   and the frame's time per rank and end to end (phase 23). Three ranks on
   one card share it: their times are no scaling figure. The `kernels`
   line's launches of the four tile and row modes are phase 23's, counted
-  on each rank and summed over the ranks.
+  on each rank and summed over the ranks;
+- the op-mix probe (`bench_ceiling.sweep`, the entry point of
+  `python -m kylespathtracer_tpu_torch.bench_ceiling`, K9): every variant of
+  its sweep held bitwise to its plain version at 64×1920, infinities and
+  NaN in place (both sides round each IEEE operation on its own), then the
+  sweep at 1080×1920 with each variant's output held bitwise to its plain
+  version there too, and its fma probe of one round per chain on the
+  probe's planes (half its steps finite) and on +inf planes (phase 24).
+  K9's `ms` in the `kernels` line is one `mix` call with its wrapper, as
+  every entry's is; the sweep's launch slope is logged. Every entry's
+  `bound_measured_ms` is its operations at the sweep's best frame_mix
+  rate (or its bytes at the memory rate, the larger): a reference for the
+  frame kernels' own mix, not a ceiling. Each kernel's time is logged over
+  `bound_ms` (67 Top/s), the rate without FMA and the frame_mix rates.
 
 Gradient tables are held to max|Δ| <= 1e-4·max|ref| of their plain
 versions: K5 and K6 at 256×128 with every pixel (phases 8-9), K6 (mean) at
@@ -133,17 +146,11 @@ F32_FLOPS = 67e12
 HBM_BYTES = 3.35e12
 
 
-def sm_clock_mhz() -> float:
-    """The card's maximum SM clock (MHz), as nvidia-smi gives it."""
-    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
-                         capture_output=True, text=True, check=True, timeout=60)
-    return float(out.stdout.strip().splitlines()[0])
-
-
-def bound(flops: float, nbytes: float) -> tuple[float, str]:
+def bound(flops: float, nbytes: float, rate: float = F32_FLOPS) -> tuple[float, str]:
     """The least time (ms) the card could take: the larger of the operations
-    over the f32 peak and the bytes over the memory rate, and which it is."""
-    t_ops, t_mem = flops / F32_FLOPS * 1e3, nbytes / HBM_BYTES * 1e3
+    over `rate` (default the f32 peak) and the bytes over the memory rate,
+    and which it is."""
+    t_ops, t_mem = flops / rate * 1e3, nbytes / HBM_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_mem else (t_mem, "bytes")
 
 
@@ -707,9 +714,11 @@ def main() -> int:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; this smoke run needs a GPU")
 
+    from kylespathtracer_tpu_torch import bench_ceiling
     from kylespathtracer_tpu_torch.app import cli, driver
     from kylespathtracer_tpu_torch.diff import inverse
     from kylespathtracer_tpu_torch.ops import _build
+    from kylespathtracer_tpu_torch.ops import ceiling_kernel as ck
     from kylespathtracer_tpu_torch.ops import frame_grad as fg
     from kylespathtracer_tpu_torch.ops import frame_hist as fh
     from kylespathtracer_tpu_torch.ops import frame_kernel as fk
@@ -749,6 +758,9 @@ def main() -> int:
         ("K4", "shade_kernel.cu"), ("K5", "frame_grad.cu"), ("K6", "loss_kernel.cu"))}
     for label, line in ptxas.items():
         log(f"  ptxas {label}: {line}")
+    k9_resources = bench_ceiling.ptxas_by_variant(report.getvalue())
+    for variant in ck.KERNEL_VARIANTS:
+        log(f"  ptxas K9 {variant}: {k9_resources[variant]}")
 
     def camera(yaw_step=0, device=dev):
         return Camera.create(
@@ -1549,59 +1561,111 @@ def main() -> int:
                                         ("frame_hist tile", ("mono",)), ("backward rows", ("train",)))}
     log(f"  tile-mode launches summed over the {TILES} ranks: {rank_launches}")
 
-    # Bounds, from this run's inputs (frame_ops, bound).
+    # Phase 24: the op-mix probe (K9), every variant against its plain
+    # version at 64x1920, then its sweep at 1080x1920 through bench_ceiling,
+    # each variant's output held to its plain version there too.
+    log("phase 24: op-mix probe (K9) vs plain at 64x1920 for every variant, bitwise, on the probe's planes and on "
+        f"numpy-seeded planes in [-2, 2), then the sweep at {ck.W}x{ck.H}, each output bitwise its plain version")
+    rng9 = np.random.default_rng(9)
+    planes9 = {"probe's planes": bench_ceiling.inputs(dev, 64, W),
+               "seeded planes": [torch.from_numpy(rng9.uniform(-2, 2, (64, W)).astype(np.float32)).to(dev)
+                                 for _ in range(2)]}
+    for variant in ck.KERNEL_VARIANTS:
+        for what, (x_s, y_s) in planes9.items():
+            got, ref9 = ck.mix(x_s, y_s, *variant), ck.mix_plain(x_s, y_s, *variant)
+            torch.cuda.synchronize()
+            off = ck.differing(got, ref9)
+            finite = torch.isfinite(ref9)
+            log(f"  K9 {variant}, {what}: {off} of {ref9.numel()} differ (NaN equal to NaN); "
+                f"{finite.float().mean().item():.4f} finite, {torch.isnan(ref9).float().mean().item():.4f} NaN, "
+                f"range [{ref9.min().item():.4g}, {ref9.max().item():.4g}]")
+            if off:
+                raise AssertionError(f"K9 {variant} is not bitwise its plain version on the {what}: {off} differ")
+    x_f, y_f = bench_ceiling.inputs(dev)
+    ck.LAUNCHES = 0
+    k9_sweep, k9_outs = bench_ceiling.sweep(dev, planes=(x_f, y_f))
+    torch.cuda.synchronize()
+    k9_launches = ck.LAUNCHES
+    k9_err = bench_ceiling.check(k9_outs, (x_f, y_f))
+    del k9_outs
+    log(f"  the sweep's {len(k9_sweep)} outputs at {ck.W}x{ck.H} bitwise their plain versions (max |diff| over the "
+        f"finite elements {k9_err})")
+    for r in k9_sweep:
+        variant = (r["template"], r["iters"], r["chains"], r["live_planes"])
+        log(f"  K9 {variant}: {r['teraops']:.4f} Top/s, {r['ms']:.4f} ms a launch; totals {r['timing']['totals_ms']} "
+            f"ms over K {r['timing']['ks']}, linear {r['timing']['linear_ok']}; {k9_resources[variant]} [{card}]")
+    probe, probe_inf = (bench_ceiling.sweep(dev, (ck.INF_PROBE,), planes)[0][0]
+                        for planes in ((x_f, y_f), bench_ceiling.infinite_planes(dev)))
+    nominal = bench_ceiling.no_fma_rate()
+    mix_best = max((r for r in k9_sweep if r["template"] == "frame_mix"), key=lambda r: r["value"])
+    fma_best = max(r["value"] for r in k9_sweep if r["template"] == "fma")
+    log(f"  fma probe {ck.INF_PROBE}: half its steps finite {probe['teraops']:.4f} Top/s ({probe['ms']:.4f} ms), "
+        f"every step on +inf {probe_inf['teraops']:.4f} ({probe_inf['ms']:.4f} ms); the sweep's fma at "
+        f"{fma_best / 1e12:.4f} Top/s [{card}]")
+    log(f"  launches {k9_launches}; best fma {fma_best / 1e12:.4f} Top/s, best frame_mix {mix_best['teraops']:.4f} "
+        f"({mix_best['template']}, iters {mix_best['iters']}, chains {mix_best['chains']}, live "
+        f"{mix_best['live_planes']}), {mix_best['value'] / fma_best:.4f} of fma; rate without FMA "
+        f"{nominal / 1e12:.4f} Top/s: fma {fma_best / nominal:.4f}, frame_mix {mix_best['value'] / nominal:.4f} "
+        f"of it [{card}]")
+    # K9's entry in the kernels line: one `mix` call with its wrapper, timed
+    # as every other entry is; the sweep's launch slope is logged beside it.
+    mix_variant = (mix_best["template"], mix_best["iters"], mix_best["chains"], mix_best["live_planes"])
+    k9_ms = cuda_ms(lambda: ck.mix(x_f, y_f, *mix_variant), reps=20, warmup=2)
+    k9_plain_ms = cuda_ms(lambda: ck.mix_plain(x_f, y_f, *mix_variant), reps=3)
+    k9_work = (bench_ceiling.ops_of(mix_variant, x_f.numel()), 3 * x_f.numel() * 4)
+    log(f"  K9 {mix_variant}: one mix() call with its wrapper {k9_ms:.4f} ms, the sweep's launch slope "
+        f"{mix_best['ms']:.4f} ms, plain {k9_plain_ms:.4f} ms [{card}]")
+
+    # Bounds, from this run's inputs (frame_ops, bound): each kernel's work
+    # as (operations, bytes).
     ops1 = frame_ops(scene, cfg, ref["oid"])
     tab_bytes = sum(t.numel() * t.element_size() for t in fk.pack_tables(scene, camera()))
-    k1_bound = bound(ops1, tab_bytes + W * H * (13 * 4 + 4))
+    k1_work = (ops1, tab_bytes + W * H * (13 * 4 + 4))
     k2_io = (ref["oid"], dyrel, dxrel, *w4, hist.rgb, hist.cnt, hist.oid, rgb_k, cnt_k)
-    k2_bound = bound(W * H * 4 * 10, sum(t.numel() * t.element_size() for t in k2_io))
+    k2_work = (W * H * 4 * 10, sum(t.numel() * t.element_size() for t in k2_io))
     # The gradient of a scalar costs at most ~3 times its forward's operations
     # (reverse mode); K6 adds the composite and the loss (~120 per pixel).
-    k5_bound = bound(3 * ops1, tab_bytes + sum(v.numel() * 4 for v in g_all.values()))
-    k6_bound = bound(3 * (ops1 + 120 * W * H), tab_bytes)
+    k5_work = (3 * ops1, tab_bytes + sum(v.numel() * 4 for v in g_all.values()))
+    k6_work = (3 * (ops1 + 120 * W * H), tab_bytes)
     ops_rec = frame_ops(start, c_rec, oid_rec)
     rec_bytes = sum(t.numel() * t.element_size() for t in fk.pack_tables(start, views[0]))
     k5_bound_r = bound(3 * ops_rec, rec_bytes + sum(v.numel() * 4 for v in g_rec.values()))
     k6_bound_r = bound(3 * (ops_rec + 120 * oid_rec.numel()), rec_bytes + target_rec.numel() * 4)
-    for label, ms, bnd, ms_r, bnd_r in (("K5", k5_ms, k5_bound, k5_ms_r, k5_bound_r),
-                                        ("K6", k6_ms, k6_bound, k6_ms_r, k6_bound_r)):
+    for label, ms, work, ms_r, bnd_r in (("K5", k5_ms, k5_work, k5_ms_r, k5_bound_r),
+                                         ("K6", k6_ms, k6_work, k6_ms_r, k6_bound_r)):
         lo, hi = FORWARD_MODE_MS[label]
+        bnd = bound(*work)
         log(f"  {label} reverse-mode adjoint: {W}x{H} all tables {ms:.4f} ms, {ms / bnd[0]:.1f}x its bound "
             f"{bnd[0]:.4f} ms ({bnd[1]}), {lo / ms:.1f}-{hi / ms:.1f}x faster than the forward-mode kernel's "
             f"{lo}-{hi} ms; 192x128 recovery view {ms_r:.4f} ms, {ms_r / bnd_r[0]:.1f}x its bound "
             f"{bnd_r[0]:.5f} ms ({bnd_r[1]}) [{card}]")
     ops3 = geometry_ops(scene, W * H)
-    k3_bound = bound(ops3, tab_bytes + W * H * (5 * 4 + 4))
+    k3_work = (ops3, tab_bytes + W * H * (5 * 4 + 4))
     ops7 = path_ops(scene, W * H * cfg_pt.spp, tally)
-    k7_bound = bound(ops7, tab_bytes + sum(t.numel() * t.element_size() for t in pk._tables(scene))
-                     + W * H * 3 * 4)
+    k7_work = (ops7, tab_bytes + sum(t.numel() * t.element_size() for t in pk._tables(scene)) + W * H * 3 * 4)
     ops8 = frame_ops(scene, cfg_m, k8_ref["oid"]) + W * H * HIST_OPS
     hist_bytes = sum(t.numel() * t.element_size() for ch in (hd, hs) for t in (ch.rgb, ch.cnt, ch.oid))
     out_bytes = sum(t.numel() * t.element_size() for t in k8.values())
-    k8_bound = bound(ops8, tab_bytes + 5 * 4 + hist_bytes + out_bytes)
+    k8_work = (ops8, tab_bytes + 5 * 4 + hist_bytes + out_bytes)
     ops4 = shade_ops(scene, cfg_p, gbuf_p.obj_id, 1) + W * H * 6
     k4_io = (gbuf_p.normal, gbuf_p.obj_id, gbuf_p.depth, gbuf_p.ray_dir, seed_p, *k4)
-    k4_bound = bound(ops4, tab_bytes + sum(t.numel() * t.element_size() for t in k4_io))
+    k4_work = (ops4, tab_bytes + sum(t.numel() * t.element_size() for t in k4_io))
     # The tile launches (phases 21-22): their share of the frame's work, on
     # the middle tile's data.
-    k1r_bound = bound(frame_ops(scene, cfg, k1r_ref["oid"]), tab_bytes + rows_t * W * (13 * 4 + 4))
+    k1r_work = (frame_ops(scene, cfg, k1r_ref["oid"]), tab_bytes + rows_t * W * (13 * 4 + 4))
     k2t_io = (k1r_ref["oid"], *q_t[:2], *q_t[2], win.diffuse.rgb, win.diffuse.cnt, win.diffuse.oid, rgb_kt, cnt_kt)
-    k2t_bound = bound(rows_t * W * 4 * 10, sum(t.numel() * t.element_size() for t in k2t_io))
+    k2t_work = (rows_t * W * 4 * 10, sum(t.numel() * t.element_size() for t in k2t_io))
     ops8t = frame_ops(scene, cfg_m, k8t_ref["oid"]) + rows_t * W * HIST_OPS
     win_bytes = sum(t.numel() * t.element_size() for ch in (win.diffuse, win.specular)
                     for t in (ch.rgb, ch.cnt, ch.oid))
-    k8t_bound = bound(ops8t, tab_bytes + 5 * 4 + win_bytes + sum(t.numel() * t.element_size() for t in k8t.values()))
-    k5r_bound = bound(3 * frame_ops(scene, cfg, k1m["oid"]), tab_bytes + sum(v.numel() * 4 for v in g_t.values()))
+    k8t_work = (ops8t, tab_bytes + 5 * 4 + win_bytes + sum(t.numel() * t.element_size() for t in k8t.values()))
+    k5r_work = (3 * frame_ops(scene, cfg, k1m["oid"]), tab_bytes + sum(v.numel() * 4 for v in g_t.values()))
+    (k1r_bound, k2t_bound, k8t_bound, k5r_bound) = (bound(*w) for w in (k1r_work, k2t_work, k8t_work, k5r_work))
     log(f"  bounds of one {rows_t}-row tile: K1 row mode {k1r_bound[0]:.4f} ms ({k1r_bound[1]}), K2 tile mode "
         f"{k2t_bound[0]:.4f} ms ({k2t_bound[1]}), K8 tile mode {k8t_bound[0]:.4f} ms ({k8t_bound[1]}), K5 row mode "
         f"{k5r_bound[0]:.4f} ms ({k5r_bound[1]})")
-    # Without FMA (-fmad=false: K3-K8) an f32 lane retires one operation a
-    # clock: 132 SMs x 128 lanes x the SM clock.
-    no_fma = 132 * 128 * sm_clock_mhz() * 1e6
-    log(f"  operations over the rate without FMA ({no_fma / 1e12:.2f} TFLOP/s): K1 {ops1 / no_fma * 1e3:.4f}, "
-        f"K8 {ops8 / no_fma * 1e3:.4f}, K4 {ops4 / no_fma * 1e3:.4f}, K3 {ops3 / no_fma * 1e3:.4f}, "
-        f"K7 {ops7 / no_fma * 1e3:.4f}, K5 {3 * ops1 / no_fma * 1e3:.4f}, "
-        f"K6 {3 * (ops1 + 120 * W * H) / no_fma * 1e3:.4f} ms")
+    (k1_bound, k2_bound, k3_bound, k5_bound, k6_bound, k7_bound, k8_bound, k4_bound) = (
+        bound(*w) for w in (k1_work, k2_work, k3_work, k5_work, k6_work, k7_work, k8_work, k4_work))
     log(f"  bounds at {W}x{H}: K8 {k8_bound[0]:.4f} ms ({k8_bound[1]}, {ops8 / 1e9:.3f} GFLOP, "
         f"{(hist_bytes + out_bytes) / (W * H):.1f} B/pixel), K4 {k4_bound[0]:.4f} ms ({k4_bound[1]}, "
         f"{ops4 / 1e9:.3f} GFLOP)")
@@ -1611,37 +1675,59 @@ def main() -> int:
         f"{ops3 / 1e9:.3f} GFLOP, {(W * H * 24) / 1e6:.1f} MB out), K7 {k7_bound[0]:.4f} ms "
         f"({k7_bound[1]}, {ops7 / 1e9:.3f} GFLOP on this data's segments)")
 
-    def entry(name, source, replaces, launches, err, ms, plain_ms, bnd):
-        return {"name": name, "route": "cuda", "source": f"kylespathtracer_tpu_torch/csrc/{source}",
-                "replaces": f"kylespathtracer_tpu/ops/{replaces}", "launches": launches,
-                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd[0],
-                "bound_by": bnd[1], "library_ms": None}
+    # Each entry's bound_ms: the operations over the data sheet's f32 peak
+    # with FMA (67 Top/s) or the bytes over the memory rate, the larger.
+    # Logged beside it: the operations at the rate without FMA (-fmad=false:
+    # K3-K9; an f32 lane retires one operation a clock), and the time at the
+    # best frame_mix rate of phase 24 (bound_measured_ms) and at frame_mix
+    # with 64 live planes (K1's and K8's 95-96 registers). The frame_mix
+    # rates are references for the frame kernels' own mix, not ceilings: the
+    # fma probe retires f32 operations faster, and K1's contracted pairs
+    # count two operations each. PERF.md §7 had K1, K8, K7 and K4 alone at
+    # 3.4x, 4.1x, 2.5x and 3.7x their bounds without FMA.
+    mix_rate = mix_best["value"]
+    mix_95 = next(r["value"] for r in k9_sweep if (r["template"], r["live_planes"]) == ("frame_mix", 64))
 
+    def entry(name, source, replaces, launches, err, ms, plain_ms, work, alone_ms=None):
+        bnd, no_fma, measured, at95 = (bound(*work, r) for r in (F32_FLOPS, nominal, mix_rate, mix_95))
+        t = ms if alone_ms is None else alone_ms
+        log(f"  {name}: {t:.4f} ms{'' if alone_ms is None else ' alone'} = {t / bnd[0]:.2f}x its bound_ms "
+            f"{bnd[0]:.4f} ({bnd[1]}, {F32_FLOPS / 1e12:.2f} Top/s), {t / no_fma[0]:.2f}x {no_fma[0]:.4f} at "
+            f"{nominal / 1e12:.2f} (no FMA), {t / measured[0]:.2f}x {measured[0]:.4f} at {mix_rate / 1e12:.2f} "
+            f"(best frame_mix, a reference), {t / at95[0]:.2f}x {at95[0]:.4f} at {mix_95 / 1e12:.2f} "
+            f"(frame_mix at 95 registers); {work[0] / 1e9:.3f} G operations, {work[1] / 1e6:.3f} MB [{card}]")
+        return {"name": name, "route": "cuda", "source": f"kylespathtracer_tpu_torch/csrc/{source}",
+                "replaces": replaces, "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bnd[0], "bound_by": bnd[1], "bound_measured_ms": measured[0], "library_ms": None}
+
+    jax_ops = "kylespathtracer_tpu/ops/"
     kernels = [
-        entry("frame_forward", "frame_kernel.cu", "frame_kernel.py:381", launches["frame"],
-              k1_stats["max_abs"], k1_ms, k1_plain_ms, k1_bound),
-        entry("reproject_window", "reproject_kernel.cu", "reproject_kernel.py:290",
-              launches["reproject"], k2_err, k2_ms, k2_plain_ms, k2_bound),
-        entry("frame_backward", "frame_grad.cu", "frame_grad.py:189", train_launches["backward"],
-              k5_err, k5_ms, k5_plain_ms, k5_bound),
-        entry("render_loss_and_grad", "loss_kernel.cu", "loss_kernel.py:216",
-              rec_launches["loss"], k6_err, k6_ms, k6_plain_ms, k6_bound),
-        entry("geometry_pass", "geometry_kernel.cu", "frame_kernel.py:494", raycast_launches,
-              k3_err, k3_ms, k3_plain_ms, k3_bound),
-        entry("pathtrace", "path_kernel.cu", "path_kernel.py:469", path_launches,
-              k7_err, k7_ms, k7_plain_ms, k7_bound),
-        entry("frame_hist", "frame_hist.cu", "frame_hist.py:344", mono_launches["frame_hist"],
-              k8_stats["max_abs"], k8_ms, k8_plain_ms, k8_bound),
-        entry("dual_mis", "shade_kernel.cu", "shade_kernel.py:836", pass_launches["dual_mis"],
-              k4_stats["max_abs"], k4_ms, k4_plain_ms, k4_bound),
-        entry("frame_forward (rows)", "frame_kernel.cu", "frame_kernel.py:299", rank_launches["frame rows"],
-              k1r_stats["max_abs"], k1r_ms, k1r_plain_ms, k1r_bound),
-        entry("reproject_window (tile)", "reproject_kernel.cu", "reproject_kernel.py:211",
-              rank_launches["reproject tile"], k2t_err, k2t_ms, k2t_plain_ms, k2t_bound),
-        entry("frame_hist (tile)", "frame_hist.cu", "frame_hist.py:241", rank_launches["frame_hist tile"],
-              k8t_stats["max_abs"], k8t_ms, k8t_plain_ms, k8t_bound),
-        entry("frame_backward (rows)", "frame_grad.cu", "frame_grad.py:117", rank_launches["backward rows"],
-              k5r_err, k5r_ms, k5r_plain_ms, k5r_bound),
+        entry("frame_forward", "frame_kernel.cu", jax_ops + "frame_kernel.py:381", launches["frame"],
+              k1_stats["max_abs"], k1_ms, k1_plain_ms, k1_work, alone_ms=k1_alone_ms),
+        entry("reproject_window", "reproject_kernel.cu", jax_ops + "reproject_kernel.py:290",
+              launches["reproject"], k2_err, k2_ms, k2_plain_ms, k2_work),
+        entry("frame_backward", "frame_grad.cu", jax_ops + "frame_grad.py:189", train_launches["backward"],
+              k5_err, k5_ms, k5_plain_ms, k5_work),
+        entry("render_loss_and_grad", "loss_kernel.cu", jax_ops + "loss_kernel.py:216",
+              rec_launches["loss"], k6_err, k6_ms, k6_plain_ms, k6_work),
+        entry("geometry_pass", "geometry_kernel.cu", jax_ops + "frame_kernel.py:494", raycast_launches,
+              k3_err, k3_ms, k3_plain_ms, k3_work),
+        entry("pathtrace", "path_kernel.cu", jax_ops + "path_kernel.py:469", path_launches,
+              k7_err, k7_ms, k7_plain_ms, k7_work, alone_ms=k7_alone_ms),
+        entry("frame_hist", "frame_hist.cu", jax_ops + "frame_hist.py:344", mono_launches["frame_hist"],
+              k8_stats["max_abs"], k8_ms, k8_plain_ms, k8_work, alone_ms=k8_alone_ms),
+        entry("dual_mis", "shade_kernel.cu", jax_ops + "shade_kernel.py:836", pass_launches["dual_mis"],
+              k4_stats["max_abs"], k4_ms, k4_plain_ms, k4_work, alone_ms=k4_alone_ms),
+        entry("frame_forward (rows)", "frame_kernel.cu", jax_ops + "frame_kernel.py:299",
+              rank_launches["frame rows"], k1r_stats["max_abs"], k1r_ms, k1r_plain_ms, k1r_work),
+        entry("reproject_window (tile)", "reproject_kernel.cu", jax_ops + "reproject_kernel.py:211",
+              rank_launches["reproject tile"], k2t_err, k2t_ms, k2t_plain_ms, k2t_work),
+        entry("frame_hist (tile)", "frame_hist.cu", jax_ops + "frame_hist.py:241", rank_launches["frame_hist tile"],
+              k8t_stats["max_abs"], k8t_ms, k8t_plain_ms, k8t_work),
+        entry("frame_backward (rows)", "frame_grad.cu", jax_ops + "frame_grad.py:117", rank_launches["backward rows"],
+              k5r_err, k5r_ms, k5r_plain_ms, k5r_work),
+        entry("mix_ceiling", "ceiling_kernel.cu", "bench_ceiling.py:194", k9_launches, k9_err, k9_ms,
+              k9_plain_ms, k9_work),
     ]
     idle = [k["name"] for k in kernels if k["launches"] < 1]
     if idle:

@@ -26,7 +26,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("frame_kernel.cu", "reproject_kernel.cu", "frame_grad.cu", "loss_kernel.cu",
-           "geometry_kernel.cu", "path_kernel.cu", "frame_hist.cu", "shade_kernel.cu")
+           "geometry_kernel.cu", "path_kernel.cu", "frame_hist.cu", "shade_kernel.cu", "ceiling_kernel.cu")
 HEADERS = ("dual.cuh", "shade_core.cuh", "frame_core.cuh", "frame_adjoint.cuh", "reproject_core.cuh",
            "frame_body.cuh")
 NVCC_FLAGS = (
@@ -39,10 +39,11 @@ NVCC_FLAGS = (
 # kernel a contracted multiply-add can flip a sampling decision, which
 # changes the whole path after it; in the mono temporal kernel (K8) an ulp
 # of ray direction moves the reprojected tap position by ~4e-5 pixel at
-# 1080p. K1 alone keeps nvcc's default contraction.
+# 1080p. The op-mix probe (K9) is held bitwise to its plain version. K1
+# alone keeps nvcc's default contraction.
 SOURCE_FLAGS = {name: ("-fmad=false",) for name in (
     "frame_grad.cu", "loss_kernel.cu", "geometry_kernel.cu", "path_kernel.cu", "shade_kernel.cu",
-    "frame_hist.cu")}
+    "frame_hist.cu", "ceiling_kernel.cu")}
 
 _lock = threading.Lock()
 _lib = None
@@ -105,6 +106,8 @@ _SIGNATURES = {
     ),
     # parts, nP, nS, nB, nK, width, height, soft_beta, gloss, io, stream
     "kpt_dual_mis": (_P, _I, _I, _I, _I, _I, _I, _F, _I, _P, _P),
+    # x, y, out, n, template id, iters, chains, live, stream
+    "kpt_mix_ceiling": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
 }
 
 

@@ -23,8 +23,9 @@ spheres and alb_const, mse) on the recovery scene. Variants:
 With --frame it times K1 (frame 3) and K8 (frame 1 on a seeded history) at
 1920×1080 on the default scene and K1 at the recovery view, each alone (CUDA
 events around its launch) and with its wrapper (`frame_forward`,
-`frame_hist`), and prints the static instruction mix of both kernels and
-K2's (`cuobjdump -sass`). Variants:
+`frame_hist`), and prints the static instruction mix of both kernels,
+K2's and the op-mix probe K9's (`cuobjdump -sass`; K9's per template round
+of each instantiation, by opcode group). Variants:
 
 - `committed`, and `minblocks=N`: K1 and K8 under
   `__launch_bounds__(128, N)`; `tile=WxH`: the block's 128 threads on a
@@ -90,6 +91,7 @@ whether `cuobjdump -sass` prints the same code for each.
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import dataclasses
 import io
@@ -108,6 +110,7 @@ import torch
 
 from kylespathtracer_tpu_torch.diff import inverse
 from kylespathtracer_tpu_torch.ops import _build
+from kylespathtracer_tpu_torch.ops import ceiling_kernel as ck
 from kylespathtracer_tpu_torch.ops import frame_grad as fg
 from kylespathtracer_tpu_torch.ops import frame_hist as fh
 from kylespathtracer_tpu_torch.ops import frame_kernel as fk
@@ -186,7 +189,8 @@ GROUPS = {
                 (("K5", "frame_grad.cu"), ("K6", "loss_kernel.cu")),
                 ("frame_kernel.cu", "geometry_kernel.cu", "shade_kernel.cu", "path_kernel.cu", "frame_hist.cu")),
     "frame": (FRAME_OFF, ("frame_kernel.cu", "frame_hist.cu"),
-              (("K1", "frame_kernel.cu"), ("K8", "frame_hist.cu"), ("K2", "reproject_kernel.cu")),
+              (("K1", "frame_kernel.cu"), ("K8", "frame_hist.cu"), ("K2", "reproject_kernel.cu"),
+               ("K9", "ceiling_kernel.cu")),
               ("geometry_kernel.cu", "shade_kernel.cu", "frame_grad.cu", "loss_kernel.cu", "path_kernel.cu")),
     "path": (PATH_OFF, ("path_kernel.cu",), (("K7", "path_kernel.cu"), ("K4", "shade_kernel.cu")),
              ("frame_kernel.cu", "reproject_kernel.cu", "geometry_kernel.cu", "frame_grad.cu", "loss_kernel.cu",
@@ -270,10 +274,13 @@ def _compile(jobs: list) -> None:
         raise SystemExit("adjoint_variants: nvcc failed")
 
 
-def _sass(obj: Path) -> list:
+def _sass_text(obj: Path) -> str:
     cuobjdump = str(Path(_build._nvcc()).parent / "cuobjdump")
-    text = subprocess.run([cuobjdump, "-sass", str(obj)], capture_output=True, text=True, check=True).stdout
-    return [ln for ln in text.splitlines() if "/*" in ln and "code for" not in ln]
+    return subprocess.run([cuobjdump, "-sass", str(obj)], capture_output=True, text=True, check=True).stdout
+
+
+def _sass(obj: Path) -> list:
+    return [ln for ln in _sass_text(obj).splitlines() if "/*" in ln and "code for" not in ln]
 
 
 def same_sass(parent: Path, sources) -> None:
@@ -292,24 +299,67 @@ def same_sass(parent: Path, sources) -> None:
 # LDL/STL are local-memory (stack) accesses.
 MIX = ("FCHK", "MUFU.RCP", "MUFU.RSQ", "MUFU.SIN", "MUFU.COS", "MUFU.EX2", "MUFU.LG2", "CALL", "LDL", "STL",
        "LDS", "FFMA", "FMUL", "FADD", "FSETP", "FSEL", "BRA")
+# Opcode groups of the mix, by an opcode's first word; every other opcode
+# is "integer and other" (integer arithmetic, predicates, conversions,
+# uniform-datapath work).
+SASS_GROUPS = {
+    "f32 add, mul, fma": ("FADD", "FMUL", "FFMA"),
+    "compare, select, min/max": ("FSETP", "FSEL", "FMNMX", "FSET"),
+    "MUFU, FCHK, FRND": ("MUFU", "FCHK", "FRND"),
+    "bf16x2": ("HADD2", "HMUL2", "HFMA2"),
+    "control": ("BRA", "BSSY", "BSYNC", "CALL", "RET", "EXIT", "BREAK", "WARPSYNC", "NOP", "BAR"),
+    "loads, stores": ("LDS", "STS", "LDG", "STG", "LDL", "STL", "LDC"),
+    "moves": ("MOV",),
+    "f64": ("DFMA", "DMUL", "DADD", "DSETP"),
+}
 
 
 INSN = re.compile(r"\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P[T0-9]\s+)?([A-Z][A-Z0-9_.]*)")
 
 
+def functions(obj: Path) -> dict:
+    """The opcodes of each function in an object's SASS, by mangled name."""
+    funcs, cur = {}, None
+    for line in _sass_text(obj).splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            cur = funcs.setdefault(m.group(1), [])
+        elif cur is not None and (m := INSN.match(line)):
+            cur.append(m.group(1))
+    return funcs
+
+
+def grouped(ops) -> dict:
+    """The opcodes `ops` counted by SASS_GROUPS, the rest as "integer and
+    other", and in all ("total")."""
+    first = collections.Counter(op.split(".")[0] for op in ops)
+    sums = {g: sum(first[k] for k in members) for g, members in SASS_GROUPS.items()}
+    return {"total": len(ops), **sums, "integer and other": len(ops) - sum(sums.values())}
+
+
 def sass_mix(sources, parent: Path | None = None) -> None:
     """The static instruction mix of `sources` (this tree, and the `parent`
-    csrc's where given): instructions in all and per opcode class."""
+    csrc's where it has them): instructions in all, per opcode class and per
+    group; for the op-mix probe (K9), per template round of each
+    instantiation."""
     out = ROOT / "build" / "variants" / "sass"
     out.mkdir(parents=True, exist_ok=True)
     trees = [("this", _build.CSRC)] + ([("parent", parent)] if parent else [])
-    _compile([(tree, src, out / f"mix_{tag}_{src}.o") for tag, tree in trees for src in sources])
-    for tag, _ in trees:
-        for src in sources:
-            ops = [m.group(1) for m in map(INSN.match, _sass(out / f"mix_{tag}_{src}.o")) if m]
-            counts = {k: sum(1 for op in ops if op == k or op.startswith(k + ".")) for k in MIX}
-            print(f"SASS mix {src} ({tag}): {len(ops)} instructions; "
-                  + ", ".join(f"{k} {v}" for k, v in counts.items()), flush=True)
+    jobs = [(tag, tree, src) for tag, tree in trees for src in sources if (tree / src).exists()]
+    _compile([(tree, src, out / f"mix_{tag}_{src}.o") for tag, tree, src in jobs])
+    for tag, _, src in jobs:
+        funcs = functions(out / f"mix_{tag}_{src}.o")
+        ops = [op for f in funcs.values() for op in f]
+        counts = {k: sum(1 for op in ops if op == k or op.startswith(k + ".")) for k in MIX}
+        print(f"SASS mix {src} ({tag}): {len(ops)} instructions; "
+              + ", ".join(f"{k} {v}" for k, v in counts.items()), flush=True)
+        print(f"SASS groups {src} ({tag}): " + ", ".join(f"{g} {v}" for g, v in grouped(ops).items()), flush=True)
+        for name, f_ops in funcs.items():
+            variant = ck.variant_of(name)
+            if variant is not None:
+                rounds = variant[1] * variant[2]
+                print(f"SASS groups per round K9 {variant} ({tag}): "
+                      + ", ".join(f"{g} {v / rounds:.2f}" for g, v in grouped(f_ops).items()), flush=True)
 
 
 def adjoint_times(dev, rng) -> callable:

@@ -13,7 +13,9 @@ import numpy as np
 import pytest
 import torch
 
+from kylespathtracer_tpu_torch import bench_ceiling
 from kylespathtracer_tpu_torch.diff import inverse
+from kylespathtracer_tpu_torch.ops import ceiling_kernel as ck
 from kylespathtracer_tpu_torch.ops import frame_grad as fg
 from kylespathtracer_tpu_torch.ops import frame_hist as fh
 from kylespathtracer_tpu_torch.ops import frame_kernel as fk
@@ -649,3 +651,19 @@ def test_train_tiles_on_card_match_unsharded(dev):
     for k, gk in zip(p, grads):
         torch.testing.assert_close(tiles[0][1][k] + tiles[1][1][k], gk, rtol=0,
                                    atol=1e-4 * gk.abs().max().item())
+
+
+@pytest.mark.parametrize("variant", ck.KERNEL_VARIANTS, ids=lambda v: "-".join(map(str, v)))
+def test_ceiling_kernel_matches_plain_bitwise(dev, variant):
+    """K9 against its plain version on the card at 16x1920 on the probe's
+    planes, and on numpy-seeded planes in [-2, 2): bit for bit, infinities
+    and NaN in place (both round each IEEE operation on its own)."""
+    rng = np.random.default_rng(9)
+    planes = [bench_ceiling.inputs(dev, 16, 1920),
+              [torch.from_numpy(rng.uniform(-2, 2, (16, 1920)).astype(np.float32)).to(dev) for _ in range(2)]]
+    for x, y in planes:
+        before = ck.LAUNCHES
+        out = ck.mix(x, y, *variant)
+        torch.cuda.synchronize()
+        assert ck.LAUNCHES == before + 1
+        assert ck.differing(out, ck.mix_plain(x, y, *variant)) == 0
