@@ -15,8 +15,11 @@ it and read just after:
   held to its error bounds. K5 and K6 are one reverse-mode adjoint pass
   over the pixels each (csrc/frame_adjoint.cuh);
 - the primary-visibility raycast (`ops.geometry_kernel.geometry_pass` at
-  1920×1080, K3; phase 13, held against its plain version and the G-buffer
-  module);
+  1920×1080, K3; phase 13: two raycasts, from bench.py's view and from one
+  aimed at the rounded box, each held bitwise to its plain version, the
+  first also against the G-buffer module; K3 timed alone and with its
+  wrapper on both, beside its plain version and the plain G-buffer module,
+  its bound counted from the box code that each view's rays run);
 - the multi-bounce path tracer (`render.wavefront.render_pathtraced` and
   the `pathtrace` CLI at 1920×1080, 4 spp, depth 6, K7; phase 16), after
   K7 is held against its plain version (phase 14) and against the port's
@@ -67,8 +70,8 @@ comparison over every pixel logged beside; so is K5 on random cotangents at
 pixels behind the unmasked distance). Phase 12 then times K5, K6 and the
 generic step, and K5 and K6 at the recovery view's shape (192×128, spheres
 and alb_const), each beside its bound and the forward-mode kernels' time.
-K1, K8, K7 and K4 are timed alone (CUDA events around their launch) and
-with their wrappers (phases 6, 18, 16 and 19), K1 also at the recovery view,
+K1, K8, K7, K4 and K3 are timed alone (CUDA events around their launch) and
+with their wrappers (phases 6, 18, 16, 19 and 13), K1 also at the recovery view,
 beside the registers, stack and spill of their build (phase 1); phase 16
 also prints K7's census (ops/path_kernel.census: per bounce the live lanes
 and the warps that run the rounded box's candidates). Any failed
@@ -210,10 +213,18 @@ def trace_ops(scene, inside_hits: bool = False) -> int:
     return 12 * nP + (23 if inside_hits else 20) * nS + 584 * nB
 
 
-def geometry_ops(scene, pixels: int) -> int:
-    """K3 (csrc/geometry_kernel.cu): per pixel the raygen (~25), the trace
-    and the normal with the hit point (~40)."""
-    return pixels * (65 + trace_ops(scene))
+def geometry_ops(scene, work: dict) -> int:
+    """K3 (csrc/geometry_kernel.cu) on this image's data, from its plain
+    tally of the box code (`geometry_kernel.box_work_plain`): per pixel the
+    raygen (~25), the normal with the hit point (~40), the planes and
+    spheres of the trace and the bounding-sphere test (~14 per box); per ray
+    that test passes, the slab test of every box (~64 each); per (ray, box)
+    that the slab test passes, the box's 584."""
+    from kylespathtracer_tpu_torch.ops import frame_kernel as fk
+
+    nP, nS, nB = fk._counts(scene)
+    return (work["pixels"] * (65 + 12 * nP + 20 * nS + 14 * nB) + work["near"] * 64 * nB
+            + work["boxes"] * 584)
 
 
 def path_ops(scene, pixel_samples: int, tally: dict) -> int:
@@ -718,6 +729,7 @@ def main() -> int:
     from kylespathtracer_tpu_torch.app import cli, driver
     from kylespathtracer_tpu_torch.diff import inverse
     from kylespathtracer_tpu_torch.ops import _build
+    from kylespathtracer_tpu_torch.ops.adjoint_variants import BOX_AIMED, burst_ms
     from kylespathtracer_tpu_torch.ops import ceiling_kernel as ck
     from kylespathtracer_tpu_torch.ops import frame_grad as fg
     from kylespathtracer_tpu_torch.ops import frame_hist as fh
@@ -1147,28 +1159,54 @@ def main() -> int:
     k6_ms_r = cuda_ms(lambda: lk.render_loss_and_grad(start, views[0], f0, c_rec, target_rec, "mse", rec_needs),
                       reps=20, warmup=3)
 
-    # Phase 13: the raycast (K3) at 1920x1080 against its plain version and
-    # the G-buffer module, then its time.
-    log(f"phase 13: geometry pass (K3), the raycast at {W}x{H} on the card")
-    geo_k.LAUNCHES = 0
-    geo = geo_k.geometry_pass(scene, camera(), 0, cfg)
-    torch.cuda.synchronize()
-    raycast_launches = geo_k.LAUNCHES
-    if raycast_launches != 1:
-        raise AssertionError(f"the raycast did not run through K3: {raycast_launches} launches")
-    geo_plain = geo_k.geometry_pass_plain(scene, camera(), 0, cfg)
-    k3_stats = geo_k.check_agreement(geo, geo_plain, f"K3 vs plain {W}x{H}")
-    log(f"  K3 vs plain: {k3_stats}")
-    gbuf = gbuffer.geometry_pass(scene, camera(), cfg)
-    gb_stats = geo_k.check_agreement(
-        geo, {"depth": gbuf.depth, "curv": gbuf.curv, "normal": gbuf.normal, "oid": gbuf.obj_id},
-        f"K3 vs gbuffer.geometry_pass {W}x{H}")
-    log(f"  K3 vs gbuffer.geometry_pass: {gb_stats}; hit share {(geo['oid'] > 0).float().mean().item():.4f}")
-    k3_err = max((geo[k] - geo_plain[k]).abs().max().item() for k in ("depth", "curv", "normal"))
-    k3_ms = cuda_ms(lambda: geo_k.geometry_pass(scene, camera(), 0, cfg), reps=20, warmup=2)
-    k3_plain_ms = cuda_ms(lambda: geo_k.geometry_pass_plain(scene, camera(), 0, cfg), reps=3)
-    log(f"  K3 {W}x{H}: {k3_ms:.4f} ms, plain {k3_plain_ms:.4f} ms; raycast_rays_per_s_1080p "
-        f"{W * H / k3_ms * 1e3:.1f} [{card}]")
+    # Phase 13: the raycast (K3) at 1920x1080 from two views, (a) bench.py's
+    # (CAM_ORIENT; the box is the nearest hit nowhere) and (b) one aimed at
+    # the rounded box (BOX_AIMED), each held bitwise to its plain version
+    # (check_agreement's stats logged beside), (a) also against the G-buffer
+    # module at check_agreement's bars; the box code K3 runs on each view
+    # (its plain tally, for its bound); then on each view K3 alone (CUDA
+    # events around its launch) and with its wrapper, its plain version and
+    # the plain G-buffer module that the pass frame runs (logged only).
+    log(f"phase 13: geometry pass (K3), the raycast at {W}x{H} on the card, views (a) orient {CAM_ORIENT} and "
+        f"(b) orient {BOX_AIMED}")
+    raycast_launches, k3_err, k3_times, k3_box_work = 0, 0.0, {}, {}
+    for key, cam_v in (("a", camera()), ("b", Camera.create(loc=CAM_LOC, orient=BOX_AIMED, device=dev))):
+        geo_k.LAUNCHES = 0
+        geo = geo_k.geometry_pass(scene, cam_v, 0, cfg)
+        torch.cuda.synchronize()
+        if geo_k.LAUNCHES != 1:
+            raise AssertionError(f"the raycast from view ({key}) did not run through K3 once: "
+                                 f"{geo_k.LAUNCHES} launches")
+        raycast_launches += geo_k.LAUNCHES
+        geo_plain = geo_k.geometry_pass_plain(scene, cam_v, 0, cfg)
+        stats = geo_k.check_agreement(geo, geo_plain, f"K3 vs plain {W}x{H} view ({key})")
+        err = max((geo[k] - geo_plain[k]).abs().max().item() for k in ("depth", "curv", "normal"))
+        k3_err = max(k3_err, err)
+        k3_box_work[key] = geo_k.box_work_plain(scene, cam_v, cfg)
+        log(f"  view ({key}) K3 vs plain: {stats}; largest |diff| {err}; hit share "
+            f"{(geo['oid'] > 0).float().mean().item():.4f}, box share "
+            f"{torch.isin(geo['oid'], scene.box_ids).float().mean().item():.4f}; box code (plain tally) "
+            f"{k3_box_work[key]}")
+        unequal = [k for k in geo if not torch.equal(geo[k], geo_plain[k])]
+        if unequal:
+            raise AssertionError(f"K3 vs plain {W}x{H} view ({key}): not bitwise on {unequal}")
+        if key == "a":
+            gbuf = gbuffer.geometry_pass(scene, cam_v, cfg)
+            gb_stats = geo_k.check_agreement(
+                geo, {"depth": gbuf.depth, "curv": gbuf.curv, "normal": gbuf.normal, "oid": gbuf.obj_id},
+                f"K3 vs gbuffer.geometry_pass {W}x{H}")
+            log(f"  view (a) K3 vs gbuffer.geometry_pass: {gb_stats}")
+        launch = geo_k.geometry_launch(scene, cam_v, 0, cfg)[0]
+        k3_times[key] = (cuda_ms(launch, reps=50, warmup=3),
+                         cuda_ms(lambda: geo_k.geometry_pass(scene, cam_v, 0, cfg), reps=50, warmup=3),
+                         cuda_ms(lambda: geo_k.geometry_pass_plain(scene, cam_v, 0, cfg), reps=3),
+                         cuda_ms(lambda: gbuffer.geometry_pass(scene, cam_v, cfg), reps=3), burst_ms(launch))
+        alone, wrapped, plain, gbuf_ms, burst = k3_times[key]
+        log(f"  view ({key}) K3 {W}x{H}: alone {alone:.4f} ms ({burst:.4f} a launch, 50 back to back), with its "
+            f"wrapper {wrapped:.4f} ms, plain {plain:.4f} ms, gbuffer.geometry_pass {gbuf_ms:.4f} ms; "
+            f"raycast_rays_per_s_1080p alone {W * H / alone * 1e3:.1f}, back to back {W * H / burst * 1e3:.1f}, "
+            f"with its wrapper {W * H / wrapped * 1e3:.1f} [{card}]")
+    k3_alone_ms, k3_ms, k3_plain_ms = k3_times["a"][:3]
 
     # Phase 14: K7 against its plain version on the card.
     log("phase 14: path kernel (K7) vs plain, on the card")
@@ -1639,7 +1677,7 @@ def main() -> int:
             f"{bnd[0]:.4f} ms ({bnd[1]}), {lo / ms:.1f}-{hi / ms:.1f}x faster than the forward-mode kernel's "
             f"{lo}-{hi} ms; 192x128 recovery view {ms_r:.4f} ms, {ms_r / bnd_r[0]:.1f}x its bound "
             f"{bnd_r[0]:.5f} ms ({bnd_r[1]}) [{card}]")
-    ops3 = geometry_ops(scene, W * H)
+    ops3 = geometry_ops(scene, k3_box_work["a"])
     k3_work = (ops3, tab_bytes + W * H * (5 * 4 + 4))
     ops7 = path_ops(scene, W * H * cfg_pt.spp, tally)
     k7_work = (ops7, tab_bytes + sum(t.numel() * t.element_size() for t in pk._tables(scene)) + W * H * 3 * 4)
@@ -1666,13 +1704,15 @@ def main() -> int:
         f"{k5r_bound[0]:.4f} ms ({k5r_bound[1]})")
     (k1_bound, k2_bound, k3_bound, k5_bound, k6_bound, k7_bound, k8_bound, k4_bound) = (
         bound(*w) for w in (k1_work, k2_work, k3_work, k5_work, k6_work, k7_work, k8_work, k4_work))
+    k3_bound_b = bound(geometry_ops(scene, k3_box_work["b"]), k3_work[1])
     log(f"  bounds at {W}x{H}: K8 {k8_bound[0]:.4f} ms ({k8_bound[1]}, {ops8 / 1e9:.3f} GFLOP, "
         f"{(hist_bytes + out_bytes) / (W * H):.1f} B/pixel), K4 {k4_bound[0]:.4f} ms ({k4_bound[1]}, "
         f"{ops4 / 1e9:.3f} GFLOP)")
     log(f"  bounds at {W}x{H}: K1 {k1_bound[0]:.4f} ms ({k1_bound[1]}, {ops1 / 1e9:.3f} GFLOP), "
         f"K2 {k2_bound[0]:.4f} ms ({k2_bound[1]}), K5 {k5_bound[0]:.4f} ms ({k5_bound[1]}), "
-        f"K6 {k6_bound[0]:.4f} ms ({k6_bound[1]}), K3 {k3_bound[0]:.4f} ms ({k3_bound[1]}, "
-        f"{ops3 / 1e9:.3f} GFLOP, {(W * H * 24) / 1e6:.1f} MB out), K7 {k7_bound[0]:.4f} ms "
+        f"K6 {k6_bound[0]:.4f} ms ({k6_bound[1]}), K3 view (a) {k3_bound[0]:.4f} ms ({k3_bound[1]}, "
+        f"{ops3 / 1e9:.3f} GFLOP, {(W * H * 24) / 1e6:.1f} MB out; view (b) {k3_bound_b[0]:.4f} ms, "
+        f"{k3_bound_b[1]}, {geometry_ops(scene, k3_box_work['b']) / 1e9:.3f} GFLOP), K7 {k7_bound[0]:.4f} ms "
         f"({k7_bound[1]}, {ops7 / 1e9:.3f} GFLOP on this data's segments)")
 
     # Each entry's bound_ms: the operations over the data sheet's f32 peak
@@ -1698,7 +1738,8 @@ def main() -> int:
             f"(frame_mix at 95 registers); {work[0] / 1e9:.3f} G operations, {work[1] / 1e6:.3f} MB [{card}]")
         return {"name": name, "route": "cuda", "source": f"kylespathtracer_tpu_torch/csrc/{source}",
                 "replaces": replaces, "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": bnd[0], "bound_by": bnd[1], "bound_measured_ms": measured[0], "library_ms": None}
+                "bound_ms": bnd[0], "bound_by": bnd[1], "bound_measured_ms": measured[0], "library_ms": None,
+                **({} if alone_ms is None else {"alone_ms": alone_ms})}
 
     jax_ops = "kylespathtracer_tpu/ops/"
     kernels = [
@@ -1711,7 +1752,7 @@ def main() -> int:
         entry("render_loss_and_grad", "loss_kernel.cu", jax_ops + "loss_kernel.py:216",
               rec_launches["loss"], k6_err, k6_ms, k6_plain_ms, k6_work),
         entry("geometry_pass", "geometry_kernel.cu", jax_ops + "frame_kernel.py:494", raycast_launches,
-              k3_err, k3_ms, k3_plain_ms, k3_work),
+              k3_err, k3_ms, k3_plain_ms, k3_work, alone_ms=k3_alone_ms),
         entry("pathtrace", "path_kernel.cu", jax_ops + "path_kernel.py:469", path_launches,
               k7_err, k7_ms, k7_plain_ms, k7_work, alone_ms=k7_alone_ms),
         entry("frame_hist", "frame_hist.cu", jax_ops + "frame_hist.py:344", mono_launches["frame_hist"],

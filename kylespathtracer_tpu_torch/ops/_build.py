@@ -53,13 +53,15 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 
 
-# The structs that K1, K4, K7 and K8 take by pointer, packed by the
+# The structs that K1, K3, K4, K7 and K8 take by pointer, packed by the
 # wrappers: csrc/frame_body.cuh:TableParts (15 f32 and 4 i32 pointers, then
 # their 15 and 4 lengths), csrc/frame_kernel.cu:FrameOut (K1's 7 output
-# planes) and csrc/shade_kernel.cu:ShadeIO (K4's G-buffer in and estimator
-# pair out: normal, depth, ray_dir, obj_id, seed, est_d, est_s).
+# planes), csrc/geometry_kernel.cu:GeoOut (K3's depth, curv, normal, oid)
+# and csrc/shade_kernel.cu:ShadeIO (K4's G-buffer in and estimator pair
+# out: normal, depth, ray_dir, obj_id, seed, est_d, est_s).
 TABLE_PARTS = struct.Struct("=19Q19i")
 FRAME_OUT = struct.Struct("=7Q")
+GEO_OUT = struct.Struct("=4Q")
 SHADE_IO = struct.Struct("=7Q")
 
 
@@ -89,8 +91,8 @@ _SIGNATURES = {
         _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I,
         _I, _I, _I, _F, _I, _F, _I, _P, _P, _P, _P,
     ),
-    # ftab, itab, nP, nS, nB, nK, width, height, fov, out_f, out_oid, stream
-    "kpt_geometry_pass": (_P, _P, _I, _I, _I, _I, _I, _I, _F, _P, _P, _P),
+    # parts, nP, nS, nB, nK, width, height, fov, out, stream
+    "kpt_geometry_pass": (_P, _I, _I, _I, _I, _I, _I, _F, _P, _P),
     # parts, kinds, iors, nP, nS, nB, nK, width, height, fov, frame, spp,
     # max_depth, gloss, out, stream
     "kpt_pathtrace": (

@@ -1,10 +1,10 @@
 """Where the time of the hand-written kernels goes: the reverse-mode
 gradient kernels K5 and K6, (with --frame) the forward frame kernels K1
-and K8, and (with --path) the path-tracing kernel K7 and the pass
-pipeline's shade kernel K4.
+and K8, (with --path) the path-tracing kernel K7 and the pass pipeline's
+shade kernel K4, and (with --geometry) the geometry-pass kernel K3.
 
-    python -m kylespathtracer_tpu_torch.ops.adjoint_variants [--parent CSRC] [--frame | --path] [VARIANT ...]
-    python -m kylespathtracer_tpu_torch.ops.adjoint_variants (--path | --frame) --turns ROOT
+    python -m kylespathtracer_tpu_torch.ops.adjoint_variants [--parent CSRC] [--frame | --path | --geometry] [VARIANT ...]
+    python -m kylespathtracer_tpu_torch.ops.adjoint_variants (--path | --frame | --geometry) --turns ROOT
 
 Needs a CUDA device. For each variant it builds the kernel library from a
 copy of kylespathtracer_tpu_torch/csrc under build/variants/ with one
@@ -75,10 +75,34 @@ Variants, joined by `+` to combine them:
   the block's n rays), and the warp iterations of the nested loop against
   the flat one and the ideal.
 
+With --geometry it times K3 at 1920×1080 on three cells: (a) bench.py's
+raycast view of the default scene (camera (3,2,-3), orient (0,0.7), as
+chip_smoke.py phase 13), (b) a view aimed at the rounded box (orient
+(-0.165,2.356)), (c) view (b) with two more boxes; on each K3 alone (CUDA
+events around its launch, one launch and 50 back to back) and with its
+wrapper (`geometry_pass`), and whether its dict is bitwise its plain
+version's. It prints once the plain version's and the G-buffer module's
+(`gbuffer.geometry_pass`) time on (a) and (b). Variants, joined by `+`:
+
+- `committed`; `minblocks=N`: K3 under `__launch_bounds__(128, N)`;
+  `tile=WxH`: the block's 128 threads on a W×H tile (committed 32×4);
+  `pixels=N`: N tiles a block (committed: as many blocks as the card
+  holds at once, each walking the tiles spaced by the grid); `uncut`: the
+  trace without the box cull or the bounding-sphere test (every ray runs
+  the box's candidates); `slab_only`: the box cull without the
+  bounding-sphere test before it (the cull of K7); `plain_stores`: the
+  outputs written without the evict-first hint (`__stcs`);
+- `no_box`: the rounded box gone from the trace; `cull_all`, `cull_free`:
+  as for --path; `planar`: the normal written as three planes (the
+  layout of the kernel before the dict's); `no_trace`: no raygen, trace or normal (every pixel
+  writes zeros: the writes alone). Their dicts are wrong; only
+  their time is read.
+
 `--turns ROOT` times the group's kernels with their wrappers and alone
 (their kernels' device time in a torch.profiler trace) from another
 checkout ROOT and from this one, in turns (ROOT, this, this, ROOT), each
 in a process of its own: with --path K7 and K4 on the cells above, with
+--geometry K3 on its three cells, with
 --frame K1 (frame 3), K8 (frame 1 on a seeded history) and K2 (one
 channel set of the split frame's reprojection, K = 8, on the same
 history) at 1920×1080, full frame.
@@ -114,6 +138,7 @@ from kylespathtracer_tpu_torch.ops import ceiling_kernel as ck
 from kylespathtracer_tpu_torch.ops import frame_grad as fg
 from kylespathtracer_tpu_torch.ops import frame_hist as fh
 from kylespathtracer_tpu_torch.ops import frame_kernel as fk
+from kylespathtracer_tpu_torch.ops import geometry_kernel as gk
 from kylespathtracer_tpu_torch.ops import loss_kernel as lk
 from kylespathtracer_tpu_torch.ops import path_kernel as pk
 from kylespathtracer_tpu_torch.ops import reproject_kernel as rk
@@ -126,7 +151,8 @@ from kylespathtracer_tpu_torch.scene.types import BSDF
 from kylespathtracer_tpu_torch.utils.config import RenderConfig
 
 ROOT = Path(__file__).resolve().parents[2]
-ADJ, SHADE, BODY, HIST, PATH = "frame_adjoint.cuh", "shade_core.cuh", "frame_body.cuh", "frame_hist.cu", "path_kernel.cu"
+ADJ, SHADE, BODY, HIST, PATH, GEO = ("frame_adjoint.cuh", "shade_core.cuh", "frame_body.cuh", "frame_hist.cu",
+                                     "path_kernel.cu", "geometry_kernel.cu")
 # The edits of each variant: (source, text, replacement) each.
 SWITCH_OFF = {
     "no_atomics": [(ADJ, "    if (v == 0.0f) return;\n", "    return;\n")],
@@ -181,6 +207,27 @@ PATH_OFF = {
     "uncut": [(PATH, "    trace<float, true, false, true>(T, ro, rd, excl, t, oid);", "    trace<float, true>(T, ro, rd, excl, t, oid);"),
               (PATH, "      if (light_visible<true>(T, ro_off, l_wi, oid)) {", "      if (light_visible(T, ro_off, l_wi, oid)) {")],
 }
+GEOMETRY_OFF = {
+    "uncut": [(GEO, "trace<float, false, false, true>(Tr, ro, rd, -1, t, oid);", "trace(T, ro, rd, -1, t, oid);")],
+    "slab_only": [(GEO, "    if (!near_a_box(spheres, T.nB, rd)) Tr.nB = 0;\n", "")],
+    "no_box": [(GEO, "    if (!near_a_box(spheres, T.nB, rd)) Tr.nB = 0;\n", "    Tr.nB = 0;\n")],
+    "cull_all": PATH_OFF["cull_all"],
+    "cull_free": PATH_OFF["cull_free"],
+    "planar": [(GEO, "    __stcs(out.normal + 3 * o, hn.x);\n    __stcs(out.normal + 3 * o + 1, hn.y);\n"
+                     "    __stcs(out.normal + 3 * o + 2, hn.z);\n",
+                "    const size_t plane = (size_t)P.height * (size_t)P.width;\n    __stcs(out.normal + o, hn.x);\n"
+                "    __stcs(out.normal + plane + o, hn.y);\n    __stcs(out.normal + 2 * plane + o, hn.z);\n")],
+    "plain_stores": [(GEO, "    __stcs(out.depth + o, t - EPS);\n    __stcs(out.curv + o, curv);\n"
+                           "    __stcs(out.normal + 3 * o, hn.x);\n    __stcs(out.normal + 3 * o + 1, hn.y);\n"
+                           "    __stcs(out.normal + 3 * o + 2, hn.z);\n    __stcs(out.oid + o, oid);\n",
+                      "    out.depth[o] = t - EPS;\n    out.curv[o] = curv;\n    out.normal[3 * o] = hn.x;\n"
+                      "    out.normal[3 * o + 1] = hn.y;\n    out.normal[3 * o + 2] = hn.z;\n    out.oid[o] = oid;\n")],
+    "no_trace": [(GEO, "    if (x >= P.width || y >= P.height) continue;\n",
+                  "    if (x >= P.width || y >= P.height) continue;\n    {\n"
+                  "      const size_t o = (size_t)y * (size_t)P.width + (size_t)x;\n"
+                  "      out.depth[o] = out.curv[o] = out.normal[3 * o] = out.normal[3 * o + 1] = out.normal[3 * o + 2] = 0.0f;\n"
+                  "      out.oid[o] = 0;\n      continue;\n    }\n")],
+}
 # Each group: its variants, the sources whose launch bounds minblocks=N
 # sets, its kernels' (label, source), and the sources it leaves alone
 # (compared by --parent).
@@ -195,6 +242,9 @@ GROUPS = {
     "path": (PATH_OFF, ("path_kernel.cu",), (("K7", "path_kernel.cu"), ("K4", "shade_kernel.cu")),
              ("frame_kernel.cu", "reproject_kernel.cu", "geometry_kernel.cu", "frame_grad.cu", "loss_kernel.cu",
               "frame_hist.cu")),
+    "geometry": (GEOMETRY_OFF, (GEO,), (("K3", GEO),),
+                 ("frame_kernel.cu", "reproject_kernel.cu", "frame_grad.cu", "loss_kernel.cu", "path_kernel.cu",
+                  "frame_hist.cu", "shade_kernel.cu", "ceiling_kernel.cu")),
 }
 
 
@@ -220,6 +270,20 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     return statistics.median(times)
 
 
+def burst_ms(fn, n: int = 50) -> float:
+    """Milliseconds per call of fn() over n calls enqueued back to back
+    between two CUDA events, after one call to warm up: the device's time per
+    launch where the host enqueues faster than the device runs."""
+    fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
+
+
 def ptxas_lines(report: str, source: str) -> str:
     """The registers/stack/spill lines of `source` in a verbose build report."""
     part = report.split(f"--- {source}\n", 1)[1].split("\n--- ", 1)[0]
@@ -240,6 +304,13 @@ def edits_of(variant: str, group: str) -> list:
             w, h = (int(v) for v in part.split("=", 1)[1].split("x"))
             edits.append((BODY, "constexpr int BLOCK = 128, TILE_W = 16, TILE_H = 8;",
                           f"constexpr int BLOCK = 128, TILE_W = {w}, TILE_H = {h};"))
+        elif part.startswith("tile=") and group == "geometry":
+            w, h = (int(v) for v in part.split("=", 1)[1].split("x"))
+            edits.append((GEO, "constexpr int TILE_W = 32, TILE_H = 4;", f"constexpr int TILE_W = {w}, TILE_H = {h};"))
+        elif part.startswith("pixels=") and group == "geometry":
+            n = int(part.split("=", 1)[1])
+            edits.append((GEO, "  const int grid = n_tiles < sms * per_sm ? n_tiles : sms * per_sm;",
+                          f"  const int grid = (n_tiles + {n} - 1) / {n};"))
         elif part.startswith("k4_minblocks=") and group == "path":
             edits.append(("shade_kernel.cu", None, int(part.split("=", 1)[1])))
         elif (part.startswith("depth=") or part == "census") and group == "path":
@@ -513,6 +584,63 @@ def path_times(dev) -> callable:
     return run
 
 
+# The cells of the --geometry group at 1920x1080, from the camera at
+# VIEW_LOC: (a) bench.py's raycast view (chip_smoke.py phase 13), (b) a view
+# aimed at the rounded box, (c) view (b) with two more boxes (THREE_BOXES:
+# the default room's box, a thin slab with a wide rounding and a flat plate
+# with a tight one; every box takes the default box's object ID, so the
+# tables keep their sizes). chip_smoke.py and the tests take the views and
+# the boxes from here.
+VIEW_LOC = (3.0, 2.0, -3.0)
+RAYCAST_VIEW = (0.0, 0.7)
+BOX_AIMED = (-0.165, 2.356)
+THREE_BOXES = [[7.5, 0.93, -7.5, 0.8, 0.8, 0.8, 0.1], [2.0, 1.0, 3.0, 0.3, 1.2, 0.5, 0.25],
+               [-4.0, 2.5, 0.5, 1.5, 0.2, 0.9, 0.02]]
+
+
+def geometry_cells(dev) -> dict:
+    """The --geometry group's cells → {label: (scene, camera, config)}."""
+    scene = default_scene(device=dev)
+    boxes = dataclasses.replace(scene, boxes=torch.tensor(THREE_BOXES, dtype=torch.float32, device=dev),
+                                box_ids=scene.box_ids.repeat(len(THREE_BOXES)))
+    cfg = RenderConfig(width=1920, height=1080)
+    cam_a = Camera.create(loc=VIEW_LOC, orient=RAYCAST_VIEW, device=dev)
+    cam_b = Camera.create(loc=VIEW_LOC, orient=BOX_AIMED, device=dev)
+    return {"(a) phase 13's view": (scene, cam_a, cfg), "(b) box-aimed": (scene, cam_b, cfg),
+            "(c) three boxes": (boxes, cam_b, cfg)}
+
+
+def geometry_times(dev) -> callable:
+    """The K3 timing of one variant → a function that prints it: on each
+    cell K3 alone (CUDA events around its launch) and with its wrapper, and
+    whether its dict is bitwise its plain version's. Also prints, once, the
+    plain version and the G-buffer module (`gbuffer.geometry_pass`, which
+    the pass frame runs) on cells (a) and (b)."""
+    cells = geometry_cells(dev)
+    refs = {key: gk.geometry_pass_plain(scene, cam, 0, cfg) for key, (scene, cam, cfg) in cells.items()}
+    for key in list(cells)[:2]:
+        scene, cam, cfg = cells[key]
+        plain = cuda_ms(lambda: gk.geometry_pass_plain(scene, cam, 0, cfg), reps=5)
+        gbuf = cuda_ms(lambda: gbuffer.geometry_pass(scene, cam, cfg), reps=5)
+        print(f"{key}: K3's plain version {plain:.4f} ms, gbuffer.geometry_pass {gbuf:.4f} ms "
+              f"[{card_line()}]", flush=True)
+
+    def run(variant, card):
+        parts = []
+        for key, (scene, cam, cfg) in cells.items():
+            launch = gk.geometry_launch(scene, cam, 0, cfg)[0]
+            alone = cuda_ms(launch, reps=50, warmup=3)
+            burst = burst_ms(launch)
+            wrapped = cuda_ms(lambda: gk.geometry_pass(scene, cam, 0, cfg), reps=50, warmup=3)
+            out = gk.geometry_pass(scene, cam, 0, cfg)
+            same = all(torch.equal(out[k], refs[key][k]) for k in ("depth", "curv", "normal", "oid"))
+            parts.append(f"{key} {alone:.4f} / {burst:.4f} / {wrapped:.4f} ms (bitwise {same})")
+        print(f"[{variant}] K3 1920x1080 alone / 50 back to back / with wrapper: " + ", ".join(parts)
+              + f" [{card}]", flush=True)
+
+    return run
+
+
 def kernel_ms(fn, name: str, reps: int) -> float:
     """Device milliseconds per call of the CUDA kernels whose name holds
     `name`, from a torch.profiler trace of `reps` calls of fn()."""
@@ -538,7 +666,10 @@ def tree_times(group: str) -> dict:
     t0 = time.perf_counter()
     _build.load()
     build_s = time.perf_counter() - t0
-    if group == "path":
+    if group == "geometry":
+        jobs = tuple((f"K3 {key}", lambda c=cell: gk.geometry_pass(c[0], c[1], 0, c[2]), "geometry_kernel", 50)
+                     for key, cell in geometry_cells(dev).items())
+    elif group == "path":
         cells = path_cells(dev)
         jobs = (("K7 1920x1080", lambda: pk.pathtrace(*cells["k7"], 0), "path_kernel", 10),
                 ("K7 config 3", lambda: pk.pathtrace(*cells["k7_3"], 0), "path_kernel", 20),
@@ -576,14 +707,15 @@ def main() -> int:
     group_arg = ap.add_mutually_exclusive_group()
     group_arg.add_argument("--frame", action="store_true", help="the forward frame kernels K1 and K8")
     group_arg.add_argument("--path", action="store_true", help="the path kernel K7 and the shade kernel K4")
-    ap.add_argument("--turns", type=Path, help="with --path or --frame: time the group's kernels of checkout ROOT "
+    group_arg.add_argument("--geometry", action="store_true", help="the geometry-pass kernel K3")
+    ap.add_argument("--turns", type=Path, help="with --path, --frame or --geometry: time the group's kernels of checkout ROOT "
                                                "and of this one in turns")
     ap.add_argument("--tree-times", action="store_true", help=argparse.SUPPRESS)
     ap.add_argument("variants", nargs="*", default=["committed"])
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("adjoint_variants: needs a CUDA device")
-    group = "frame" if args.frame else "path" if args.path else "adjoint"
+    group = "frame" if args.frame else "path" if args.path else "geometry" if args.geometry else "adjoint"
     if args.tree_times:
         print(json.dumps(tree_times(group)), flush=True)
         return 0
@@ -599,12 +731,16 @@ def main() -> int:
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(1)
-    run = {"frame": frame_times, "adjoint": adjoint_times}[group](dev, rng) if group != "path" else path_times(dev)
+    run = {"frame": lambda: frame_times(dev, rng), "adjoint": lambda: adjoint_times(dev, rng),
+           "path": lambda: path_times(dev), "geometry": lambda: geometry_times(dev)}[group]()
     committed = (_build.CSRC, _build.BUILD_DIR)
     everything = (_build.SOURCES, _build._SIGNATURES)
     if group == "path":  # its variants build K7, K4 and K1 (whose source has kpt_error_string) alone
         _build.SOURCES = ("frame_kernel.cu", "path_kernel.cu", "shade_kernel.cu")
         _build._SIGNATURES = {k: everything[1][k] for k in ("kpt_frame_forward", "kpt_pathtrace", "kpt_dual_mis")}
+    elif group == "geometry":  # K3 and K1 (kpt_error_string)
+        _build.SOURCES = ("frame_kernel.cu", GEO)
+        _build._SIGNATURES = {k: everything[1][k] for k in ("kpt_frame_forward", "kpt_geometry_pass")}
     built = {}  # the edits of a build → its csrc, so variants with the same sources share one build
     try:
         for variant in args.variants:

@@ -225,12 +225,14 @@ def mix_launch(x, y, template: str, iters: int, chains: int, live: int = 0):
     if not (x.is_contiguous() and y.is_contiguous()):
         raise ValueError("mix: x and y must be contiguous")
     out = torch.empty_like(x)
-    args = (x.data_ptr(), y.data_ptr(), out.data_ptr(), x.numel(), TEMPLATE_IDS[template], iters, chains, live,
-            torch.cuda.current_stream(device).cuda_stream)
+    args = (x.numel(), TEMPLATE_IDS[template], iters, chains, live, torch.cuda.current_stream(device).cuda_stream)
 
+    # launch() reads x, y and out itself, so it keeps them alive after the
+    # caller has dropped them.
     def launch():
         global LAUNCHES
-        _build.check(_build.load().kpt_mix_ceiling(*args), "kpt_mix_ceiling")
+        _build.check(_build.load().kpt_mix_ceiling(x.data_ptr(), y.data_ptr(), out.data_ptr(), *args),
+                     "kpt_mix_ceiling")
         LAUNCHES += 1
 
     return launch, out

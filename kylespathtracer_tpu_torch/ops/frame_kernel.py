@@ -500,14 +500,16 @@ def frame_launch(scene: Scene, camera, frame, config, row_base: int = 0,
     out = {k: torch.empty((H, W) + tail, dtype=torch.float32, device=device) for k, tail in (
         ("add_d", (3,)), ("add_s", (3,)), ("alb", (3,)), ("ene", (2,)), ("depth", ()), ("curv", ()))}
     out["oid"] = torch.empty((H, W), dtype=torch.int32, device=device)
-    planes = _build.FRAME_OUT.pack(*(t.data_ptr() for t in out.values()))
     stream = torch.cuda.current_stream(device).cuda_stream
 
+    # launch() reads `parts` and `out` itself, so it keeps alive what the
+    # kernel reads and writes after the caller has dropped them.
     def launch():
         global LAUNCHES, ROW_LAUNCHES
         err = _build.load().kpt_frame_forward(
             table_parts_struct(*parts), nP, nS, nB, nK, W, height, fov,
-            _wrap32(int(frame)), int(row_base), H, *shading, planes, stream,
+            _wrap32(int(frame)), int(row_base), H, *shading,
+            _build.FRAME_OUT.pack(*(t.data_ptr() for t in out.values())), stream,
         )
         _build.check(err, "kpt_frame_forward")
         LAUNCHES += 1

@@ -12,6 +12,8 @@ and in render/gbuffer.py.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from kylespathtracer_tpu_torch.core import gmath
@@ -36,10 +38,6 @@ NORMAL_ABS = 1e-5
 GRAZE = 1e-6
 
 
-def _assemble(depth, curv, nx, ny, nz, oid) -> dict:
-    return {"depth": depth, "curv": curv, "normal": torch.stack([nx, ny, nz], dim=-1), "oid": oid}
-
-
 def geometry_pass_plain(scene: Scene, camera, frame, config) -> dict:
     """`_geometry_kernel`'s body as component-plane tensor ops over the
     whole image, on the scene's device → {"depth", "curv": f32[H,W];
@@ -58,32 +56,92 @@ def geometry_pass_plain(scene: Scene, camera, frame, config) -> dict:
     hn, curv = fk._normal_curv(sc, counts, hl, oid)
     zero = torch.zeros_like(t)
     hn = sk._where_v(hit, hn, (zero, zero, zero))
-    return _assemble(t - gmath.EPS, curv, *hn, oid)
+    return {"depth": t - gmath.EPS, "curv": curv, "normal": torch.stack(hn, dim=-1), "oid": oid}
 
 
 def geometry_pass(scene: Scene, camera, frame, config) -> dict:
     """Primary-visibility raycast → the dict of `geometry_pass_plain`. The
-    scene's device picks the route: CUDA launches the kernel (or raises),
-    CPU runs `geometry_pass_plain`."""
-    global LAUNCHES
-    device = scene.device
-    if device.type == "cpu":
+    scene's device picks the route: CUDA launches the kernel once (or
+    raises), CPU runs `geometry_pass_plain`."""
+    if scene.device.type == "cpu":
         return geometry_pass_plain(scene, camera, frame, config)
+    launch, out = geometry_launch(scene, camera, frame, config)
+    launch()
+    return out
+
+
+def geometry_launch(scene: Scene, camera, frame, config):
+    """`geometry_pass`'s CUDA route in two steps → (launch, out): the
+    arguments are checked, the scene's table tensors gathered and the dict
+    allocated here; launch() launches K3 once into it and counts it.
+    chip_smoke.py and ops/adjoint_variants.py time launch() alone beside
+    geometry_pass. `frame` is not read."""
+    del frame
+    device = scene.device
     if device.type != "cuda":
         raise ValueError(f"geometry_pass: unsupported device {device}")
     fk._check_scene(scene, camera, device)
     H, W = int(config.height), int(config.width)
-    ftab, itab = fk.pack_tables(scene, camera)
-    out_f = torch.empty((5, H, W), dtype=torch.float32, device=device)
-    out_oid = torch.empty((H, W), dtype=torch.int32, device=device)
-    err = _build.load().kpt_geometry_pass(
-        ftab.data_ptr(), itab.data_ptr(), *fk._counts(scene), scene.materials.num_ids,
-        W, H, float(config.fov), out_f.data_ptr(), out_oid.data_ptr(),
-        torch.cuda.current_stream(device).cuda_stream,
-    )
-    _build.check(err, "kpt_geometry_pass")
+    if H < 1 or W < 1:
+        raise ValueError(f"geometry_pass: empty image {W}x{H}")
+    parts = fk.table_parts(scene, camera)
+    counts = (*fk._counts(scene), int(scene.materials.s0.shape[0]))
+    out = {"depth": torch.empty((H, W), dtype=torch.float32, device=device),
+           "curv": torch.empty((H, W), dtype=torch.float32, device=device),
+           "normal": torch.empty((H, W, 3), dtype=torch.float32, device=device),
+           "oid": torch.empty((H, W), dtype=torch.int32, device=device)}
+    args = (fk.table_parts_struct(*parts), *counts, W, H, float(config.fov),
+            _build.GEO_OUT.pack(*(t.data_ptr() for t in out.values())),
+            torch.cuda.current_stream(device).cuda_stream)
+    return functools.partial(_launch, _build.load().kpt_geometry_pass, args, parts, out), out
+
+
+def _launch(kernel, args, *held) -> None:
+    """One launch of K3 with `args`, counted; `held` are the tensors whose
+    addresses `args` carries, which the launch keeps alive."""
+    global LAUNCHES
+    _build.check(kernel(*args), "kpt_geometry_pass")
     LAUNCHES += 1
-    return _assemble(*out_f.unbind(0), out_oid)
+
+
+def near_a_box_plain(boxes, o, d):
+    """csrc/geometry_kernel.cu:near_a_box with its box_sphere, box by box,
+    on tensors: boxes [B,7], ray origins and unit directions [...,3] → bool
+    [...,B], False only where the ray passes far from the bounding sphere
+    of the box grown past box_may_hit's slab (frame_kernel.box_cull_plain),
+    which then rules the box out for any tmax."""
+    oc = boxes[:, :3] - o[..., None, :]
+    dv = d[..., None, :]
+    g = 1.01 * (boxes[:, 3:6] + boxes[:, 6:7]) + 1e-3 * oc.abs() + 1e-3
+    r2 = g[..., 0] * g[..., 0] + g[..., 1] * g[..., 1] + g[..., 2] * g[..., 2]
+    b = oc[..., 0] * dv[..., 0] + oc[..., 1] * dv[..., 1] + oc[..., 2] * dv[..., 2]
+    c = oc[..., 0] * oc[..., 0] + oc[..., 1] * oc[..., 1] + oc[..., 2] * oc[..., 2]
+    behind = (b < 0.0) & (b * b > r2)
+    wide = c - b * b > r2 + 1e-4 * c
+    return ~(behind | wide)
+
+
+def box_work_plain(scene: Scene, camera, config) -> dict:
+    """How much of the rounded boxes' code K3 runs on this image, from the
+    plain mirrors of its two tests → {"pixels"; "near": the rays that
+    `near_a_box_plain` passes for some box, each of which runs the slab
+    test (`frame_kernel.box_cull_plain`) on every box; "boxes": the (ray,
+    box) pairs of those rays that the slab test passes with tmax the
+    nearest plane or sphere hit, each of which runs the box's 26
+    candidates}. tmax is the plain trace's pulled t plus EPS (no hit: no
+    bound), which may part from the kernel's by the pull's rounding."""
+    H, W = config.height, config.width
+    ops = fk.small_operands(scene, camera, 0)
+    sc = dict(zip(fk.SC_KEYS, ops[:17]))
+    _, _, ro, rd = fk._raygen((H, W), ops[17], ops[18], W, H, config.fov, 0, scene.device)
+    nP, nS, _ = fk._counts(scene)
+    no_excl = torch.full((H, W), -1, dtype=torch.int32, device=scene.device)
+    t, oid = sk._trace(sc, ro, rd, no_excl, nP, nS, 0)
+    tmax = torch.where(oid > 0, t + gmath.EPS, torch.full_like(t, float("inf")))
+    o, d = torch.stack(ro, -1), torch.stack(rd, -1)
+    near = near_a_box_plain(scene.boxes, o, d).any(-1)
+    boxes = fk.box_cull_plain(scene.boxes, o, d, tmax) & near[..., None]
+    return {"pixels": H * W, "near": int(near.sum().item()), "boxes": int(boxes.sum().item())}
 
 
 def disagreement(out: dict, ref: dict) -> dict:

@@ -313,12 +313,15 @@ def path_launch(scene: Scene, camera, config, frame=0, lib=None):
     kinds, iors = _tables(scene)
     out = torch.empty((H, W, 3), dtype=torch.float32, device=device)
     args = (*fk._counts(scene), scene.materials.num_ids, W, H, float(config.fov), fk._wrap32(int(frame)),
-            spp, depth, int(gloss), out.data_ptr(), torch.cuda.current_stream(device).cuda_stream)
+            spp, depth, int(gloss))
+    stream = torch.cuda.current_stream(device).cuda_stream
 
+    # launch() reads the tensors itself, so it keeps alive what the kernel
+    # reads and writes after the caller has dropped them.
     def launch():
         global LAUNCHES
         err = (lib or _build.load()).kpt_pathtrace(fk.table_parts_struct(*parts), kinds.data_ptr(),
-                                                    iors.data_ptr(), *args)
+                                                    iors.data_ptr(), *args, out.data_ptr(), stream)
         _build.check(err, "kpt_pathtrace")
         if lib is None:
             LAUNCHES += 1

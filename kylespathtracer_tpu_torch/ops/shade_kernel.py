@@ -639,12 +639,14 @@ def dual_mis_launch(scene, gb, camera, seed, config):
     parts = fk.table_parts(scene, camera)
     est_d = torch.empty((H, W, 3), dtype=f32, device=device)
     est_s = torch.empty((H, W, 3), dtype=f32, device=device)
-    io = _build.SHADE_IO.pack(*(t.data_ptr() for t in (
-        gb.normal, gb.depth, gb.ray_dir, gb.obj_id, seed, est_d, est_s)))
     stream = torch.cuda.current_stream(device).cuda_stream
 
+    # launch() reads the tensors itself, so it keeps alive what the kernel
+    # reads and writes after the caller has dropped them.
     def launch():
         global LAUNCHES
+        io = _build.SHADE_IO.pack(*(t.data_ptr() for t in (
+            gb.normal, gb.depth, gb.ray_dir, gb.obj_id, seed, est_d, est_s)))
         err = _build.load().kpt_dual_mis(fk.table_parts_struct(*parts), nP, nS, nB, nK, W, H, soft_beta, gloss,
                                          io, stream)
         _build.check(err, "kpt_dual_mis")

@@ -24,6 +24,7 @@ from kylespathtracer_tpu_torch.ops import loss_kernel as lk
 from kylespathtracer_tpu_torch.ops import path_kernel as pk
 from kylespathtracer_tpu_torch.ops import reproject_kernel as rk
 from kylespathtracer_tpu_torch.ops import shade_kernel as sk
+from kylespathtracer_tpu_torch.ops.adjoint_variants import BOX_AIMED, THREE_BOXES, VIEW_LOC
 from kylespathtracer_tpu_torch.render import gbuffer, passes, pipeline, wavefront
 from kylespathtracer_tpu_torch.render.camera import Camera
 from kylespathtracer_tpu_torch.render.passes import Channel
@@ -298,6 +299,53 @@ def test_geometry_kernel_matches_plain(dev, case):
     assert (g.obj_id == out["oid"]).float().mean().item() >= 0.999
 
 
+# K3 from a view aimed at the rounded box (its rays reach the box's
+# candidates through the lane cull), with two more boxes, at a size that is
+# no multiple of the kernel's 32x4 tiles, and from above the room looking up
+# (every ray misses): bitwise its plain version, where a ray whose box the
+# bounding-sphere test or the cull dropped would show on the box's outline.
+@pytest.mark.parametrize("case", ["box_aimed", "three_boxes", "ragged_150x90", "all_miss"])
+def test_geometry_kernel_cases_match_plain(dev, case):
+    scene = default_scene(device=dev)
+    if case == "three_boxes":
+        scene = _with_boxes(scene, THREE_BOXES)
+    loc, orient = ((20.0, 20.0, -20.0), (1.2, 0.0)) if case == "all_miss" else (VIEW_LOC, BOX_AIMED)
+    cam = Camera.create(loc=loc, orient=orient, device=dev)
+    cfg = RenderConfig(width=150, height=90) if case == "ragged_150x90" else RenderConfig(width=160, height=96)
+    before = gk.LAUNCHES
+    out = gk.geometry_pass(scene, cam, 0, cfg)
+    torch.cuda.synchronize()
+    assert gk.LAUNCHES == before + 1
+    assert out["normal"].shape == (cfg.height, cfg.width, 3) and out["normal"].is_contiguous()
+    ref = gk.geometry_pass_plain(scene, cam, 0, cfg)
+    assert all(torch.equal(out[k], ref[k]) for k in ref), gk.disagreement(out, ref)
+    if case == "all_miss":
+        assert (out["oid"] == 0).all()
+    else:
+        assert torch.isin(out["oid"], scene.box_ids).any(), "the view sees no box"
+
+
+def test_geometry_pass_launches_its_kernel_alone(dev):
+    """K3's wrapper hands the kernel the scene's own tensors and gets the
+    dict's layouts back: one call launches K3 and no other kernel, and
+    neither concatenates nor stacks."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    scene = default_scene(device=dev)
+    cam = Camera.create(loc=VIEW_LOC, orient=BOX_AIMED, device=dev)
+    cfg = RenderConfig(width=64, height=32)
+    gk.geometry_pass(scene, cam, 0, cfg)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        gk.geometry_pass(scene, cam, 0, cfg)
+        torch.cuda.synchronize()
+    on_card = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    assert on_card and all("geometry_kernel" in n for n in on_card), on_card
+    host = [e.name for e in prof.events() if e.device_type == DeviceType.CPU]
+    assert not any(n in ("aten::cat", "aten::stack") for n in host), host
+
+
 def _config3(dev):
     """bench_configs.py:282-289: mirror, dielectric and diffuse spheres."""
     scene = sphere_scene(
@@ -333,11 +381,6 @@ def _with_boxes(scene, boxes, kind=BSDF.DIFFUSE):
     ids = torch.arange(k0, k0 + len(boxes), dtype=torch.int32, device=scene.device)
     return dataclasses.replace(scene, boxes=torch.tensor(boxes, dtype=torch.float32, device=scene.device),
                                box_ids=ids, materials=dataclasses.replace(m, **grown))
-
-
-# The default room's box and two more (tests/test_torch_frame_body.py:BOXES).
-THREE_BOXES = [[7.5, 0.93, -7.5, 0.8, 0.8, 0.8, 0.1], [2.0, 1.0, 3.0, 0.3, 1.2, 0.5, 0.25],
-               [-4.0, 2.5, 0.5, 1.5, 0.2, 0.9, 0.02]]
 
 
 @pytest.mark.parametrize("case", ["default", "config3", "glossy", "three_boxes", "dielectric_box"])
@@ -541,6 +584,55 @@ def test_path_and_shade_wrappers_pack_no_tables(dev):
         names = [(e.device_type, e.name) for e in prof.events()]
         assert any(t == DeviceType.CUDA and kernel in n for t, n in names), f"{kernel} did not launch"
         assert not any("cat" in n for t, n in names if t == DeviceType.CPU), f"{kernel}'s wrapper packs tables"
+
+
+def _two_step(dev, kernel):
+    """One kernel's two-step route at 64×32 → (launch, its outputs, the
+    tensors made here that it reads), as lists of tensors."""
+    scene = default_scene(device=dev)
+    cam = Camera.create(loc=VIEW_LOC, orient=BOX_AIMED, device=dev)
+    cfg = RenderConfig(width=64, height=32)
+    inputs = []
+    if kernel == "frame_forward":
+        launch, out = fk.frame_launch(scene, cam, 3, cfg)
+    elif kernel == "geometry_pass":
+        launch, out = gk.geometry_launch(scene, cam, 0, cfg)
+    elif kernel == "pathtrace":
+        launch, out = pk.path_launch(scene, cam, dataclasses.replace(cfg, spp=1), 0)
+    elif kernel == "dual_mis":
+        cfg_p = dataclasses.replace(cfg, pipeline="pass", shade_backend="pallas")
+        gb = gbuffer.geometry_pass(scene, cam, cfg_p)
+        _, seed = passes._shade_common(scene, cfg_p, gb, cam, 3)
+        launch, out = sk.dual_mis_launch(scene, gb, cam, seed, cfg_p)
+        inputs = [gb.normal, gb.depth, gb.ray_dir, gb.obj_id, seed]
+    else:
+        inputs = [torch.rand((32, 64), device=dev) for _ in range(2)]
+        launch, out = ck.mix_launch(*inputs, *ck.KERNEL_VARIANTS[0])
+    out = list(out.values()) if isinstance(out, dict) else list(out) if isinstance(out, tuple) else [out]
+    return launch, out, inputs
+
+
+# The two-step routes that chip_smoke.py and ops/adjoint_variants.py time by
+# their launch alone: launch() keeps alive every tensor whose address it
+# hands the kernel, so with the caller's references dropped none is freed,
+# and tensors allocated next (which the caching allocator would give the
+# freed blocks) keep what was written into them.
+@pytest.mark.parametrize("kernel", ["frame_forward", "geometry_pass", "pathtrace", "dual_mis", "mix"])
+def test_launch_keeps_its_tensors_alive(dev, kernel):
+    import gc
+    import weakref
+
+    launch, out, inputs = _two_step(dev, kernel)
+    refs = [weakref.ref(t) for t in out + inputs]
+    shapes = [(t.shape, t.dtype) for t in out]
+    del out, inputs
+    gc.collect()
+    torch.cuda.synchronize()
+    assert all(r() is not None for r in refs), f"{kernel}'s launch does not hold its tensors"
+    fresh = [torch.full(shape, 7, dtype=dtype, device=dev) for shape, dtype in shapes]
+    launch()
+    torch.cuda.synchronize()
+    assert all((t == 7).all() for t in fresh), f"{kernel}'s launch wrote into a freed block"
 
 
 # The tile modes that the sharded renderer and trainer run (parallel/shard.py):

@@ -12,10 +12,15 @@
   finds blocked, must pass the cull, on seeded rays: random, grazing the
   boxes' bounds, from inside a box, parallel to the axes, and the path
   tracer's (K7's) own: path rays leaving plane, sphere and box surfaces
-  and light-test segments toward the light; three boxes. Where the cull
-  rules out every box, the path tracer's inside-hit trace
-  (`ops/path_kernel.py:_trace_inside`) must find what it finds without the
-  boxes, bit for bit.
+  and light-test segments toward the light; and the geometry pass's (K3's)
+  camera rays from a view aimed at the box and from the raycast's view;
+  three boxes. Where the cull rules out every box, the path tracer's
+  inside-hit trace (`ops/path_kernel.py:_trace_inside`) must find what it
+  finds without the boxes, bit for bit;
+- `geometry_kernel.near_a_box_plain`, the mirror of the geometry pass's
+  test against each box's bounding sphere, which leaves the boxes out of
+  its trace before the cull, must pass every ray that the cull passes with
+  any tmax, on the same rays.
 """
 
 import dataclasses
@@ -33,16 +38,17 @@ from kylespathtracer_tpu.render.camera import Camera
 from kylespathtracer_tpu.scene import default_scene
 from kylespathtracer_tpu.scene.intersect import _box_hits
 from kylespathtracer_tpu.scene.scene import sphere_scene
+from kylespathtracer_tpu_torch.ops import adjoint_variants as av
 from kylespathtracer_tpu_torch.ops import frame_kernel as fk
+from kylespathtracer_tpu_torch.ops import geometry_kernel as gk
 
-CAM = Camera.create(loc=(3.0, 2.0, -3.0), orient=(0.0, 0.7))
+CAM_LOC = av.VIEW_LOC
+CAM = Camera.create(loc=CAM_LOC, orient=av.RAYCAST_VIEW)
+# The box-aimed view and the raycast's view of the `primary` ray family.
+PRIMARY_VIEWS = (av.BOX_AIMED, av.RAYCAST_VIEW)
 # The default room's box and two more: a thin slab with a wide rounding and
 # a flat plate with a tight one.
-BOXES = np.array([
-    [7.5, 0.93, -7.5, 0.8, 0.8, 0.8, 0.1],
-    [2.0, 1.0, 3.0, 0.3, 1.2, 0.5, 0.25],
-    [-4.0, 2.5, 0.5, 1.5, 0.2, 0.9, 0.02],
-], np.float32)
+BOXES = np.array(av.THREE_BOXES, np.float32)
 N = 4096
 
 
@@ -149,6 +155,16 @@ def _rays(family: str, rng):
         side = np.where(rng.random((N, 1)) < 0.5, 1.0, -1.0)
         return ((p + n * side * EPS).astype(np.float32), _cos_hemisphere(n * side, rng).astype(np.float32),
                 None)
+    if family == "primary":
+        # K3's camera rays at 64x32 (ops/frame_kernel.py:_raygen, fov 1.5)
+        # from a view aimed at the default room's box and from chip_smoke.py
+        # phase 13's view, both at CAM's location; rng is not read.
+        rays = []
+        for orient in PRIMARY_VIEWS:
+            _, _, ro, rd = fk._raygen((32, 64), torch.tensor([CAM_LOC]), torch.tensor([orient]), 64, 32, 1.5, 0,
+                                      "cpu")
+            rays.append((torch.stack(ro, -1).reshape(-1, 3), torch.stack(rd, -1).reshape(-1, 3)))
+        return (torch.cat([r[0] for r in rays]).numpy(), torch.cat([r[1] for r in rays]).numpy(), None)
     if family == "nee":
         # From a surface point off its normal toward a point on the light.
         p, n = _surface_points(rng)
@@ -184,7 +200,7 @@ def _rays(family: str, rng):
     return o.astype(np.float32), d.astype(np.float32), None
 
 
-FAMILIES = ["random", "grazing", "inside", "axis", "path", "nee"]
+FAMILIES = ["random", "grazing", "inside", "axis", "path", "nee", "primary"]
 
 
 @pytest.mark.parametrize("family", FAMILIES)
@@ -252,3 +268,18 @@ def test_box_cull_leaves_the_inside_hit_trace(family):
     assert ruled_out.sum() > 100 and box_wins.sum() > 100, "the check is vacuous"
     np.testing.assert_array_equal(t_all[ruled_out], t_ps[ruled_out])
     np.testing.assert_array_equal(id_all[ruled_out], id_ps[ruled_out])
+
+
+@pytest.mark.parametrize("family", FAMILIES)
+def test_near_a_box_passes_what_the_cull_passes(family):
+    """Every (ray, box) that the cull passes with no bound on t passes the
+    geometry pass's bounding-sphere test, which therefore only leaves out
+    boxes that the cull would rule out; from the room it rules out most."""
+    o, d, _ = _rays(family, np.random.default_rng(30 + FAMILIES.index(family)))
+    boxes, ot, dt = torch.from_numpy(BOXES), torch.from_numpy(o), torch.from_numpy(d)
+    cull = fk.box_cull_plain(boxes, ot, dt, torch.full((N,), 1e9)).numpy()
+    near = gk.near_a_box_plain(boxes, ot, dt).numpy()
+    assert cull.sum() > 100, "the cull passes too few rays; the check is vacuous"
+    assert near[cull].all(), f"{(~near[cull]).sum()} rays that the cull passes left out"
+    if family in ("random", "primary"):
+        assert (~near).mean() > 0.3, "the sphere test rules out too few rays to be worth its test"

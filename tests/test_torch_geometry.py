@@ -22,6 +22,7 @@ from kylespathtracer_tpu.render.camera import Camera
 from kylespathtracer_tpu.scene import default_scene
 from kylespathtracer_tpu.scene.scene import sphere_scene
 from kylespathtracer_tpu.utils.config import RenderConfig
+from kylespathtracer_tpu_torch.ops import adjoint_variants as av
 from kylespathtracer_tpu_torch.ops import geometry_kernel as gk
 from kylespathtracer_tpu_torch.render import gbuffer as gb
 
@@ -80,6 +81,26 @@ def test_gbuffer_and_plain_kernel_agree():
     assert (np_(g.obj_id) == np_(k["oid"])).all()
     np.testing.assert_allclose(np_(g.depth), np_(k["depth"]), atol=1e-5, rtol=0)
     np.testing.assert_allclose(np_(g.normal), np_(k["normal"]), atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("view", ["raycast", "box_aimed"])
+def test_box_work_counts_the_rays_that_reach_the_box(view):
+    """The tally behind K3's bound (`box_work_plain`): from the raycast's
+    view no ray comes near the box, so K3 runs none of its code; from the
+    box-aimed view every pixel on which JAX's G-buffer finds the box is
+    among the (ray, box) pairs that run its candidates, and those are a
+    small share of the rays."""
+    scene = default_scene()
+    cam = Camera.create(loc=av.VIEW_LOC, orient=av.BOX_AIMED if view == "box_aimed" else av.RAYCAST_VIEW)
+    cfg = RenderConfig(width=64, height=32)
+    work = gk.box_work_plain(to_torch_scene(scene), to_torch_camera(cam), to_torch_config(cfg))
+    box_px = int(np.isin(np.asarray(jgb.geometry_pass(scene, cam, cfg).obj_id), np.asarray(scene.box_ids)).sum())
+    assert work["pixels"] == 64 * 32
+    if view == "raycast":
+        assert box_px == 0 and work["near"] == 0 and work["boxes"] == 0
+    else:
+        assert box_px > 50, "the view sees too little of the box; the check is vacuous"
+        assert box_px <= work["boxes"] <= work["near"] < 0.2 * work["pixels"]
 
 
 @pytest.mark.parametrize("kw", [dict(intersect_mode="march"), dict(normal_mode="tetra")])
