@@ -57,7 +57,23 @@ it and read just after:
   `bound_measured_ms` is its operations at the sweep's best frame_mix
   rate (or its bytes at the memory rate, the larger): a reference for the
   frame kernels' own mix, not a ceiling. Each kernel's time is logged over
-  `bound_ms` (67 Top/s), the rate without FMA and the frame_mix rates.
+  `bound_ms` (67 Top/s), the rate without FMA and the frame_mix rates;
+- the sphere trace (scene/sdf.py, plain torch as the JAX march is XLA
+  code): `sdf.march` and `sdf.norcurv` on the card against the CPU at
+  256×128, and the march G-buffer (`gbuffer.geometry_pass` with
+  intersect_mode="march") at 1920×1080 from two views against K3's, oid
+  equal on > 99.5% of the pixels and the 99th percentile of |Δt| on equal
+  hits that do not graze under 1e-2, with its time, steps and host syncs
+  for each `sdf.CHECK_EVERY` (phase 25); the sphere-traced pass frame
+  (`render_animation`, 2 frames at 1920×1080) and `render --march` (phase
+  26); the pass pipeline's gradient at 1920×1080 (`inverse.value_and_grad`
+  through the intersectors' implicit-function backward) against K1 + K5
+  (KPT_FUSED_LOSS=0) and K6 on the same loss, 2e-3·max per table, with its
+  forward and backward times, peak memory and its device time by autograd
+  node; the march's gradient against finite differences; three `fit`
+  steps with a default (pass) config and the pass route's tiled step in 2
+  tiles (phase 27). These paths launch no kernel; phases 25 and 27 count
+  the witnesses' launches.
 
 Gradient tables are held to max|Δ| <= 1e-4·max|ref| of their plain
 versions: K5 and K6 at 256×128 with every pixel (phases 8-9), K6 (mean) at
@@ -523,6 +539,17 @@ def tiled_step(params, opt, scn, cam, target, frame, cfg_x, n):
     return {k: v.clone() for k, v in new.items()}, sum(p[0] for p in parts).item()
 
 
+def hold_step(new, loss, ref, loss_r, what):
+    """A tiled step against the unsharded one: the loss within rel 1e-5 and
+    each parameter's update within 1e-4·max|ref|."""
+    gaps = {k: (new[k] - ref[k]).abs().max().item() / ref[k].abs().max().item() for k in new}
+    rel = abs(loss - loss_r) / abs(loss_r)
+    log(f"  {what}: loss {loss:.7g} vs unsharded {loss_r:.7g} (rel {rel:.3g}); update |d|/max|ref| {gaps}")
+    if not (rel <= 1e-5 and all(v <= 1e-4 for v in gaps.values())):
+        raise AssertionError(f"{what}: the tiled step parts from the unsharded one")
+    return gaps
+
+
 def rank_phase(backend: str, hist0, tiled, params, new_params, loss, target, card: str) -> list:
     """TILES ranks of one process group, each a process started here
     through the KPT_* launch contract (the kernels are built: the ranks
@@ -711,6 +738,347 @@ def rank_worker(tmp: str, backend: str) -> int:
     print("RANK " + json.dumps(report), flush=True)
     dist.destroy_process_group()
     return 0
+
+
+# Phases 25-27 (the sphere trace and the gradients through the intersectors):
+# the values of sdf.CHECK_EVERY timed on the 1080p march G-buffer, and the
+# scene tables whose gradients phase 27 holds.
+CHECK_SWEEP = (1, 4, 8, 16, 32)
+GRAD_KEYS = ("spheres", "planes", "alb_const", "light_color")
+
+
+def backward_split(fn) -> dict:
+    """fn() once under torch.profiler → its device ms, launches, and the ten
+    largest shares of device ms by the outermost autograd node whose
+    evaluation launched the kernel ("forward" outside any)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by_node, total, launches = {}, 0.0, 0
+    tag = "autograd::engine::evaluate_function: "
+    for e in prof.events():
+        if not e.kernels:
+            continue
+        node, p = "forward", e
+        while p is not None:
+            if p.name.startswith(tag):
+                node = p.name[len(tag):]
+            p = p.cpu_parent
+        us = sum(k.duration for k in e.kernels)
+        by_node[node] = by_node.get(node, 0.0) + us
+        total += us
+        launches += len(e.kernels)
+    top = sorted(by_node.items(), key=lambda kv: -kv[1])[:10]
+    return {"device_ms": total / 1e3, "launches": launches, "top": [(k, v / 1e3) for k, v in top]}
+
+
+def counted_modules() -> dict:
+    """The kernel modules whose launches phases 25-27 count, by name."""
+    from kylespathtracer_tpu_torch.ops import frame_grad as fg
+    from kylespathtracer_tpu_torch.ops import frame_kernel as fk
+    from kylespathtracer_tpu_torch.ops import geometry_kernel as geo_k
+    from kylespathtracer_tpu_torch.ops import loss_kernel as lk
+    from kylespathtracer_tpu_torch.ops import reproject_kernel as rk
+    from kylespathtracer_tpu_torch.ops import shade_kernel as sk
+
+    return {"frame": fk, "reproject": rk, "geometry": geo_k, "dual_mis": sk, "backward": fg, "loss": lk}
+
+
+def kernel_counts() -> dict:
+    return {name: m.LAUNCHES for name, m in counted_modules().items()}
+
+
+def zero_counts() -> None:
+    """Every counted kernel's launches, and the march's steps and syncs, to 0."""
+    from kylespathtracer_tpu_torch.scene import sdf
+
+    for m in counted_modules().values():
+        m.LAUNCHES = 0
+    sdf.STEPS = sdf.SYNCS = 0
+
+
+def check_holds(failed: list, phase: str) -> None:
+    """Raise, at the end of a phase, naming every hold of it that failed."""
+    if failed:
+        raise AssertionError(f"{phase}: {'; '.join(failed)}")
+
+
+def march_phases(dev, card: str) -> dict:
+    """Phases 25-27: the sphere trace (scene/sdf.py) and the gradients through
+    the intersectors' implicit-function backward, on the card. Each phase
+    logs every hold, then raises if one failed. The paths themselves launch
+    no kernel (they are plain torch, as the JAX march and its backward are
+    XLA code); K3 (phase 25) and K1 + K5 and K6 (phase 27) are their
+    witnesses → the witnesses' launches."""
+    from kylespathtracer_tpu_torch.app import cli, driver
+    from kylespathtracer_tpu_torch.diff import inverse
+    from kylespathtracer_tpu_torch.ops import frame_kernel as fk
+    from kylespathtracer_tpu_torch.ops import geometry_kernel as geo_k
+    from kylespathtracer_tpu_torch.ops.adjoint_variants import BOX_AIMED
+    from kylespathtracer_tpu_torch.render import gbuffer, pipeline
+    from kylespathtracer_tpu_torch.render.camera import Camera, ray_dirs
+    from kylespathtracer_tpu_torch.scene import sdf
+    from kylespathtracer_tpu_torch.scene.scene import default_scene, sphere_scene
+    from kylespathtracer_tpu_torch.utils.config import RenderConfig
+
+    scene = default_scene(device=dev)
+    cam_a = Camera.create(loc=CAM_LOC, orient=CAM_ORIENT, device=dev)
+    cam_b = Camera.create(loc=CAM_LOC, orient=BOX_AIMED, device=dev)
+    witnesses = {}
+
+    # Phase 25: the march and the tetrahedron normals, card against CPU at
+    # 256x128 from the box-aimed view; then the march G-buffer at 1080p
+    # against K3's from both views (tests/test_scene.py:146-178's bars).
+    log(f"phase 25: sdf.march and sdf.norcurv, card vs CPU at 256x128; the march G-buffer at {W}x{H} vs K3 "
+        f"[{card}]")
+    failed = []
+    rd = ray_dirs(cam_b, 256, 128, 1.5)
+    ro = cam_b.loc.expand(rd.shape)
+    t_c, id_c = sdf.march(scene, ro, rd)
+    n_c, c_c = sdf.norcurv(scene, ro + rd * t_c[..., None])
+    cpu = default_scene(device="cpu")
+    t_h, id_h = sdf.march(cpu, ro.cpu(), rd.cpu())
+    n_h, c_h = sdf.norcurv(cpu, ro.cpu() + rd.cpu() * t_h[..., None])
+    same = id_c.cpu() == id_h
+    hit = same & (id_h > 0)
+    gaps = {"oid differ": 1.0 - same.float().mean().item(),
+            "t": (t_c.cpu() - t_h)[same].abs().max().item(),
+            "normal": (n_c.cpu() - n_h)[hit].abs().max().item(),
+            "curv": (c_c.cpu() - c_h)[hit].abs().max().item()}
+    log(f"  256x128 card vs CPU: {gaps}; hits {hit.float().mean().item():.4f}, box "
+        f"{(id_h == 4).float().mean().item():.4f}")
+    # t to a few ulps; the stencil scales a distance's ulp by up to ~10^3
+    # (tests/test_torch_geometry.py holds the port to JAX's stencil so too).
+    if not (gaps["oid differ"] <= 1e-3 and gaps["t"] <= 1e-5 and gaps["normal"] <= 1e-4 and gaps["curv"] <= 1e-4):
+        failed.append(f"the card's march or norcurv parts from the CPU's: {gaps}")
+    cfg_k3, cfg_m = RenderConfig(width=W, height=H), RenderConfig(width=W, height=H, intersect_mode="march")
+    witnesses["geometry"] = 0
+    for key, cam in (("a", cam_a), ("b", cam_b)):
+        zero_counts()
+        geo = geo_k.geometry_pass(scene, cam, 0, cfg_k3)
+        torch.cuda.synchronize()
+        witnesses["geometry"] += geo_k.LAUNCHES
+        zero_counts()
+        t0 = time.perf_counter()
+        gm = gbuffer.geometry_pass(scene, cam, cfg_m)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        counts, steps, syncs = kernel_counts(), sdf.STEPS, sdf.SYNCS
+        # The march stops within eps of a surface, which a ray at angle θ to
+        # its normal reaches eps/|cos θ| later: the bar's tangent grazers
+        # (|n·d| < 0.1) are left out of the t percentile, and logged.
+        eq = gm.obj_id == geo["oid"]
+        both = eq & (geo["oid"] > 0)
+        graze = (geo["normal"] * gm.ray_dir).sum(-1).abs() < 0.1
+        dt = (gm.depth - geo["depth"]).abs()
+        p99 = torch.quantile(dt[both & ~graze], 0.99).item()
+        p99_all = torch.quantile(dt[both], 0.99).item()
+        share = eq.float().mean().item()
+        ms = cuda_ms(lambda: gbuffer.geometry_pass(scene, cam, cfg_m), reps=3)
+        log(f"  view ({key}) march G-buffer vs K3: oid equal on {share:.6f}, p99 |dt| on equal hits {p99:.3g} "
+            f"without the {(both & graze).float().mean().item():.4f} of pixels that graze ({p99_all:.3g} with them), "
+            f"box {torch.isin(gm.obj_id, scene.box_ids).float().mean().item():.4f}; {ms:.4f} ms ({wall:.4f} first "
+            f"call), {steps} steps, {syncs} syncs (CHECK_EVERY {sdf.CHECK_EVERY}); launches {counts} [{card}]")
+        if any(counts.values()):
+            failed.append(f"the march G-buffer launched kernels: {counts}")
+        if not (share > 0.995 and p99 < 1e-2):
+            failed.append(f"view ({key}): the march G-buffer parts from K3's (oid {share}, p99 {p99})")
+    # sdf.CHECK_EVERY in turns (the sweep, then the sweep reversed), 5 calls
+    # each on each view.
+    chosen = sdf.CHECK_EVERY
+    sweep = {}
+    try:
+        for n in CHECK_SWEEP + CHECK_SWEEP[::-1]:
+            sdf.CHECK_EVERY = n
+            for key, cam in (("a", cam_a), ("b", cam_b)):
+                zero_counts()
+                ms = cuda_ms(lambda: gbuffer.geometry_pass(scene, cam, cfg_m), reps=5)
+                sweep.setdefault((n, key), []).append((ms, sdf.STEPS / 6, sdf.SYNCS / 6))
+    finally:
+        sdf.CHECK_EVERY = chosen
+    for (n, key), runs in sweep.items():
+        log(f"  CHECK_EVERY {n}, view ({key}): ms a G-buffer in the two turns {[round(r[0], 4) for r in runs]}; "
+            f"{runs[0][1]:.1f} steps, {runs[0][2]:.1f} syncs a call [{card}]")
+    check_holds(failed, "phase 25")
+
+    # Phase 26: the sphere-traced pass frame at full width, and the CLI.
+    log(f"phase 26: render_animation 2 frames at {W}x{H}, pipeline='pass', intersect_mode='march'")
+    failed = []
+    cams = [Camera.create(loc=CAM_LOC, orient=(CAM_ORIENT[0], CAM_ORIENT[1] + PAN * i), device=dev)
+            for i in range(2)]
+    stacked = Camera(loc=torch.stack([c.loc for c in cams]), orient=torch.stack([c.orient for c in cams]))
+    cfg_pm = RenderConfig(width=W, height=H, pipeline="pass", intersect_mode="march")
+    zero_counts()
+    t0 = time.perf_counter()
+    image, hist = driver.render_animation(scene, cfg_pm, num_frames=2, cameras=stacked)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / 2
+    counts, steps, syncs = kernel_counts(), sdf.STEPS, sdf.SYNCS
+    frame_ms = cuda_ms(lambda: pipeline.render_frame(scene, cams[1], hist, 2, cfg_pm), reps=2, warmup=0)
+    analytic_ms = cuda_ms(lambda: pipeline.render_frame(scene, cams[1], hist, 2, dataclasses.replace(
+        cfg_pm, intersect_mode="analytic")), reps=2)
+    log(f"  {wall:.4f} ms a frame over the 2 (first calls included), {frame_ms:.4f} ms a frame after; the analytic "
+        f"pass frame (shade_backend='xla') {analytic_ms:.4f} ms; {steps} march steps, {syncs} syncs in the 2 "
+        f"frames; launches {counts}; image range [{image.min().item():.4f}, {image.max().item():.4f}], mean "
+        f"diffuse count {hist.diffuse.cnt.mean().item():.4f} [{card}]")
+    if any(counts.values()):
+        failed.append(f"the march pass frames launched kernels: {counts}")
+    if image.shape != (H, W, 3) or not (torch.isfinite(image).all() and image.min() >= 0 and image.max() <= 1):
+        failed.append("the march pass image is not finite in [0, 1] or of the wrong shape")
+    with tempfile.TemporaryDirectory() as tmp:
+        with contextlib.redirect_stderr(io.StringIO()):
+            cli.main(["render", "--width", "256", "--height", "128", "--frames", "1", "--march", "--pipeline",
+                      "pass", "--out", tmp])
+        pw = png_pixels(f"{tmp}/final.png")
+    log(f"  cli render --march --pipeline pass 256x128: PNG {pw}")
+    if pw != (256, 128, 128 * (1 + 256 * 3)):
+        failed.append(f"the --march CLI's PNG is malformed: {pw}")
+    check_holds(failed, "phase 26")
+
+    # Phase 27: the pass pipeline's gradient at 1080p against the fused
+    # routes' on the same loss, the march's IFT gradient against finite
+    # differences, fit with a default config and the pass route's tiled step.
+    log(f"phase 27: the pass pipeline's gradient at {W}x{H} (shade_backend='xla', no_history, soft_shadows=0.05) "
+        "vs K1 + K5 (KPT_FUSED_LOSS=0) and K6")
+    failed = []
+    cfg_g = RenderConfig(width=W, height=H, pipeline="pass", no_history=True, soft_shadows=0.05)
+    cfg_f = dataclasses.replace(cfg_g, pipeline="fused")
+    target = dim_target(scene, dev)
+    params = inverse.extract_params(scene, GRAD_KEYS)
+    # Ill-conditioned pixels: where K1 and its plain version part, and where
+    # the pass and the fused frames do; each route's target there is its own
+    # image, so those pixels give the loss and its gradient nothing.
+    zero_counts()
+    k1 = fk.frame_forward(scene, cam_a, 3, cfg_f)
+    torch.cuda.synchronize()
+    witnesses["frame"] = fk.LAUNCHES
+    ill = fk.ill_conditioned(k1, fk.frame_forward_plain(scene, cam_a, 3, cfg_f))
+    with torch.no_grad():
+        img_p = inverse.render_once(scene, cam_a, cfg_g, 3)
+        img_f = inverse.render_once(scene, cam_a, cfg_f, 3)
+    parted = (img_p - img_f).abs().amax(-1) > 1e-4
+    bad = (ill | parted)[..., None]
+    log(f"  masked: {int(ill.sum())} ill-conditioned pixels, {int(parted.sum())} where the pass and fused images "
+        f"part by more than 1e-4, {int(bad.sum())} in all, of {W * H}; max |pass - fused| image "
+        f"{(img_p - img_f).abs().max().item():.3g}")
+    target_p, target_f = torch.where(bad, img_p, target), torch.where(bad, img_f, target)
+    del img_p, img_f, k1
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base_gib = torch.cuda.memory_allocated() / 2**30
+    zero_counts()
+    p = {k: v.detach().requires_grad_() for k, v in params.items()}
+    times = []
+    for _ in range(2):  # the first call's times include the CUDA modules' first loads
+        t0 = time.perf_counter()
+        loss = inverse.loss_fn(p, scene, cam_a, target_p, 3, cfg_g)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        grads = dict(zip(p, torch.autograd.grad(loss, list(p.values()))))
+        torch.cuda.synchronize()
+        times.append(((t1 - t0) * 1e3, (time.perf_counter() - t1) * 1e3))
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    counts = kernel_counts()
+    log(f"  pass route: forward {times[1][0]:.4f} ms, backward {times[1][1]:.4f} ms (first call {times[0][0]:.4f} "
+        f"and {times[0][1]:.4f}), peak {peak_gib:.4f} GiB of device memory ({base_gib:.4f} before); launches "
+        f"{counts} [{card}]")
+    split = backward_split(lambda: torch.autograd.grad(inverse.loss_fn(p, scene, cam_a, target_p, 3, cfg_g),
+                                                       list(p.values())))
+    log(f"  pass route under torch.profiler: device {split['device_ms']:.4f} ms in {split['launches']} launches; by "
+        "autograd node (outermost; 'forward' outside the backward): "
+        + ", ".join(f"{k} {v:.4f}" for k, v in split["top"]))
+    if any(counts.values()):
+        failed.append(f"the pass gradient launched kernels: {counts}")
+    loss_p, grads_p = inverse.value_and_grad(params, scene, cam_a, target_p, 3, cfg_g)
+    same = max((grads_p[k] - grads[k]).abs().max().item() for k in grads)
+    log(f"  value_and_grad (pass): loss {loss_p.item():.7g}, max |d| from loss_fn's autograd {same:.3g}")
+    routes = {}
+    old = os.environ.get("KPT_FUSED_LOSS")
+    try:
+        for route, flag in (("K1 + K5", "0"), ("K6", "1")):
+            os.environ["KPT_FUSED_LOSS"] = flag
+            zero_counts()
+            t0 = time.perf_counter()
+            routes[route] = inverse.value_and_grad(params, scene, cam_a, target_f, 3, cfg_f)
+            torch.cuda.synchronize()
+            counts = kernel_counts()
+            log(f"  {route} (KPT_FUSED_LOSS={flag}): {(time.perf_counter() - t0) * 1e3:.4f} ms, loss "
+                f"{routes[route][0].item():.7g}, launches {counts} [{card}]")
+            want = {"frame": 1, "backward": 1, "loss": 0} if flag == "0" else {"frame": 0, "backward": 0, "loss": 1}
+            if {k: counts[k] for k in want} != want:
+                failed.append(f"{route} did not run through its kernels: {counts}")
+            for k in ("backward", "loss"):
+                witnesses[k] = witnesses.get(k, 0) + counts[k]
+    finally:
+        if old is None:
+            del os.environ["KPT_FUSED_LOSS"]
+        else:
+            os.environ["KPT_FUSED_LOSS"] = old
+    for route, (loss_r, grads_r) in routes.items():
+        rel = {k: (grads_r[k] - grads_p[k]).abs().max().item() / grads_p[k].abs().max().item() for k in GRAD_KEYS}
+        lrel = abs(loss_r.item() - loss_p.item()) / abs(loss_p.item())
+        log(f"  {route} vs pass: loss rel {lrel:.3g}; max |d|/max|pass| per table {rel}")
+        if not (lrel <= 1e-4 and all(v <= 2e-3 for v in rel.values())):
+            failed.append(f"{route}'s gradient parts from the pass pipeline's: {rel}, loss {lrel}")
+    del grads, grads_p, routes, p, loss
+    torch.cuda.empty_cache()
+
+    # The march's IFT gradient: a ray straight at a unit sphere.
+    sph = sphere_scene([[0.0, 1.0, 5.0]], [1.0], [[0.5, 0.5, 0.5]], with_floor=False, device=dev)
+    ro1, rd1 = torch.tensor([[0.0, 1.0, 0.0]], device=dev), torch.tensor([[0.0, 0.0, 1.0]], device=dev)
+    for column, want in ((2, 1.0), (3, -1.0)):
+        def hit_t(delta, column=column):
+            spheres = sph.spheres.clone()
+            spheres[1, column] = spheres[1, column] + delta
+            return sdf.march(dataclasses.replace(sph, spheres=spheres), ro1, rd1)[0][0]
+
+        x = torch.tensor(0.0, device=dev, requires_grad=True)
+        (g,) = torch.autograd.grad(hit_t(x), x)
+        with torch.no_grad():
+            fd = ((hit_t(1e-3) - hit_t(-1e-3)) / 2e-3).item()
+        what = "dt/dz" if column == 2 else "dt/dr"
+        log(f"  march IFT {what}: {g.item():.6f}, central difference {fd:.6f}, exact {want}")
+        if not (abs(g.item() - want) < 5e-2 and abs(g.item() - fd) < 5e-2):
+            failed.append(f"the march's {what} parts from its finite difference")
+
+    # fit at the recovery view with a default config (the pass pipeline).
+    truth, start, views = inverse.recovery_scenes(10, 5, device=dev)
+    c_def = RenderConfig(width=192, height=128)
+    with torch.no_grad():
+        target_r = inverse.render_once(truth, views[0], c_def, 0)
+    inverse.fit(start, target_r, views[0], c_def, steps=1)
+    zero_counts()
+    t0 = time.perf_counter()
+    fitted, losses = inverse.fit(start, target_r, views[0], c_def, steps=3)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / 3
+    counts = kernel_counts()
+    moved = (fitted.spheres - start.spheres).abs().max().item()
+    log(f"  fit, 3 steps at 192x128 with a default config: losses {losses}, {step_ms:.4f} ms a step, spheres moved "
+        f"by up to {moved:.4g}; launches {counts} [{card}]")
+    if any(counts.values()) or not (np.isfinite(losses).all() and moved > 0):
+        failed.append(f"fit with the pass pipeline: losses {losses}, moved {moved}, launches {counts}")
+
+    # The pass route's tiled step, 2 tiles in this process.
+    c_pass = RenderConfig(width=192, height=128, soft_shadows=0.05)
+    opt = step_optimizer()
+    params_r = inverse.extract_params(start)
+    f0 = inverse.SEED_BASE
+    with torch.no_grad():
+        target_t = inverse.render_once(truth, views[0], c_pass, f0)
+    zero_counts()
+    new_r, loss_r2 = tiled_step(params_r, opt, start, views[0], target_t, f0, c_pass, 2)
+    ref_r, _, loss_rr = inverse.train_step(params_r, opt.init(params_r), opt, start, views[0], target_t, f0, c_pass)
+    counts = kernel_counts()
+    log(f"  tiled step on the pass pipeline: launches {counts}")
+    if any(counts.values()):
+        failed.append(f"the pass route's tiled step launched kernels: {counts}")
+    check_holds(failed, "phase 27")
+    hold_step(new_r, loss_r2, ref_r, loss_rr.item(), "pass pipeline, 2 tiles at the 192x128 recovery view")
+    return witnesses
 
 
 def free_port() -> int:
@@ -1536,14 +1904,6 @@ def main() -> int:
     log(f"phase 22: tiled training step (K1 + K5 row mode), {TILES} tiles at {W}x{H} and 2 at the 192x128 "
         "recovery view, against the unsharded train_step")
 
-    def hold_step(new, loss, ref, loss_r, what):
-        gaps = {k: (new[k] - ref[k]).abs().max().item() / ref[k].abs().max().item() for k in new}
-        rel = abs(loss - loss_r) / abs(loss_r)
-        log(f"  {what}: loss {loss:.7g} vs unsharded {loss_r:.7g} (rel {rel:.3g}); update |d|/max|ref| {gaps}")
-        if not (rel <= 1e-5 and all(v <= 1e-4 for v in gaps.values())):
-            raise AssertionError(f"{what}: the tiled step parts from the unsharded one")
-        return gaps
-
     opt_t = step_optimizer()
     params_t = inverse.extract_params(scene, ("spheres", "light_color"))
     fk.LAUNCHES = fk.ROW_LAUNCHES = fg.LAUNCHES = fg.ROW_LAUNCHES = lk.LAUNCHES = 0
@@ -1653,6 +2013,11 @@ def main() -> int:
     k9_work = (bench_ceiling.ops_of(mix_variant, x_f.numel()), 3 * x_f.numel() * 4)
     log(f"  K9 {mix_variant}: one mix() call with its wrapper {k9_ms:.4f} ms, the sweep's launch slope "
         f"{mix_best['ms']:.4f} ms, plain {k9_plain_ms:.4f} ms [{card}]")
+
+    # Phases 25-27: the sphere trace and the gradients through the
+    # intersectors, with K3, K1 + K5 and K6 as witnesses.
+    witnesses = march_phases(dev, card)
+    log(f"  witness launches in phases 25-27: {witnesses}")
 
     # Bounds, from this run's inputs (frame_ops, bound): each kernel's work
     # as (operations, bytes).

@@ -14,8 +14,9 @@ PNGs and one JSONL metrics record per frame (to --metrics, else stderr);
 the CPU. `pathtrace` is the multi-bounce wavefront render through the path
 kernel K7 and prints one JSON line (`wall_s`, `depth`, `spp`,
 `path_segments`). Both run on the card unless `--device cpu` is given.
-`invert`, `fly` and `info`, and `render`'s checkpoint, resume and preview
-options, wait for ROADMAP Queue 1 #14; `--march` for #11.
+`--march` sphere-traces the G-buffer and the passes (scene/sdf.py).
+`invert` waits for ROADMAP Queue 1 #2; `fly` and `info`, and `render`'s
+checkpoint, resume and preview options, for #4.
 """
 
 from __future__ import annotations
@@ -35,10 +36,9 @@ def _config_from(args):
     (`--fused` is the JAX CLI's alias of `--pipeline fused`)."""
     from kylespathtracer_tpu_torch.utils.config import RenderConfig
 
-    if args.march:
-        raise NotImplementedError(
-            "--march: the sphere-trace intersector (scene/sdf.py) waits for ROADMAP Queue 1 #11")
     kw = dict(width=args.width, height=args.height)
+    if args.march:
+        kw["intersect_mode"] = "march"
     if args.unbiased:
         kw["biased"] = False
     choice = args.pipeline

@@ -2,9 +2,9 @@
 
 Port of kylespathtracer_tpu/app/driver.py: the scripted spline camera (the
 benchmark path, geometry.frag:26-34) drives `render_frame` frame by frame;
-frames stream to PNG/PPM, metrics to JSONL. Checkpoint/resume and the
-terminal preview are still to be ported (ROADMAP Queue 1 #14) and raise if
-asked for.
+frames stream to PNG/PPM, metrics to JSONL. Checkpoint/resume (ROADMAP
+Queue 1 #2) and the terminal preview (#4) are still to be ported and raise
+if asked for.
 """
 
 from __future__ import annotations
@@ -58,7 +58,7 @@ def render_animation(
     if asked:
         raise NotImplementedError(
             f"render_animation: {', '.join(asked)} not ported yet "
-            "(ROADMAP Queue 1 #14)"
+            "(ROADMAP Queue 1 #2: checkpoint and resume; #4: the preview)"
         )
     device = scene.device
     if cameras is None:

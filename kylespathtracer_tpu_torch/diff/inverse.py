@@ -5,7 +5,10 @@ the composite, the dual-MIS shading and the analytic intersection to
 sphere positions, radii and albedos; Adam recovers a scene from target
 images. On the fused pipeline each step is one fused loss-and-gradient
 kernel per view (ops/loss_kernel.py, K6); `loss_fn` is the same loss
-through the differentiable frame (K1 forward, K5 backward) and autograd.
+through the differentiable frame (K1 forward, K5 backward) and autograd,
+which `KPT_FUSED_LOSS=0` selects for the fused pipeline too. The pass
+pipeline differentiates through the intersectors' implicit-function
+backward (scene/sdf.py).
 
 The optimizer is `torch.optim.Adam` with a cosine-decay `LambdaLR` and a
 global-norm clip, written to equal the optax chain of the JAX package
@@ -16,6 +19,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import os
 
 import numpy as np
 import torch
@@ -176,8 +180,10 @@ def value_and_grad(params: Params, scene0: Scene, camera: Camera, target: torch.
     """The step's loss and its gradient in `params`. With the fused pipeline
     each view is one fused loss-and-gradient kernel (ops/loss_kernel.py)
     and the per-view losses and gradients are averaged, which is `loss_fn`
-    and its gradient; otherwise autograd through `loss_fn`."""
-    if config.pipeline != "fused":
+    and its gradient; otherwise, or with the environment's KPT_FUSED_LOSS=0
+    (the JAX package's switch, to compare the two), autograd through
+    `loss_fn`."""
+    if config.pipeline != "fused" or os.environ.get("KPT_FUSED_LOSS", "1") == "0":
         p = {k: v.detach().requires_grad_() for k, v in params.items()}
         loss = loss_fn(p, scene0, camera, target, frame, config)
         return loss.detach(), dict(zip(p, torch.autograd.grad(loss, list(p.values()))))
@@ -323,7 +329,9 @@ def run_recovery(
 ):
     """Recover an N-sphere scene's positions, radii and albedos from
     rendered targets, starting from a perturbed copy (the JAX package's
-    north-star demo), on `device`, always through the fused pipeline.
+    north-star demo), on `device`: through the fused pipeline on the card
+    and the pass pipeline on the CPU, as the JAX package takes the fused
+    one on its accelerator only.
 
     * β continuation: the soft-shadow smoothing is annealed over phases;
       wide β crosses silhouette plateaus, small β approaches the hard
@@ -337,8 +345,9 @@ def run_recovery(
     ported yet and raise."""
     if ckpt_dir is not None or resume:
         raise NotImplementedError(
-            "run_recovery: checkpoint/resume is not ported yet (ROADMAP Queue 1 #9)")
+            "run_recovery: checkpoint/resume is not ported yet (ROADMAP Queue 1 #2)")
     scene_gt, scene_i, cameras = recovery_scenes(num_spheres, views, seed, perturb, device)
+    pipeline = "fused" if torch.device(device).type == "cuda" else "pass"
 
     # Weight steps toward the sharp-β phases: the wide-β phases only need to
     # cross silhouette plateaus; the precision comes late.
@@ -360,7 +369,7 @@ def run_recovery(
         if max_phases is not None and phase >= max_phases:
             break
         config = RenderConfig(width=width, height=height, soft_shadows=float(beta),
-                              pipeline="fused")
+                              pipeline=pipeline)
         with torch.no_grad():
             target = torch.stack([
                 torch.stack([render_once(scene_gt, cameras[v], config, SEED_BASE + k)

@@ -440,6 +440,18 @@ def _check_scene(scene: Scene, camera, device):
         raise ValueError(f"the frame kernel takes at most {MAX_PLANES} planes")
 
 
+def forward_only(what: str, plain_route: str, scene: Scene, camera, *more) -> None:
+    """Raise if the scene's or the camera's tensors, or `more`, require
+    grad: the kernel `what` (and its plain version, which stands in for it
+    on the CPU) is forward only, and its output would silently carry no
+    gradient. `plain_route` names the differentiable route to take."""
+    m = scene.materials
+    tensors = (scene.planes, scene.spheres, scene.boxes, scene.light_color, m.s0, m.s1, m.freq, m.alb_const,
+               m.alb_scale, m.emission, m.en_const, m.en_scale, m.ior, camera.loc, camera.orient, *more)
+    if any(t is not None and t.requires_grad for t in tensors):
+        raise ValueError(f"{what} is forward only and an input requires grad; take {plain_route}")
+
+
 def kernel_args(scene: Scene, camera, config) -> tuple:
     """Raise on what the frame-body kernels (K1 here, K5 in frame_grad.py,
     K6 in loss_kernel.py) do not take; else → their scene and shading

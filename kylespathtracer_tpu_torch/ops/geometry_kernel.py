@@ -62,7 +62,9 @@ def geometry_pass_plain(scene: Scene, camera, frame, config) -> dict:
 def geometry_pass(scene: Scene, camera, frame, config) -> dict:
     """Primary-visibility raycast → the dict of `geometry_pass_plain`. The
     scene's device picks the route: CUDA launches the kernel once (or
-    raises), CPU runs `geometry_pass_plain`."""
+    raises), CPU runs `geometry_pass_plain`. Forward only: an input that
+    requires grad raises (render/gbuffer.geometry_pass differentiates)."""
+    fk.forward_only("the geometry kernel (K3)", "render/gbuffer.geometry_pass", scene, camera)
     if scene.device.type == "cpu":
         return geometry_pass_plain(scene, camera, frame, config)
     launch, out = geometry_launch(scene, camera, frame, config)

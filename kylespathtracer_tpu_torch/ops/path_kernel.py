@@ -283,7 +283,10 @@ def pathtrace_plain(scene: Scene, camera, config, frame=0, tally=None) -> torch.
 def pathtrace(scene: Scene, camera, config, frame=0) -> torch.Tensor:
     """HDR radiance image f32[H, W, 3]: `config.spp` samples per pixel at
     depth `config.max_depth`, one launch. The scene's device picks the
-    route: CUDA launches the kernel (or raises), CPU runs `pathtrace_plain`."""
+    route: CUDA launches the kernel (or raises), CPU runs `pathtrace_plain`.
+    Forward only: an input that requires grad raises (`path_backend="xla"`
+    differentiates)."""
+    fk.forward_only("the path kernel (K7)", 'path_backend="xla"', scene, camera)
     device = scene.device
     if device.type == "cpu":
         return pathtrace_plain(scene, camera, config, frame)

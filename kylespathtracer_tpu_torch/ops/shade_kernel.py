@@ -602,9 +602,12 @@ def dual_mis_plain(scene, gb, camera, seed, config):
 def dual_mis(scene, gb, camera, seed, config):
     """The dual-MIS estimator pair from a G-buffer → (est_d, est_s), each
     f32[H,W,3], masked to shaded pixels. CUDA tensors launch the shade
-    kernel (or raise); CPU tensors run `dual_mis_plain`."""
+    kernel (or raise); CPU tensors run `dual_mis_plain`. Forward only: an
+    input that requires grad raises (`shade_backend="xla"` differentiates)."""
     from kylespathtracer_tpu_torch.ops import frame_kernel as fk
 
+    fk.forward_only("the shade kernel (K4)", 'shade_backend="xla"', scene, camera, gb.normal, gb.depth,
+                    gb.ray_dir, gb.curv)
     if gb.obj_id.device.type == "cpu":
         fk.check_planes_for_biased(scene, config)
         return dual_mis_plain(scene, gb, camera, seed, config)

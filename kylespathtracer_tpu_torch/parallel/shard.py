@@ -161,8 +161,8 @@ def _render_row_block(scene, camera, prev_hist: History, frame, config, row0: in
     row mode and K2's tile mode) when the tile is block-aligned; otherwise
     it warns and takes the differentiable frame (K1's row mode) and the
     exact gather, whose taps beyond the window restart the history. Any
-    other pipeline is the pass pipeline's math on the tile (the analytic
-    G-buffer, the exact gather, mis.dual_mis)."""
+    other pipeline is the pass pipeline's math on the tile (the G-buffer,
+    analytic or sphere-traced, the exact gather, mis.dual_mis)."""
     W, H = config.width, config.height
     rd = ray_dirs_window(camera, W, H, row0, rows, config.fov)
 

@@ -6,8 +6,9 @@ of render/reproject.py), clamp the history by camera velocity, add emission
 plus one MIS (or unbiased) estimate, bump the sample count. `Channel`,
 `count_floor` and `_temporal_clamp` are shared with the fused frame.
 
-The pass pipeline traces analytically (scene/intersect.py); the
-sphere-traced intersector of scene/sdf.py waits for ROADMAP Queue 1 #11.
+The passes trace with `config.intersect_mode`'s intersector (`get_trace`):
+analytic (scene/intersect.py) or the sphere trace (scene/sdf.py); both are
+differentiable.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ from kylespathtracer_tpu_torch.render import mis as mis_mod
 from kylespathtracer_tpu_torch.render import reproject as rep_mod
 from kylespathtracer_tpu_torch.scene import intersect as isect
 from kylespathtracer_tpu_torch.scene import materials as mat_mod
+from kylespathtracer_tpu_torch.scene import sdf as sdf_mod
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,13 +75,14 @@ def _temporal_clamp(rep_rgb, rep_cnt, vv, config):
 
 
 def get_trace(config):
-    """The intersector of the passes: analytic. The sphere trace
-    (`intersect_mode="march"`) waits for the port of scene/sdf.py."""
-    if config.intersect_mode != "analytic":
-        raise NotImplementedError(
-            f"intersect_mode={config.intersect_mode!r} needs scene/sdf.py, "
-            "which waits for ROADMAP Queue 1 #11")
-    return lambda scene, ro, rd, excl: isect.intersect(scene, ro, rd, excl)
+    """The intersector `trace(scene, ro, rd, exclude) → (t, object_id)` of
+    `config.intersect_mode`: the closed form ("analytic") or the sphere
+    trace of at most `config.steps` steps ("march")."""
+    if config.intersect_mode == "analytic":
+        return lambda scene, ro, rd, excl: isect.intersect(scene, ro, rd, excl)
+    if config.intersect_mode == "march":
+        return lambda scene, ro, rd, excl: sdf_mod.march(scene, ro, rd, excl, config.steps)
+    raise ValueError(f"unknown intersect_mode {config.intersect_mode!r}")
 
 
 def _shade_common(scene, config, gb, camera, frame):

@@ -13,9 +13,11 @@ Both are forward-only, as the JAX paths are. The differentiable frame
 (`no_history=True`, or `reproject_backend="xla"`) runs K1 through
 ops/frame_grad.py, whose backward is K5, and the exact gather of
 render/reproject.py. Any other `pipeline` is the pass pipeline: the
-analytic G-buffer, then the diffuse and specular passes (render/passes.py,
-the shade kernel K4 with `shade_backend="pallas"`), then the composite;
-forward-only. Everything runs on the scene's device.
+G-buffer (analytic, or sphere-traced with `intersect_mode="march"`), then
+the diffuse and specular passes (render/passes.py, the shade kernel K4 with
+`shade_backend="pallas"`), then the composite; differentiable with
+`shade_backend="xla"`, through the intersectors' implicit-function backward
+(scene/sdf.py). Everything runs on the scene's device.
 
 The stages are `torch.profiler` spans (STAGES), so a profiler trace splits
 the frame's device time by stage; outside a profiler they cost a few
@@ -115,9 +117,7 @@ def render_frame(
 
 def pass_frame(scene: Scene, camera: Camera, history: History, frame, config):
     """The pass pipeline (reference frame loop, main.cpp:344-350): the
-    analytic G-buffer → the fused diffuse + specular passes → composite.
-    `intersect_mode="march"` and tetrahedron normals raise (ROADMAP Queue
-    1 #11)."""
+    G-buffer → the fused diffuse + specular passes → composite."""
     gb = gb_mod.geometry_pass(scene, camera, config)
     d, s = shade_passes(scene, config, gb, camera, history.camera,
                         history.diffuse, history.specular, frame)

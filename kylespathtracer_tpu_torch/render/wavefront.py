@@ -16,9 +16,10 @@ purpose, as in the JAX package: here the sphere roots take sqrt(max(disc,
 full `intersect`; the kernel takes sqrt(max(disc, 1e-12)), 1/max(ior,
 1e-6), `_powi` and the occlusion test `_light_visible`.
 
-Forward only: the JAX package differentiates through `intersect` with the
-implicit-function backward of scene/sdf.py, which waits for ROADMAP Queue 1
-#11.
+The integrator ("xla") is differentiable end to end: `intersect` carries
+the implicit-function backward of scene/sdf.py, so pixel gradients reach
+the scene's tables. The path kernel is forward only, as the JAX package's
+`pathtrace_pallas` is, and refuses an input that requires grad.
 """
 
 from __future__ import annotations
@@ -32,18 +33,32 @@ from kylespathtracer_tpu_torch.render.camera import Camera, ray_dirs
 from kylespathtracer_tpu_torch.scene import intersect as isect_mod
 from kylespathtracer_tpu_torch.scene import materials as mat_mod
 from kylespathtracer_tpu_torch.scene import normals as nrm_mod
+from kylespathtracer_tpu_torch.scene import sdf as sdf_mod
 from kylespathtracer_tpu_torch.scene.types import Scene, bsdf_table
 
 _PAIRS_PER_BOUNCE = 3  # (nee u1,u2), (bsdf u1,u2), (bsdf u3, unused)
 _M32 = 0xFFFFFFFF
 
 
+def _surface_normal(scene: Scene, p: torch.Tensor) -> torch.Tensor:
+    """The exact outward surface normal: the normalized gradient of the
+    scene's distance field at p (the JAX package's oracle). Under autograd
+    the gradient keeps its graph, so the normal differentiates in the scene
+    and in p as `jax.grad` inside a differentiated function does."""
+    tracked = p.requires_grad or any(t.requires_grad for t in (scene.planes, scene.spheres, scene.boxes))
+    keep = torch.is_grad_enabled() and tracked
+    with torch.enable_grad():
+        q = p if p.requires_grad else p.detach().requires_grad_()
+        (g,) = torch.autograd.grad(sdf_mod.sdf_dist(scene, q).sum(), q, create_graph=keep)
+    return gmath.normalize(g)
+
+
 def _hit_normal(scene: Scene, p, oid, config) -> torch.Tensor:
-    """Surface normal at hit points, per primitive by object id; misses get
-    the finite placeholder (0, 1, 0)."""
+    """Surface normal at hit points: with `normal_mode="tetra"` the sdf
+    gradient (`_surface_normal`), else per primitive by object id, misses
+    getting the finite placeholder (0, 1, 0)."""
     if config.normal_mode == "tetra":
-        raise NotImplementedError(
-            "normal_mode='tetra' needs scene/sdf.py, which waits for ROADMAP Queue 1 #11")
+        return _surface_normal(scene, p)
     n, _ = nrm_mod.normal_curv(scene, p, oid)
     up = torch.zeros_like(n)
     up[..., 1] = 1.0

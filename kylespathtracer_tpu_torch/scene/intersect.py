@@ -1,12 +1,10 @@
 """Closed-form ray intersection with planes, spheres and rounded boxes.
 
-Port of kylespathtracer_tpu/scene/intersect.py, forward only. Hit semantics
-mirror the reference's march (common.glsl:283-295): t is pulled back by eps
-from the exact surface, misses return (ZFAR, 0), and later primitives win
-ties. The JAX package differentiates through it with the
-implicit-function-theorem backward of scene/sdf.py; that waits for the port
-of sdf.py (ROADMAP Queue 1 #11), so `intersect` raises on an input that
-requires grad.
+Port of kylespathtracer_tpu/scene/intersect.py. Hit semantics mirror the
+reference's march (common.glsl:283-295): t is pulled back by eps from the
+exact surface, misses return (ZFAR, 0), and later primitives win ties.
+Gradients use the march's implicit-function-theorem backward
+(scene/sdf.py:ift_backward), through `sdf.IntersectFunction`.
 """
 
 from __future__ import annotations
@@ -14,6 +12,7 @@ from __future__ import annotations
 import torch
 
 from kylespathtracer_tpu_torch.core import gmath
+from kylespathtracer_tpu_torch.scene import sdf as sdf_mod
 from kylespathtracer_tpu_torch.scene.types import Scene
 
 _INF = 1e9
@@ -104,19 +103,10 @@ def _box_hits(scene: Scene, ro, rd):
     return best
 
 
-def intersect(scene: Scene, ro: torch.Tensor, rd: torch.Tensor, exclude=-1,
-              steps: int = 255, inside_hits: bool = False
-              ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Analytic nearest hit → (t, object_id) for rays ro, rd f32[..., 3];
-    `exclude` (an ID, or an i32[...] of them) is skipped. `steps` is
-    accepted for the march's signature and ignored."""
-    del steps
-    if any(t.requires_grad for t in (ro, rd, scene.planes, scene.spheres, scene.boxes)):
-        raise NotImplementedError(
-            "intersect is forward only: its gradient (the implicit-function "
-            "backward of scene/sdf.py) waits for ROADMAP Queue 1 #11")
+def _intersect_fwd(scene: Scene, ro, rd, excl, inside_hits: bool):
+    """The nearest hit of every primitive → (t, object_id); `excl`: i32,
+    broadcast to the rays."""
     batch = ro.shape[:-1]
-    excl = torch.as_tensor(exclude, dtype=torch.int32, device=ro.device).expand(batch)
     parts = [torch.full(batch + (1,), _INF, dtype=ro.dtype, device=ro.device)]
     ids = [torch.zeros((1,), dtype=torch.int32, device=ro.device)]
     if scene.planes.shape[0]:
@@ -144,3 +134,18 @@ def intersect(scene: Scene, ro: torch.Tensor, rd: torch.Tensor, exclude=-1,
     t = t - gmath.EPS
     miss = (t > gmath.ZFAR) | (oid == 0)
     return torch.where(miss, gmath.ZFAR, t), torch.where(miss, 0, oid)
+
+
+def intersect(scene: Scene, ro: torch.Tensor, rd: torch.Tensor, exclude=-1,
+              steps: int = 255, inside_hits: bool = False
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Analytic nearest hit → (t, object_id) for rays ro, rd f32[..., 3];
+    `exclude` (an ID, or an i32[...] of them) is skipped. `steps` is
+    accepted for the march's signature and ignored. `inside_hits` (not
+    differentiated) gives a ray that starts inside a sphere its far root,
+    the exit point (the wavefront integrator's dielectrics). Differentiable
+    in the scene's planes, spheres and boxes, ro and rd through the
+    implicit-function backward."""
+    del steps
+    fwd = lambda sc, o, d, ex: _intersect_fwd(sc, o, d, ex, inside_hits)
+    return sdf_mod.apply_intersector(fwd, scene, ro, rd, exclude)

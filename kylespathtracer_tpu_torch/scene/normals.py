@@ -3,8 +3,7 @@
 Port of kylespathtracer_tpu/scene/normals.py: plane n = its normal, curv 0;
 sphere n = (p-c)/|p-c|, curv eps/|p-c|; rounded box n = m·sign(q)/|m| with
 m = max(|q|-half, 0), curv 0.5·eps·max(k-1, 0)/|m| (k = positive
-components of |q|-half). The tetrahedron estimator (`sdf.norcurv`) waits
-for the port of scene/sdf.py (ROADMAP Queue 1 #11).
+components of |q|-half). The tetrahedron estimator is `sdf.norcurv`.
 """
 
 from __future__ import annotations

@@ -4,9 +4,8 @@ The same knobs and defaults as the JAX package's `RenderConfig`
 (kylespathtracer_tpu/utils/config.py), copied rather than imported: that
 package imports jax. Maps 1:1 onto the reference's compile-time quality
 knobs (common.glsl:1-29) plus execution options. The PyTorch port serves
-every `pipeline`, `reproject_backend` and `temporal_fusion`; the sphere
-trace (`intersect_mode="march"`) and tetrahedron normals raise (ROADMAP
-Queue 1 #11).
+every `pipeline`, `reproject_backend`, `temporal_fusion`, `intersect_mode`
+and `normal_mode`.
 """
 
 from __future__ import annotations

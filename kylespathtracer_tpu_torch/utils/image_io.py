@@ -1,7 +1,7 @@
 """Image export (numpy + zlib; no torch, no native code).
 
 Port of kylespathtracer_tpu/utils/image_io.py without its native PNG
-encoder, which waits for the port of utils/native.py (ROADMAP Queue 1 #14):
+encoder, which waits for the port of utils/native.py (ROADMAP Queue 1 #4):
 PNG goes through Python's zlib, PPM needs nothing.
 
 Renderer images are float [0, 1] RGB with row 0 at the *bottom* (GL

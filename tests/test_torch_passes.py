@@ -84,7 +84,7 @@ def test_render_cli_on_cpu(tmp_path):
 def test_render_cli_config():
     """`--pipeline auto` is the fused frame on the card and the pass
     pipeline on the CPU; `--fused` is an alias of `--pipeline fused`;
-    `--march` waits for ROADMAP Queue 1 #11."""
+    `--march` sphere-traces (intersect_mode="march")."""
     ns = argparse.Namespace
     base = dict(width=16, height=8, march=False, unbiased=False, pipeline="auto", fused=False)
     assert cli._config_from(ns(**base, device="cpu")).pipeline == "pass"
@@ -93,5 +93,6 @@ def test_render_cli_config():
     assert cli._config_from(ns(**dict(base, unbiased=True), device="cpu")).biased is False
     with pytest.raises(SystemExit):
         cli._config_from(ns(**dict(base, fused=True, pipeline="pass"), device="cpu"))
-    with pytest.raises(NotImplementedError, match="#11"):
-        cli._config_from(ns(**dict(base, march=True), device="cpu"))
+    assert cli._config_from(ns(**base, device="cpu")).intersect_mode == "analytic"
+    march = cli._config_from(ns(**dict(base, march=True), device="cpu"))
+    assert (march.intersect_mode, march.pipeline) == ("march", "pass")

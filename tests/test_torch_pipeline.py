@@ -16,7 +16,7 @@ import pytest
 import torch
 
 from _torch_helpers import (
-    np_, to_torch_camera, to_torch_config, to_torch_history, to_torch_scene,
+    np_, pass_pan_matches_jax, to_torch_camera, to_torch_config, to_torch_history, to_torch_scene,
 )
 from kylespathtracer_tpu.core import gmath as jgmath
 from kylespathtracer_tpu.ops import frame_kernel as jfk
@@ -163,19 +163,21 @@ def test_render_sequence_and_animation_equal_the_frame_loop():
     ],
 )
 def test_unported_branches_raise(kw, item):
-    """The branches of render_frame the port did not serve at first now
-    render (the pass pipeline, #11, and the mono frame, #12: held to JAX in
-    tests/test_torch_passes.py and tests/test_torch_mono.py; the #9
-    branches in tests/test_torch_frame_grad.py); the sphere trace and the
-    tetrahedron normals still raise, naming ROADMAP Queue 1 #11."""
+    """The branches of render_frame the port did not serve at first (`item`:
+    the number their queue item once had) all render: the pass pipeline and
+    the mono frame (held to JAX in tests/test_torch_passes.py and
+    tests/test_torch_mono.py), the differentiable fused frames (in
+    tests/test_torch_frame_grad.py), and the sphere trace and the
+    tetrahedron normals, held here to JAX's pass frames over a 3-frame pan
+    from a populated history (`pass_pan_matches_jax`: atol 2e-4, oid
+    exact)."""
     cfg = to_torch_config(RenderConfig(width=8, height=8, **kw))
+    if cfg.intersect_mode == "march" or cfg.normal_mode == "tetra":
+        pass_pan_matches_jax({k: v for k, v in kw.items() if k != "pipeline"})
+        return
     scene_t = to_torch_scene(default_scene())
     cam = to_torch_camera(CAM0)
     hist = pipeline.init_history(cfg, cam)
-    if cfg.intersect_mode == "march" or cfg.normal_mode == "tetra":
-        with pytest.raises(NotImplementedError, match=item):
-            pipeline.render_frame(scene_t, cam, hist, 0, cfg)
-        return
     img, _ = pipeline.render_frame(scene_t, cam, hist, 0, cfg)
     assert img.shape == (8, 8, 3) and torch.isfinite(img).all()
 

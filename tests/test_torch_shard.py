@@ -167,7 +167,7 @@ def _pan(device=CPU):
 
 
 FRAMES = {"split": dict(pipeline="fused"), "mono": dict(pipeline="fused", temporal_fusion="mono"),
-          "pass": dict(pipeline="pass")}
+          "pass": dict(pipeline="pass"), "pass_march": dict(pipeline="pass", intersect_mode="march")}
 
 
 @pytest.mark.parametrize("n", [2, 4])
@@ -230,12 +230,10 @@ def _close(a, b, what):
     np.testing.assert_allclose(a, b, rtol=0, atol=1e-4 * (np.abs(b).max() + 1e-8), err_msg=what)
 
 
-def test_train_step_tiled_matches_unsharded():
+def _hold_tiled_step(start, cam, cfg, target):
     """Two tiles' summed loss and gradient, and `train_step_tiled` on a
     one-rank mesh, against `inverse.train_step` on the whole image: loss,
-    gradients and the ClippedAdam update to 1e-4·max; every frame through
-    K1's and K5's row modes (their plain versions here)."""
-    start, cam, cfg, target = _train_case()
+    gradients and the ClippedAdam update to 1e-4·max."""
     opt = inverse.ClippedAdam(1e-2, 10, 0.1, clip=1.0)
     params = inverse.extract_params(start)
 
@@ -258,16 +256,18 @@ def test_train_step_tiled_matches_unsharded():
         assert not torch.equal(got[k], params[k]), "the step moved nothing"
 
 
+def test_train_step_tiled_matches_unsharded():
+    """The tiled step on the fused frame (`_hold_tiled_step`): every frame
+    through K1's and K5's row modes (their plain versions here)."""
+    _hold_tiled_step(*_train_case())
+
+
 def test_train_step_tiled_needs_the_fused_frame():
-    """With the pass pipeline the step differentiates `intersect`, which the
-    port does not yet (ROADMAP Queue 1 #1): it raises, as `train_step`
-    does."""
+    """The tiled step on the pass pipeline (`_hold_tiled_step`), which
+    differentiates through `intersect`'s implicit-function backward: the
+    tiles' G-buffer rows and `mis.dual_mis`."""
     start, cam, cfg, target = _train_case()
-    opt = inverse.ClippedAdam(1e-2, 10, 0.1)
-    params = inverse.extract_params(start)
-    with pytest.raises(NotImplementedError, match="intersect is forward only"):
-        shard.train_step_tiled(params, opt.init(params), opt, start, cam, target, 0,
-                               dataclasses.replace(cfg, pipeline="pass"), Mesh(0, 1, CPU))
+    _hold_tiled_step(start, cam, dataclasses.replace(cfg, pipeline="pass"), target)
 
 
 # ------------------------------------------------------ the argument checks

@@ -10,6 +10,7 @@ import json
 import struct
 import zlib
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -144,10 +145,34 @@ def test_intersect_materials_normals_match_jax(scene_fn, lo, hi, inside_hits):
 
 
 def test_intersect_is_forward_only():
-    ts = to_torch_scene(default_scene())
-    ro = torch.zeros((4, 3), requires_grad=True)
-    with pytest.raises(NotImplementedError, match="Queue 1 #11"):
-        isect.intersect(ts, ro, torch.ones((4, 3)))
+    """`intersect` differentiates (it was forward only): the gradient of a
+    seeded weighting of t in the scene's tables, ro and rd against
+    `jax.vjp` of the JAX intersect, 1e-4·max per table, with and without
+    `inside_hits` (rays from the room and from inside the light sphere)."""
+    scene = default_scene()
+    rng = np.random.default_rng(11)
+    ro = np.concatenate([rng.uniform([-5, 0.5, -9], [9, 9, 5], (96, 3)),
+                         np.asarray(scene.spheres[0, :3]) + rng.uniform(-0.4, 0.4, (32, 3))]).astype(np.float32)
+    rd = rng.standard_normal((128, 3)).astype(np.float32)
+    rd /= np.linalg.norm(rd, axis=-1, keepdims=True)
+    g = rng.standard_normal(128).astype(np.float32)
+    for inside in (False, True):
+        (t_j, _), vjp = jax.vjp(
+            lambda pl, sp, bx, o, d: jisect.intersect(scene.replace(planes=pl, spheres=sp, boxes=bx), o, d,
+                                                      inside_hits=inside),
+            scene.planes, scene.spheres, scene.boxes, jnp.asarray(ro), jnp.asarray(rd))
+        ref = vjp((jnp.asarray(g), np.zeros(128, jax.dtypes.float0)))
+        ts = to_torch_scene(scene)
+        leaves = [x.clone().requires_grad_() for x in (ts.planes, ts.spheres, ts.boxes, torch.from_numpy(ro),
+                                                       torch.from_numpy(rd))]
+        sc = dataclasses.replace(ts, planes=leaves[0], spheres=leaves[1], boxes=leaves[2])
+        t_t, _ = isect.intersect(sc, leaves[3], leaves[4], inside_hits=inside)
+        np.testing.assert_allclose(np_(t_t), np.asarray(t_j), atol=1e-5, rtol=0)
+        got = torch.autograd.grad((t_t * torch.from_numpy(g)).sum(), leaves, allow_unused=True)
+        for name, a, b in zip(("planes", "spheres", "boxes", "ro", "rd"), ref, got):
+            a = np.asarray(a)
+            assert np.abs(a).max() > 0, name
+            np.testing.assert_allclose(np_(b), a, rtol=0, atol=1e-4 * np.abs(a).max(), err_msg=f"{name} {inside}")
 
 
 @pytest.mark.parametrize("case", list(PATH_CASES))
@@ -176,8 +201,11 @@ def test_wavefront_unsupported_options_raise():
     ts, tc, tcfg = to_torch_scene(scene), to_torch_camera(cam), to_torch_config(cfg)
     with pytest.raises(ValueError, match="path_backend"):
         wf.pathtrace(ts, tc, dataclasses.replace(tcfg, path_backend="scan"))
-    with pytest.raises(NotImplementedError, match="Queue 1 #11"):
-        wf.pathtrace(ts, tc, dataclasses.replace(tcfg, path_backend="xla", normal_mode="tetra"))
+    # normal_mode="tetra" (once refused): the sdf-gradient normals of the
+    # XLA-style integrator against JAX's, at test_path_kernel.py's bar.
+    cfg_t = dataclasses.replace(cfg, width=32, height=24, path_backend="xla", normal_mode="tetra")
+    ref = np.asarray(jwf.pathtrace(scene, cam, cfg_t, jnp.asarray(0, jnp.int32)))
+    assert_path_bar(np_(wf.pathtrace(ts, tc, to_torch_config(cfg_t), 0)), ref)
 
 
 def test_cli_pathtrace_writes_json_and_png(tmp_path, capsys):
