@@ -73,7 +73,25 @@ it and read just after:
   node; the march's gradient against finite differences; three `fit`
   steps with a default (pass) config and the pass route's tiled step in 2
   tiles (phase 27). These paths launch no kernel; phases 25 and 27 count
-  the witnesses' launches.
+  the witnesses' launches;
+- checkpoint and resume (utils/checkpoint.py): `render_animation` at
+  1920×1080 (split frame, K1 + K2) checkpointed at frame 3 and resumed,
+  bitwise the uninterrupted 8 frames, with the checkpoint's size and its
+  save and restore times, and `render --checkpoint-every 3 --resume`
+  through the CLI (phase 28); `run_recovery` (RECOVERY recipe, K6) killed
+  after 2 β phases and resumed by `cli invert --ckpt-dir D --resume` in a
+  subprocess, held to the RECOVERY bounds and to the sidecar's trace, the
+  state's round trip on the card bitwise, a torn pair falling back to
+  phase 1 (phase 29); the tiled step (`train_step_tiled`, K1 + K5)
+  checkpointed after step 1 and resumed in fresh objects (phase 22);
+- the fly-cam (app/fly.py): 18 frames of key bytes through `parse_keys`
+  and `fly_step` at 1920×1080 (K1 + K2), bitwise the same input frames
+  through `playback_cameras` and `render_animation`, the controller on the
+  card against the CPU's, the fly step's and `frame_to_ansi`'s times, and
+  `cli fly` without a terminal (phase 30); `cli info`, the native library
+  (its build, its march against `sdf.march`, its PNGs against zlib's),
+  `metrics.profiler_trace` of a frame holding K1, `Timer` and `time_fn`
+  against CUDA events (phase 31).
 
 Gradient tables are held to max|Δ| <= 1e-4·max|ref| of their plain
 versions: K5 and K6 at 256×128 with every pixel (phases 8-9), K6 (mean) at
@@ -548,6 +566,71 @@ def hold_step(new, loss, ref, loss_r, what):
     if not (rel <= 1e-5 and all(v <= 1e-4 for v in gaps.values())):
         raise AssertionError(f"{what}: the tiled step parts from the unsharded one")
     return gaps
+
+
+def state_gaps(a, b) -> list:
+    """The entries where two AdamStates (or their trees) differ: the
+    parameters, Adam's per-parameter step and moments, and the schedule's
+    counts, each compared bitwise."""
+    from kylespathtracer_tpu_torch.utils.checkpoint import as_tree
+
+    ta, tb = as_tree(a), as_tree(b)
+    out = [k for k in ta["params"] if not torch.equal(ta["params"][k].cpu(), tb["params"][k].cpu())]
+    for i, sa in ta["adam"]["state"].items():
+        out += [f"adam {i} {k}" for k, v in sa.items() if not torch.equal(v.cpu(), tb["adam"]["state"][i][k].cpu())]
+    out += [f"schedule {k}" for k in ("last_epoch", "_step_count") if ta["schedule"][k] != tb["schedule"][k]]
+    return out
+
+
+def sharded_resume(scene, cam, target, cfg, opt, dev) -> dict:
+    """Phase 22, resume: `train_step_tiled` on a one-rank mesh (K1 + K5, the
+    whole image its one tile), its (params, opt_state) checkpointed after
+    step 1 and restored into fresh objects, held bitwise. Step 2's update
+    from the restored state is held bitwise to the uninterrupted one on one
+    gradient; the full step through `train_step_tiled` from a second restore
+    is held to hold_step's bar and logged bitwise or not (K5 adds its
+    gradient with float atomics, whose order may vary from run to run) →
+    the launches."""
+    from kylespathtracer_tpu_torch.diff import inverse
+    from kylespathtracer_tpu_torch.ops import frame_grad as fg
+    from kylespathtracer_tpu_torch.ops import frame_kernel as fk
+    from kylespathtracer_tpu_torch.parallel import shard
+    from kylespathtracer_tpu_torch.parallel.mesh import Mesh
+    from kylespathtracer_tpu_torch.utils import checkpoint as ckpt_mod
+
+    keys = ("spheres", "light_color")
+    one = Mesh(rank=0, size=1, device=dev)
+    fk.LAUNCHES = fg.LAUNCHES = 0
+    p0 = inverse.extract_params(scene, keys)
+    p1, st, _ = shard.train_step_tiled(p0, opt.init(p0), opt, scene, cam, target, 3, cfg, one)
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt_mod.save(tmp, 1, {"params": p1, "opt_state": st})
+
+        def restored():
+            fresh = inverse.extract_params(scene, keys)
+            return ckpt_mod.restore(tmp, like={"params": fresh, "opt_state": opt.init(fresh)})[1]
+
+        back, back_full = restored(), restored()
+    gaps = state_gaps(st, back["opt_state"]) + [k for k in keys if not torch.equal(back["params"][k], p1[k])]
+    loss2, g2 = shard.tile_loss_and_grad(p1, scene, cam, target, 4, cfg, 0, cfg.height)
+    _, g2_again = shard.tile_loss_and_grad(p1, scene, cam, target, 4, cfg, 0, cfg.height)
+    repeats = all(torch.equal(g2[k], g2_again[k]) for k in keys)
+    upd_r = {k: v.clone() for k, v in opt.update(g2, back["opt_state"], back["params"]).items()}
+    upd_u = {k: v.clone() for k, v in opt.update(g2, st, p1).items()}
+    gaps += [f"step 2 {k}" for k in keys if not torch.equal(upd_r[k], upd_u[k])]
+    gaps += [f"after step 2: {g}" for g in state_gaps(st, back["opt_state"])]
+    full, _, loss_f = shard.train_step_tiled(back_full["params"], back_full["opt_state"], opt, scene, cam, target, 4,
+                                             cfg, one)
+    torch.cuda.synchronize()
+    launches = {"frame": fk.LAUNCHES, "backward": fg.LAUNCHES}
+    bitwise = all(torch.equal(full[k], upd_u[k]) for k in keys)
+    log(f"  resume of train_step_tiled (one rank, {cfg.width}x{cfg.height}): launches {launches}; state restored "
+        f"and step 2's update on one gradient bitwise: {not gaps} {gaps}; K5's gradient repeats bitwise: {repeats}; "
+        f"the full step 2 from a second restore bitwise the uninterrupted update: {bitwise}")
+    if gaps:
+        raise AssertionError(f"phase 22: the resumed tiled step parts from the uninterrupted one: {gaps}")
+    hold_step(full, loss_f.item(), upd_u, loss2.item(), "the full step 2 from the restored state")
+    return launches
 
 
 def rank_phase(backend: str, hist0, tiled, params, new_params, loss, target, card: str) -> list:
@@ -1081,6 +1164,396 @@ def march_phases(dev, card: str) -> dict:
     return witnesses
 
 
+# Phase 30's key script: every byte a frame of the fly loop reads (w, wd,
+# space, c, the four arrows, frames with no key).
+FLY_KEYS = (b"w", b"w", b"wd", b"wd", b" ", b" ", b"c", b"\x1b[A", b"\x1b[B", b"w\x1b[C", b"\x1b[C", b"\x1b[D", b"",
+            b"", b"s", b"a", b"wd \x1b[A", b"\x1b[D\x1b[D")
+# The RECOVERY recipe (bench_configs.py:454-464), as phase 11 runs it.
+RECOVERY = dict(num_spheres=10, steps=800, width=192, height=128, views=5, betas=(0.05, 0.02, 0.008, 0.003))
+
+
+def png_rgb(path) -> np.ndarray:
+    """The u8[H, W, 3] pixels of an 8-bit RGB PNG with filter-0 rows, its
+    chunks' CRCs checked."""
+    data = open(path, "rb").read()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise AssertionError(f"{path}: no PNG signature")
+    pos, idat, size = 8, b"", None
+    while pos < len(data):
+        n, tag = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        if struct.unpack(">I", data[pos + 8 + n:pos + 12 + n])[0] != zlib.crc32(tag + body) & 0xFFFFFFFF:
+            raise AssertionError(f"{path}: bad CRC in {tag}")
+        if tag == b"IHDR":
+            size = struct.unpack(">II", body[:8])
+        elif tag == b"IDAT":
+            idat += body
+        pos += 12 + n
+    w, h = size
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + 3 * w)
+    return rows[:, 1:].reshape(h, w, 3)
+
+
+def host_ms(fn, reps: int) -> float:
+    """Median host milliseconds of fn() over `reps` runs (host code)."""
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def histories_equal(a, b) -> list:
+    """The planes where two histories differ bitwise."""
+    return [f"{name}.{k}" for name in ("diffuse", "specular") for k in ("rgb", "cnt", "oid")
+            if not torch.equal(getattr(getattr(a, name), k), getattr(getattr(b, name), k))] + [
+        f"camera.{k}" for k in ("loc", "orient") if not torch.equal(getattr(a.camera, k), getattr(b.camera, k))]
+
+
+def cli_run(args: list, **kw) -> subprocess.CompletedProcess:
+    """`python -m kylespathtracer_tpu_torch.app.cli ARGS` from the repo root."""
+    return subprocess.run([sys.executable, "-m", "kylespathtracer_tpu_torch.app.cli", *args], capture_output=True,
+                          text=True, cwd=os.path.dirname(os.path.abspath(__file__)), **kw)
+
+
+def app_phases(dev, card: str, rec_ref: dict, rec_wall: float) -> dict:
+    """Phases 28-31: checkpoint and resume of render_animation and of
+    run_recovery (the `invert` CLI), the fly-cam, and the rest of the app
+    (`info`, the native library, the profiler trace and the timers), on the
+    card. Each phase logs every hold, then raises if one failed → the
+    launches of K1, K2 and K6 on these paths."""
+    from unittest import mock
+
+    from torch.autograd import DeviceType
+
+    from kylespathtracer_tpu_torch.app import cli, driver, fly
+    from kylespathtracer_tpu_torch.app.controller import ControllerState, InputFrame, update_controller
+    from kylespathtracer_tpu_torch.diff import inverse
+    from kylespathtracer_tpu_torch.ops import frame_kernel as fk
+    from kylespathtracer_tpu_torch.ops import loss_kernel as lk
+    from kylespathtracer_tpu_torch.ops import reproject_kernel as rk
+    from kylespathtracer_tpu_torch.render import pipeline
+    from kylespathtracer_tpu_torch.render.camera import Camera
+    from kylespathtracer_tpu_torch.scene import sdf
+    from kylespathtracer_tpu_torch.scene.scene import default_scene
+    from kylespathtracer_tpu_torch.utils import checkpoint as ckpt_mod
+    from kylespathtracer_tpu_torch.utils import image_io, metrics, native, preview
+    from kylespathtracer_tpu_torch.utils.config import RenderConfig
+
+    scene = default_scene(device=dev)
+    cfg = RenderConfig(width=W, height=H, pipeline="fused")
+    counts = {"frame": 0, "reproject": 0, "loss": 0}
+
+    # Phase 28: render_animation's checkpoint and resume.
+    log(f"phase 28: render_animation checkpoint/resume at {W}x{H} (split frame: K1 + K2): 8 frames straight, "
+        "5 with checkpoint_every=3 then resume=True")
+    failed = []
+    ref_img, ref_hist = driver.render_animation(scene, cfg, num_frames=8)
+    with tempfile.TemporaryDirectory() as tmp:
+        driver.render_animation(scene, cfg, num_frames=5, checkpoint_dir=tmp, checkpoint_every=3)
+        saved = ckpt_mod.steps(tmp)
+        fk.LAUNCHES = rk.LAUNCHES = 0
+        said = io.StringIO()
+        with contextlib.redirect_stdout(said):
+            img, hist = driver.render_animation(scene, cfg, num_frames=8, checkpoint_dir=tmp, resume=True)
+        torch.cuda.synchronize()
+        launches = {"frame": fk.LAUNCHES, "reproject": rk.LAUNCHES}
+        mb = os.path.getsize(f"{tmp}/step_3") / 1e6
+        like = {"history": pipeline.init_history(cfg, Camera.create(device=dev))}
+
+        def restore():
+            ckpt_mod.restore(tmp, step=100, like=like)
+            torch.cuda.synchronize()
+
+        save_ms = host_ms(lambda: ckpt_mod.save(tmp, 100, {"history": hist}), reps=5)
+        restore_ms = host_ms(restore, reps=5)
+    for k in counts:
+        counts[k] += launches.get(k, 0)
+    gaps = histories_equal(hist, ref_hist)
+    diff = (img - ref_img).abs().max().item()
+    log(f"  checkpoints {saved}; {said.getvalue().strip()!r}; launches of the resumed run {launches}; image "
+        f"bitwise the uninterrupted run's: {torch.equal(img, ref_img)} (max |d| {diff:.3g}); history planes that "
+        f"differ: {gaps}")
+    log(f"  checkpoint of the {W}x{H} history: {mb:.3f} MB, save {save_ms:.3f} ms, restore onto the card "
+        f"{restore_ms:.3f} ms (medians of 5, host clock) [{card}]")
+    if saved != [3] or "resumed from checkpoint step 3" not in said.getvalue():
+        failed.append(f"checkpoints {saved}, not [3], or the run did not resume from step 3")
+    if launches != {"frame": 4, "reproject": 8}:
+        failed.append(f"the resumed frames 4-7 did not run through K1 and K2: {launches}")
+    if not torch.equal(img, ref_img) or gaps:
+        failed.append(f"the resumed run is not bitwise the uninterrupted one (image max |d| {diff}, {gaps})")
+    with tempfile.TemporaryDirectory() as tmp:
+        base = ["render", "--width", str(W), "--height", str(H), "--out", f"{tmp}/out", "--checkpoint-dir",
+                f"{tmp}/ck", "--checkpoint-every", "3", "--metrics", f"{tmp}/m.jsonl"]
+        said = io.StringIO()
+        with contextlib.redirect_stdout(said):
+            cli.main(base + ["--frames", "5"])
+            cli.main(base + ["--frames", "8", "--resume"])
+        steps = ckpt_mod.steps(f"{tmp}/ck")
+        pw = png_pixels(f"{tmp}/out/final.png")
+        frames = [json.loads(line)["frame"] for line in open(f"{tmp}/m.jsonl")]
+    log(f"  cli render --checkpoint-every 3, then --resume: {said.getvalue().strip()!r}; checkpoints {steps}; "
+        f"frames {frames}; final.png {pw}")
+    if steps != [3, 6] or frames != [0, 1, 2, 3, 4, 4, 5, 6, 7] or pw != (W, H, H * (1 + 3 * W)):
+        failed.append(f"the render CLI's resume: checkpoints {steps}, frames {frames}, final.png {pw}")
+    check_holds(failed, "phase 28")
+
+    # Phase 29: invert with a kill and a resume.
+    log("phase 29: run_recovery (RECOVERY recipe) for 2 beta phases with ckpt_dir, then `cli invert --ckpt-dir D "
+        "--resume` in a subprocess")
+    failed = []
+    w = np.linspace(1.0, 1.6, len(RECOVERY["betas"]))
+    phase_steps = [max(1, int(RECOVERY["steps"] * wi / w.sum())) for wi in w]
+    _, start, _ = inverse.recovery_scenes(RECOVERY["num_spheres"], RECOVERY["views"], device=dev)
+
+    def like_state():
+        p = inverse.extract_params(start)
+        return {"params": p, "opt_state": inverse.ClippedAdam(2e-2, sum(phase_steps), 0.03, clip=1.0).init(p)}
+
+    with tempfile.TemporaryDirectory() as ck:
+        fk.LAUNCHES = lk.LAUNCHES = 0
+        t0 = time.perf_counter()
+        part = inverse.run_recovery(**RECOVERY, ckpt_dir=ck, max_phases=2, device=dev)
+        torch.cuda.synchronize()
+        wall_part = time.perf_counter() - t0
+        part_launches = {"frame": fk.LAUNCHES, "loss": lk.LAUNCHES}
+        # The state's round trip on the card: the file's tree against its
+        # restore onto the card, and that against a save and restore of it.
+        _, tree = ckpt_mod.restore(ck, 2)
+        _, on_card = ckpt_mod.restore(ck, 2, like=like_state())
+        gaps = state_gaps(tree["opt_state"], on_card["opt_state"])
+        gaps += [k for k in tree["params"] if not torch.equal(tree["params"][k], on_card["params"][k].cpu())]
+        with tempfile.TemporaryDirectory() as again:
+            ckpt_mod.save(again, 2, on_card)
+            _, twice = ckpt_mod.restore(again, 2, like=like_state())
+        gaps += [f"second round trip: {g}" for g in state_gaps(on_card["opt_state"], twice["opt_state"])]
+        # A torn pair: phase 2's step without its sidecar falls back to phase 1.
+        with tempfile.TemporaryDirectory() as torn:
+            for name in os.listdir(ck):
+                with open(f"{ck}/{name}", "rb") as src, open(f"{torn}/{name}", "wb") as dst:
+                    dst.write(src.read())
+            os.remove(f"{torn}/meta_2.json")
+            lk.LAUNCHES = 0
+            fell = inverse.run_recovery(**RECOVERY, ckpt_dir=torn, resume=True, max_phases=2, device=dev)
+            torn_loss = lk.LAUNCHES
+        meta1 = json.load(open(f"{ck}/meta_1.json"))
+        meta2 = json.load(open(f"{ck}/meta_2.json"))
+        t0 = time.perf_counter()
+        proc = cli_run(["invert", "--ckpt-dir", ck, "--resume", "--log-every", "1"], timeout=900)
+        wall_resume = time.perf_counter() - t0
+    # What a process pays before its first step: python, torch and the
+    # package's import, the card's context and the kernels' load.
+    t0 = time.perf_counter()
+    subprocess.run([sys.executable, "-c", "import torch; from kylespathtracer_tpu_torch.diff import inverse; "
+                    "from kylespathtracer_tpu_torch.ops import _build; _build.load(); "
+                    "torch.zeros(1, device='cuda'); torch.cuda.synchronize()"],
+                   check=True, cwd=os.path.dirname(os.path.abspath(__file__)), timeout=300)
+    wall_start = time.perf_counter() - t0
+    counts["frame"] += part_launches["frame"]
+    counts["loss"] += part_launches["loss"] + torn_loss
+    log(f"  2 phases, {sum(phase_steps[:2])} steps: {wall_part:.3f} s, {wall_part / sum(phase_steps[:2]) * 1e3:.3f} "
+        f"ms per step (targets included) [{card}]; launches {part_launches}; trace {part['phases']}")
+    log(f"  restore(save(state)) of the parameters and the Adam state (moments, step), on the card: entries that "
+        f"differ {gaps}")
+    log(f"  torn pair (meta_2.json deleted): completed {fell['completed_phases']}, K6 launches {torn_loss} "
+        f"(phase 1 alone: {RECOVERY['views'] * phase_steps[1]})")
+    if proc.returncode != 0:
+        failed.append(f"cli invert --resume exited {proc.returncode}: {proc.stderr[-2000:]}")
+        res = {}
+    else:
+        res = json.loads(proc.stdout.strip().splitlines()[-1])
+        log("  cli invert --resume: " + " | ".join(proc.stdout.strip().splitlines()[:-1]))
+        steps_resumed = sum(phase_steps[2:])
+        log(f"  resumed 2 phases, {steps_resumed} steps: {wall_resume:.3f} s in the subprocess, of it "
+            f"{wall_start:.3f} s a process's start (import, the card's context, the kernels' load: timed alone); "
+            f"{(wall_resume - wall_start) / steps_resumed * 1e3:.3f} ms per step without it (targets and restore "
+            f"included); phase 11 straight: {rec_wall:.3f} s, {rec_wall / rec_ref['steps'] * 1e3:.3f} ms per "
+            f"step [{card}]")
+        log(f"  resumed: loss {res['loss_initial']:.6g} -> {res['loss_final']:.6g}; " + ", ".join(
+            f"{k} {res[k]:.6g} (phase 11 straight {rec_ref[k]:.6g}, gap {res[k] - rec_ref[k]:.3g})"
+            for k in ("err_position", "err_radius", "err_albedo")))
+        if res["completed_phases"] != 4:
+            failed.append(f"the resumed run completed {res['completed_phases']} phases, not 4")
+        if not (res["err_position"] < 0.01 and res["err_radius"] < 0.005 and res["err_albedo"] < 0.01):
+            failed.append(f"the resumed recovery missed its bounds: {res}")
+        if res["phases"][:2] != meta2["trace"][:2]:
+            failed.append("the resumed trace's first two phases are not the sidecar's")
+    if gaps:
+        failed.append(f"the checkpoint's round trip on the card is not bitwise: {gaps}")
+    if part["completed_phases"] != 2 or part["phases"] != meta2["trace"] or part_launches["loss"] == 0:
+        failed.append(f"the killed run: {part['completed_phases']} phases, launches {part_launches}")
+    if (fell["completed_phases"] != 2 or torn_loss != RECOVERY["views"] * phase_steps[1]
+            or fell["phases"][0] != meta1["trace"][0]):
+        failed.append("the torn pair did not fall back to phase 1")
+    check_holds(failed, "phase 29")
+
+    # Phase 30: the fly-cam, its steps against playback.
+    log(f"phase 30: fly_step over {len(FLY_KEYS)} frames of key bytes at {W}x{H} (split frame), against "
+        "playback_cameras + render_animation on the same input frames")
+    failed = []
+    state0 = ControllerState.create(device=dev)
+    step = fly.fly_step(cfg)
+
+    def fly_loop(device, render: bool):
+        """The fly loop's controller (and frames) over FLY_KEYS on `device`
+        → (states, images, input frames as numpy, looking flags)."""
+        st = ControllerState.create(device=device)
+        hist = pipeline.init_history(cfg, st.camera)
+        states, images, script, looking = [], [], [], []
+        for i, keys in enumerate(FLY_KEYS):
+            move, look, quit_ = fly.parse_keys(keys)
+            if quit_:
+                raise AssertionError(f"{keys!r} quits")
+            down = bool(look[0] or look[1])
+            inp = InputFrame.create(move=move, mouse_delta=look, mouse_down=down, device=device)
+            if down:
+                st = st.replace(was_down=torch.tensor(True, device=device))
+            if render:
+                st, img, hist = step(scene, st, inp, hist, i)
+                images.append(img)
+            else:
+                st = update_controller(st, inp)
+            states.append(st)
+            script.append((move, look))
+            looking.append(down)
+        return states, images, script, looking, hist
+
+    fk.LAUNCHES = rk.LAUNCHES = 0
+    states, images, script, looking, fly_hist = fly_loop(dev, render=True)
+    torch.cuda.synchronize()
+    fly_launches = {"frame": fk.LAUNCHES, "reproject": rk.LAUNCHES}
+    # fly's pre-arm of was_down on a look frame is, in playback, the button
+    # held on the frame before (whose drag is zero) or in the start state.
+    T = len(FLY_KEYS)
+    held = [looking[i] or (i + 1 < T and looking[i + 1]) for i in range(T)]
+    inputs = InputFrame(move=torch.tensor([m for m, _ in script], dtype=torch.float32, device=dev),
+                        mouse_delta=torch.tensor([d for _, d in script], dtype=torch.float32, device=dev),
+                        mouse_down=torch.tensor(held, device=dev))
+    fk.LAUNCHES = rk.LAUNCHES = 0
+    cams = driver.playback_cameras(state0.replace(was_down=torch.tensor(looking[0], device=dev)), inputs)
+    hist = pipeline.init_history(cfg, state0.camera)
+    differ = []
+    for i in range(T):
+        img, hist = driver.render_animation(scene, cfg, num_frames=1, cameras=cams, history=hist, start_frame=i)
+        if not (torch.equal(img, images[i]) and torch.equal(cams.loc[i], states[i].loc)
+                and torch.equal(cams.orient[i], states[i].orient)):
+            differ.append(i)
+    torch.cuda.synchronize()
+    play_launches = {"frame": fk.LAUNCHES, "reproject": rk.LAUNCHES}
+    for k in ("frame", "reproject"):
+        counts[k] += fly_launches[k] + play_launches[k]
+    cpu_states = fly_loop(torch.device("cpu"), render=False)[0]
+    worst = max(max((getattr(a, k).cpu() - getattr(b, k)).abs().max().item() for k in ("loc", "vel", "orient"))
+                for a, b in zip(states, cpu_states))
+    accel = np.float32(0.01)
+    speeds = [float(torch.linalg.norm(s.vel)) for s in states]
+    log(f"  launches: fly {fly_launches}, playback {play_launches}; frames whose image or camera differ from "
+        f"playback's: {differ}; loc {[round(v, 4) for v in states[-1].loc.tolist()]}, orient "
+        f"{[round(v, 4) for v in states[-1].orient.tolist()]}; speeds {[round(v, 5) for v in speeds]}")
+    log(f"  controller on the card vs the CPU, max |d| over the {T} states: {worst:.3g}; first step's speed "
+        f"{(speeds[0] - float(accel)) / np.spacing(accel):+.1f} ulps from ACCEL_SPEED (the dead stop's knife edge)")
+    if fly_launches != {"frame": T, "reproject": 2 * T} or play_launches != fly_launches:
+        failed.append(f"fly or playback did not run through K1 and K2: {fly_launches}, {play_launches}")
+    if differ:
+        failed.append(f"fly and playback part on frames {differ}")
+    if worst > 1e-6:
+        failed.append(f"the controller on the card parts from the CPU's by {worst}")
+    if not (images[-1].shape == (H, W, 3) and torch.isfinite(images[-1]).all()):
+        failed.append("the fly image is not finite or of the wrong shape")
+    inp_w = InputFrame.create(move=(0.0, 0.0, 1.0), device=dev)
+    cfg_s = RenderConfig(width=480, height=270, pipeline="fused")
+    step_s = fly.fly_step(cfg_s)
+    hist_s = pipeline.init_history(cfg_s, state0.camera)
+    for _ in range(5):
+        hist_s = step_s(scene, states[-1], inp_w, hist_s, T)[2]
+    turns = {"large": [], "small": []}
+    for size in ("large", "small", "small", "large"):  # in turns
+        if size == "large":
+            turns[size].append(cuda_ms(lambda: step(scene, states[-1], inp_w, fly_hist, T), reps=20, warmup=3))
+        else:
+            turns[size].append(cuda_ms(lambda: step_s(scene, states[-1], inp_w, hist_s, T), reps=20, warmup=3))
+    fly_ms, small_ms = (" / ".join(f"{v:.4f}" for v in turns[k]) for k in ("large", "small"))
+    img_s = step_s(scene, states[-1], inp_w, hist_s, T)[1]
+    copy_ms = host_ms(lambda: img_s.cpu().numpy(), reps=20)
+    host_s, host_l = img_s.cpu().numpy(), images[-1].cpu().numpy()
+    ansi_ms = host_ms(lambda: preview.frame_to_ansi(host_s, 100, 48), reps=20)
+    ansi_l_ms = host_ms(lambda: preview.frame_to_ansi(host_l, 100, 48), reps=5)
+    log(f"  fly step (controller tick + split frame), in turns: {W}x{H} {fly_ms} ms, 480x270 {small_ms} ms (CUDA "
+        f"events, medians of 20) [{card}]; frame_to_ansi at 100x48 cells: {ansi_ms:.3f} ms of a 480x270 image (its copy "
+        f"to the host {copy_ms:.3f} ms), {ansi_l_ms:.3f} ms of a {W}x{H} one (host clock)")
+    proc = cli_run(["fly"], stdin=subprocess.DEVNULL, timeout=300)
+    log(f"  cli fly, stdin not a tty: exit {proc.returncode}, stderr {proc.stderr.strip()[-200:]!r}")
+    if proc.returncode != 0 or "stdin is not a tty" not in proc.stderr:
+        failed.append("cli fly without a tty did not return with its message")
+    check_holds(failed, "phase 30")
+
+    # Phase 31: info, the native library, the profiler trace and the timers.
+    log("phase 31: cli info, the native library, metrics.profiler_trace, Timer and time_fn")
+    failed = []
+    said = io.StringIO()
+    with contextlib.redirect_stdout(said):
+        cli.main(["info"])
+    info = json.loads(said.getvalue())
+    log(f"  cli info: {info}")
+    if info["backend"] != "cuda" or torch.cuda.get_device_name(0) not in info["devices"]:
+        failed.append(f"cli info does not name the card: {info}")
+    if not native.available():
+        log(f"  native library not built: {native.build_error()}")
+    else:
+        build = native.BUILD_LOG
+        log(f"  native library built from native/ in {build.get('seconds', 0.0):.3f} s; make said: "
+            f"{build.get('output', '').strip()!r}")
+        rng = np.random.default_rng(3)
+        n = 2000
+        ro = np.stack([rng.uniform(-5, 9.5, n), rng.uniform(0.2, 9.5, n), rng.uniform(-9.5, 5, n)],
+                      axis=-1).astype(np.float32)
+        rd = rng.normal(size=(n, 3)).astype(np.float32)
+        rd /= np.linalg.norm(rd, axis=-1, keepdims=True)
+        t_c, id_c = native.march(scene, ro, rd, -1, 255)
+        t_p, id_p = sdf.march(scene, torch.from_numpy(ro).to(dev), torch.from_numpy(rd).to(dev), -1, 255)
+        t_p, id_p = t_p.cpu().numpy(), id_p.cpu().numpy()
+        same = (id_c == id_p).mean()
+        p99 = float(np.quantile(np.abs(t_c[id_c == id_p] - t_p[id_c == id_p]), 0.99))
+        log(f"  native march vs sdf.march on the card, {n} rays: ids equal {same:.4f}, p99 |dt| {p99:.3g}")
+        if not (same > 0.995 and p99 < 5e-3):
+            failed.append(f"the native march parts from the port's: ids {same}, p99 {p99}")
+        with tempfile.TemporaryDirectory() as tmp:
+            native_ms = host_ms(lambda: image_io.save_png(f"{tmp}/native.png", images[-1]), reps=3)
+            with mock.patch.object(native, "available", lambda: False):
+                zlib_ms = host_ms(lambda: image_io.save_png(f"{tmp}/zlib.png", images[-1]), reps=3)
+            a, b = png_rgb(f"{tmp}/native.png"), png_rgb(f"{tmp}/zlib.png")
+        log(f"  save_png of a {W}x{H} frame: native encoder {native_ms:.3f} ms, Python zlib {zlib_ms:.3f} ms "
+            f"(host clock); pixels equal: {np.array_equal(a, b)}")
+        if not (np.array_equal(a, b) and np.array_equal(a, image_io._to_u8(images[-1]))):
+            failed.append("the native and zlib PNGs decode to different pixels")
+    cam = Camera.create(loc=CAM_LOC, orient=CAM_ORIENT, device=dev)
+
+    def frame():
+        return pipeline.render_frame(scene, cam, ref_hist, 9, cfg)
+
+    frame()
+    with tempfile.TemporaryDirectory() as tmp:
+        with metrics.profiler_trace(tmp) as prof:
+            frame()
+        names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+        in_file = "kpt::frame_kernel" in open(f"{tmp}/trace.json").read()
+    k1 = sum("kpt::frame_kernel" in n for n in names)
+    log(f"  profiler_trace of one split frame: {len(names)} device events, K1 {k1} in them, in trace.json {in_file}")
+    if k1 != 1 or not in_file:
+        failed.append("the profiler trace holds no K1 kernel")
+    with metrics.Timer() as timer:
+        frame()
+    per_call = metrics.time_fn(frame, iters=20, warmup=3) * 1e3
+    events_ms = cuda_ms(frame, reps=20, warmup=3)
+    log(f"  one split frame: Timer {timer.elapsed * 1e3:.4f} ms, time_fn {per_call:.4f} ms a call over 20, CUDA "
+        f"events {events_ms:.4f} ms (median of 20) [{card}]")
+    if not 0.5 < per_call / events_ms < 2.0 or timer.elapsed * 1e3 < 0.5 * events_ms:
+        failed.append("Timer or time_fn parts from the CUDA events")
+    check_holds(failed, "phase 31")
+    return counts
+
+
 def free_port() -> int:
     import socket
 
@@ -1448,7 +1921,7 @@ def main() -> int:
     res = inverse.run_recovery(num_spheres=10, steps=800, width=192, height=128, views=5,
                                betas=(0.05, 0.02, 0.008, 0.003), log_every=1)
     torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    wall = rec_wall = time.perf_counter() - t0
     rec_launches = {"frame": fk.LAUNCHES, "backward": fg.LAUNCHES, "loss": lk.LAUNCHES}
     log(f"  {res['steps']} steps in {wall:.3f} s, {wall / res['steps'] * 1e3:.3f} ms per step "
         f"(targets included) [{card}]; launches {rec_launches}")
@@ -1923,6 +2396,7 @@ def main() -> int:
     ref_r, _, loss_rr = inverse.train_step(params_r, opt_t.init(params_r), opt_t, start, views[0], target_rec, f0,
                                            c_rec)
     hold_step(new_r, loss_r2, ref_r, loss_rr.item(), "2 tiles at the 192x128 recovery view")
+    resume_launches = sharded_resume(scene, camera(), target_1080, cfg_f, opt_t, dev)
     # K5's row mode against its plain version on the middle tile: random
     # cotangents on 13 planes, every table, the ill-conditioned pixels
     # masked as in phase 12 (logged with every pixel).
@@ -2019,6 +2493,11 @@ def main() -> int:
     witnesses = march_phases(dev, card)
     log(f"  witness launches in phases 25-27: {witnesses}")
 
+    # Phases 28-31: checkpoint and resume, the invert CLI, the fly-cam, info,
+    # the native library and the metrics helpers.
+    app_counts = app_phases(dev, card, res, rec_wall)
+    log(f"  launches in phases 28-30: {app_counts}; phase 22's resume: {resume_launches}")
+
     # Bounds, from this run's inputs (frame_ops, bound): each kernel's work
     # as (operations, bytes).
     ops1 = frame_ops(scene, cfg, ref["oid"])
@@ -2108,14 +2587,15 @@ def main() -> int:
 
     jax_ops = "kylespathtracer_tpu/ops/"
     kernels = [
-        entry("frame_forward", "frame_kernel.cu", jax_ops + "frame_kernel.py:381", launches["frame"],
-              k1_stats["max_abs"], k1_ms, k1_plain_ms, k1_work, alone_ms=k1_alone_ms),
+        entry("frame_forward", "frame_kernel.cu", jax_ops + "frame_kernel.py:381",
+              launches["frame"] + app_counts["frame"] + resume_launches["frame"], k1_stats["max_abs"], k1_ms,
+              k1_plain_ms, k1_work, alone_ms=k1_alone_ms),
         entry("reproject_window", "reproject_kernel.cu", jax_ops + "reproject_kernel.py:290",
-              launches["reproject"], k2_err, k2_ms, k2_plain_ms, k2_work),
-        entry("frame_backward", "frame_grad.cu", jax_ops + "frame_grad.py:189", train_launches["backward"],
-              k5_err, k5_ms, k5_plain_ms, k5_work),
+              launches["reproject"] + app_counts["reproject"], k2_err, k2_ms, k2_plain_ms, k2_work),
+        entry("frame_backward", "frame_grad.cu", jax_ops + "frame_grad.py:189",
+              train_launches["backward"] + resume_launches["backward"], k5_err, k5_ms, k5_plain_ms, k5_work),
         entry("render_loss_and_grad", "loss_kernel.cu", jax_ops + "loss_kernel.py:216",
-              rec_launches["loss"], k6_err, k6_ms, k6_plain_ms, k6_work),
+              rec_launches["loss"] + app_counts["loss"], k6_err, k6_ms, k6_plain_ms, k6_work),
         entry("geometry_pass", "geometry_kernel.cu", jax_ops + "frame_kernel.py:494", raycast_launches,
               k3_err, k3_ms, k3_plain_ms, k3_work, alone_ms=k3_alone_ms),
         entry("pathtrace", "path_kernel.cu", jax_ops + "path_kernel.py:469", path_launches,

@@ -12,8 +12,10 @@ Pallas kernels. Same layout and names as the JAX package:
            CPU) and the nvcc build/loader
   csrc/    the CUDA sources
   diff/    inverse rendering (fit, run_recovery), soft visibility
-  app/     frame-loop driver, CLI (`render`, `pathtrace`)
-  utils/   config, image export, metrics
+  app/     frame-loop driver, fly controller and fly-cam, CLI (`render`,
+           `pathtrace`, `invert`, `fly`, `info`)
+  utils/   config, image export, native library, preview, checkpoint,
+           metrics
 
 Every entry point that makes tensors runs on the card unless the caller
 passes `device=` (DEFAULT_DEVICE); without a card such a call raises, as
@@ -22,6 +24,8 @@ torch does. Imports torch only; never jax or the JAX package.
 
 # The device the entry points make their tensors on unless told otherwise.
 DEFAULT_DEVICE = "cuda"
+
+__version__ = "0.1.0"
 
 from kylespathtracer_tpu_torch.utils.config import RenderConfig
 from kylespathtracer_tpu_torch.scene.scene import default_scene, sphere_scene

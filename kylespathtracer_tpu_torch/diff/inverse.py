@@ -12,14 +12,18 @@ backward (scene/sdf.py).
 
 The optimizer is `torch.optim.Adam` with a cosine-decay `LambdaLR` and a
 global-norm clip, written to equal the optax chain of the JAX package
-(`ClippedAdam`). Checkpoint and resume are not ported yet (ROADMAP.md).
+(`ClippedAdam`). `run_recovery` checkpoints the parameters and the
+optimizer state after each β phase and resumes from them
+(utils/checkpoint.py).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 import math
 import os
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -29,6 +33,7 @@ from kylespathtracer_tpu_torch.ops import loss_kernel as lk
 from kylespathtracer_tpu_torch.render.camera import Camera
 from kylespathtracer_tpu_torch.render.pipeline import init_history, render_frame
 from kylespathtracer_tpu_torch.scene.types import Scene
+from kylespathtracer_tpu_torch.utils import checkpoint as ckpt_mod
 from kylespathtracer_tpu_torch.utils.config import RenderConfig
 
 Params = dict[str, torch.Tensor]
@@ -130,6 +135,25 @@ class AdamState:
     params: Params
     adam: torch.optim.Adam
     schedule: torch.optim.lr_scheduler.LambdaLR
+
+    def state_dict(self) -> dict:
+        """The state as tensors and numbers, for utils/checkpoint.py: the
+        parameters, Adam's moments and step, and the schedule's count."""
+        return {"params": self.params, "adam": self.adam.state_dict(),
+                "schedule": self.schedule.state_dict()}
+
+    def load_state_dict(self, tree: dict) -> None:
+        """Load `state_dict()`'s tree into this state (a fresh `init` of
+        the same keys): the parameters in place, so Adam keeps stepping the
+        same tensors, then Adam's state (keyed by the parameters' order in
+        `init`) and the schedule's count."""
+        if list(tree["params"]) != list(self.params):
+            raise ValueError(f"checkpoint holds {list(tree['params'])}, not {list(self.params)}")
+        with torch.no_grad():
+            for k, p in self.params.items():
+                p.copy_(tree["params"][k])
+        self.adam.load_state_dict(tree["adam"])
+        self.schedule.load_state_dict(tree["schedule"])
 
 
 @dataclasses.dataclass(frozen=True)
@@ -341,11 +365,14 @@ def run_recovery(
       depth/radius ambiguity.
     * Per-phase error traces in the returned dict.
 
-    `max_phases` stops after that many phases. `ckpt_dir`/`resume` are not
-    ported yet and raise."""
-    if ckpt_dir is not None or resume:
-        raise NotImplementedError(
-            "run_recovery: checkpoint/resume is not ported yet (ROADMAP Queue 1 #2)")
+    `max_phases` stops after that many phases. With `ckpt_dir`, each phase
+    p ends by saving the parameters and the optimizer state as checkpoint
+    step p+1, then the sidecar meta_{p+1}.json with the losses and the
+    trace so far. `resume=True` continues from the newest phase that has
+    both; a step without its sidecar (a kill between the two writes) is
+    passed over for the phase before it, or a fresh start."""
+    if resume and not ckpt_dir:
+        raise ValueError("resume=True requires ckpt_dir")
     scene_gt, scene_i, cameras = recovery_scenes(num_spheres, views, seed, perturb, device)
     pipeline = "fused" if torch.device(device).type == "cuda" else "pass"
 
@@ -365,7 +392,26 @@ def run_recovery(
     # Seed-paired target realizations [V, S, H, W, 3] (see `fit`).
     n_seeds = 16
 
+    start_phase = 0
+    if resume:
+        # The trainable parameters are saved, not the scene: the rest of it
+        # is a function of `seed`.
+        metas = {int(q.stem.split("_", 1)[1]) for q in Path(ckpt_dir).glob("meta_*.json")
+                 if q.stem.split("_", 1)[1].isdigit()}
+        usable = sorted(metas & set(ckpt_mod.steps(ckpt_dir)))
+        if usable:
+            start_phase = usable[-1]
+            like = {"params": extract_params(scene_i), "opt_state": opt.init(extract_params(scene_i))}
+            _, state = ckpt_mod.restore(ckpt_dir, step=start_phase, like=like)
+            scene_i = apply_params(scene_i, state["params"])
+            opt_state = state["opt_state"]
+            side = json.loads((Path(ckpt_dir) / f"meta_{start_phase}.json").read_text())
+            all_losses = side["losses"]
+            trace = side["trace"][:start_phase]
+
     for phase, beta in enumerate(betas):
+        if phase < start_phase:
+            continue
         if max_phases is not None and phase >= max_phases:
             break
         config = RenderConfig(width=width, height=height, soft_shadows=float(beta),
@@ -385,6 +431,11 @@ def run_recovery(
         trace.append({"beta": float(beta), "loss": losses[-1], **errs})
         if log_every:
             print(f"phase {phase} (beta={beta}): loss {losses[-1]:.3e} {errs}")
+        if ckpt_dir:
+            ckpt_mod.save(ckpt_dir, phase + 1, {"params": extract_params(scene_i), "opt_state": opt_state})
+            # The sidecar second: resume trusts only (step, meta) pairs.
+            (Path(ckpt_dir) / f"meta_{phase + 1}.json").write_text(
+                json.dumps({"losses": all_losses, "trace": trace}))
 
     return {
         "loss_initial": all_losses[0],

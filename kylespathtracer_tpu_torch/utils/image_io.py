@@ -1,8 +1,8 @@
-"""Image export (numpy + zlib; no torch, no native code).
+"""Image export.
 
-Port of kylespathtracer_tpu/utils/image_io.py without its native PNG
-encoder, which waits for the port of utils/native.py (ROADMAP Queue 1 #4):
-PNG goes through Python's zlib, PPM needs nothing.
+Port of kylespathtracer_tpu/utils/image_io.py: PNG through the native
+encoder (utils/native.py) when the library is built, else Python's zlib,
+the same pixels either way; PPM needs nothing.
 
 Renderer images are float [0, 1] RGB with row 0 at the *bottom* (GL
 fragCoord convention, see render/camera.py); the exporters flip them to
@@ -45,8 +45,14 @@ def _png_chunk(tag: bytes, payload: bytes) -> bytes:
 
 
 def save_png(path, image) -> None:
-    """8-bit RGB PNG, one zlib-compressed IDAT chunk, filter 0 per row."""
+    """8-bit RGB PNG, one zlib-compressed IDAT chunk, filter 0 per row: the
+    native encoder when available, else Python's zlib."""
+    from kylespathtracer_tpu_torch.utils import native
+
     img = _to_u8(image)
+    if native.available():
+        native.write_png(str(path), img)
+        return
     h, w = img.shape[:2]
     raw = b"".join(b"\x00" + img[y].tobytes() for y in range(h))
     out = b"\x89PNG\r\n\x1a\n"

@@ -1,15 +1,27 @@
-"""Structured metrics: one JSONL record per step.
+"""Structured metrics and profiling.
 
-The `MetricsLogger` of kylespathtracer_tpu/utils/metrics.py (numpy- and
-jax-free there too), copied; its `jax.profiler` helpers have the
-torch.profiler spans of render/pipeline.py (STAGES) as their counterpart.
+Port of kylespathtracer_tpu/utils/metrics.py: every step emits a JSONL
+record (`MetricsLogger`), a block can be traced with torch.profiler
+(`profiler_trace`; the frame's stages are the spans of
+render/pipeline.py:STAGES), and `Timer` and `time_fn` time device work
+behind a synchronize.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import sys
 import time
+from pathlib import Path
+
+import torch
+
+# Host time the profiler is given before and after the traced block:
+# torch.profiler maps device time onto the host clock, and that mapping can
+# place a kernel up to ~5 ms before its launch, so a kernel launched just
+# after the session starts may fall outside it (tools/profiler_sessions.py).
+PROFILER_MARGIN_S = 0.02
 
 
 class MetricsLogger:
@@ -32,3 +44,61 @@ class MetricsLogger:
     def close(self) -> None:
         if self._file:
             self._file.close()
+
+
+def _sync() -> None:
+    if torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+
+
+@contextlib.contextmanager
+def profiler_trace(logdir):
+    """Trace the enclosed block with torch.profiler (CPU, and CUDA when a
+    card is present) and write a Chrome trace, `logdir/trace.json`
+    (viewable in Perfetto); yields the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    Path(logdir).mkdir(parents=True, exist_ok=True)
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        time.sleep(PROFILER_MARGIN_S)
+        try:
+            yield prof
+        finally:
+            _sync()
+            time.sleep(PROFILER_MARGIN_S)
+    prof.export_chrome_trace(str(Path(logdir) / "trace.json"))
+
+
+class Timer:
+    """Wall-clock timer; synchronizes the card on entry and exit when CUDA
+    is initialised, so the time covers the device work of the block."""
+
+    def __init__(self):
+        self.t0 = None
+        self.elapsed = 0.0
+
+    def __enter__(self):
+        _sync()
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        _sync()
+        self.elapsed = time.perf_counter() - self.t0
+        return False
+
+
+def time_fn(fn, *args, iters: int = 10, warmup: int = 1):
+    """Time fn: `warmup` calls (at least one), a synchronize, then `iters`
+    timed calls ended by a synchronize. Returns seconds per call."""
+    for _ in range(max(warmup, 1)):
+        fn(*args)
+    _sync()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn(*args)
+    _sync()
+    return (time.perf_counter() - t0) / iters

@@ -106,6 +106,33 @@ def test_color_matches_jax():
     )
 
 
+def test_srgb_linear_matches_jax():
+    x = np.concatenate([np.random.default_rng(3).uniform(-0.1, 1.2, 4096),
+                        np.asarray([0.0, 0.04045, np.nextafter(np.float32(0.04045), 1), 1.0])]).astype(np.float32)
+    np.testing.assert_allclose(color.srgb_linear(torch.from_numpy(x)).numpy(),
+                               np.asarray(jcolor.srgb_linear(jnp.asarray(x))), rtol=0, atol=1e-6)
+
+
+def test_texture_good_matches_jax():
+    """A 16×16×3 texture, bits=15: coordinates over several wraps either
+    side of 0 (the int32 `& bits` wrap of negative texels)."""
+    rng = np.random.default_rng(4)
+    tex = rng.random((16, 16, 3)).astype(np.float32)
+    x = rng.uniform(-40.0, 40.0, (256, 2)).astype(np.float32)
+    got = color.texture_good(torch.from_numpy(tex), torch.from_numpy(x), 15).numpy()
+    assert got.shape == (256, 3)
+    np.testing.assert_allclose(got, np.asarray(jcolor.texture_good(jnp.asarray(tex), jnp.asarray(x), 15)),
+                               rtol=0, atol=1e-6)
+
+
+def test_spectrum_matches_jax():
+    x = np.concatenate([np.random.default_rng(5).uniform(-0.1, 1.1, 4096),
+                        (np.asarray([400, 410, 475, 545, 585, 595, 639, 650, 700]) - 400) / 300.0]).astype(np.float32)
+    got = color.spectrum(torch.from_numpy(x)).numpy()
+    assert got.shape == (x.size, 3)
+    np.testing.assert_allclose(got, np.asarray(jcolor.spectrum(jnp.asarray(x))), rtol=0, atol=1e-6)
+
+
 def test_port_imports_without_jax_or_cuda():
     """Importing every module of the port pulls in neither jax nor the JAX
     package, and needs no CUDA device, nvcc or triton."""

@@ -213,18 +213,21 @@ def test_train_step_is_one_generic_step():
         torch.testing.assert_close(new[k], want[k], rtol=0, atol=1e-6)
 
 
-def test_run_recovery_tiny_on_the_cpu():
+def test_run_recovery_tiny_on_the_cpu(tmp_path):
     before = (lk.LAUNCHES, fg.LAUNCHES)
     res = inverse.run_recovery(num_spheres=2, steps=4, width=16, height=8, views=2,
-                               betas=(0.05, 0.02), device="cpu")
+                               betas=(0.05, 0.02), device="cpu", ckpt_dir=str(tmp_path))
     assert (lk.LAUNCHES, fg.LAUNCHES) == before  # CPU: the plain versions
     # Phase steps int(4·w/Σw) for w = (1, 1.6): 1 and 2, as in the JAX package.
     assert res["completed_phases"] == 2 and res["steps"] == 3
     assert res["resolution"] == "16x8" and res["views"] == 2
     assert all(np.isfinite([res["loss_initial"], res["loss_final"], res["err_position"],
                             res["err_radius"], res["err_albedo"]]))
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        inverse.run_recovery(ckpt_dir="ckpt", device="cpu")
+    # Each phase checkpointed with its sidecar (utils/checkpoint.py); a
+    # resume after the last phase returns the same result.
+    assert sorted(p.name for p in tmp_path.iterdir()) == ["meta_1.json", "meta_2.json", "step_1", "step_2"]
+    assert inverse.run_recovery(num_spheres=2, steps=4, width=16, height=8, views=2, betas=(0.05, 0.02),
+                                device="cpu", ckpt_dir=str(tmp_path), resume=True) == res
 
 
 # ------------------------------------------------------------ default device

@@ -182,8 +182,16 @@ def test_unported_branches_raise(kw, item):
     assert img.shape == (8, 8, 3) and torch.isfinite(img).all()
 
 
-def test_driver_unported_options_raise():
+def test_driver_unported_options_raise(tmp_path, capsys):
+    """The options that raised before their port (checkpoint_dir,
+    checkpoint_every, preview, resume) now run: a checkpoint at frame 1,
+    a resume from it that previews the frames after it."""
     cfg = to_torch_config(CFG)
-    with pytest.raises(NotImplementedError, match="checkpoint_dir"):
-        driver.render_animation(to_torch_scene(default_scene()), cfg, num_frames=1,
-                                checkpoint_dir="ckpt")
+    scene = to_torch_scene(default_scene())
+    driver.render_animation(scene, cfg, num_frames=2, checkpoint_dir=tmp_path, checkpoint_every=1)
+    assert sorted(p.name for p in tmp_path.iterdir()) == ["step_1"]
+    img, _ = driver.render_animation(scene, cfg, num_frames=3, checkpoint_dir=tmp_path, resume=True,
+                                     preview=True)
+    out = capsys.readouterr().out
+    assert "resumed from checkpoint step 1" in out and "frame 2" in out and "frame 1 " not in out
+    assert img.shape == (cfg.height, cfg.width, 3) and torch.isfinite(img).all()
