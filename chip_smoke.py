@@ -91,7 +91,16 @@ it and read just after:
   `cli fly` without a terminal (phase 30); `cli info`, the native library
   (its build, its march against `sdf.march`, its PNGs against zlib's),
   `metrics.profiler_trace` of a frame holding K1, `Timer` and `time_fn`
-  against CUDA events (phase 31).
+  against CUDA events (phase 31);
+- the benches as a user runs them (phase 32): `python -m
+  kylespathtracer_tpu_torch.bench`, `.bench_configs` and `.bench_profile`,
+  each a subprocess with `--out` in a new temporary path: every bench.py
+  metric name (less scaling_*) on its own line and the headline last, the
+  kernels one step of each measurement launches (K1 + 2 × K2, K6, K1 + K5,
+  K3, K7), every configuration of BASELINE.json within its JAX bar (config 5
+  with the sharded witness on 8 gloo ranks sharing the card), the profile's
+  device time per frame within 1.05 × the bench's slope, the card named in
+  every record, and the smoke's own wall time at the end.
 
 Gradient tables are held to max|Δ| <= 1e-4·max|ref| of their plain
 versions: K5 and K6 at 256×128 with every pixel (phases 8-9), K6 (mean) at
@@ -143,18 +152,11 @@ W, H = 1920, 1080
 CAM_LOC = (3.0, 2.0, -3.0)
 CAM_ORIENT = (0.0, 0.7)
 PAN = 1e-3  # yaw per frame: the slow pan of bench.py (~0.3 px/frame at 1080p)
+T_START = time.perf_counter()
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    )
-    return out.stdout.strip().splitlines()[0]
 
 
 def frame_agreement(out: dict, ref: dict, what: str) -> dict:
@@ -708,6 +710,7 @@ def nccl_main() -> int:
     from kylespathtracer_tpu_torch.render.camera import Camera
     from kylespathtracer_tpu_torch.scene.scene import default_scene
     from kylespathtracer_tpu_torch.utils.config import RenderConfig
+    from kylespathtracer_tpu_torch.utils.metrics import card_line
 
     card = card_line()
     count = torch.cuda.device_count()
@@ -1554,6 +1557,105 @@ def app_phases(dev, card: str, rec_ref: dict, rec_wall: float) -> dict:
     return counts
 
 
+# Phase 32: the benches through their entry points. bench.py's metric names
+# (less scaling_*), and the kernels one step of each measurement launches.
+BENCH_METRICS = ("host_device_roundtrip_ms", "fwd_frame_ms_1080p", "traced_rays_per_s_1080p",
+                 "fwd_bwd_rays_per_s_1080p", "fwd_bwd_generic_rays_per_s_1080p", "raycast_rays_per_s_1080p",
+                 "wavefront_segments_per_s_1080p")
+BENCH_LAUNCHES = {"fwd_fused": {"frame_forward": 1, "reproject_window": 2},
+                  "fwd_bwd_fused_loss": {"render_loss_and_grad": 1},
+                  "fwd_bwd": {"frame_forward": 1, "frame_backward": 1},
+                  "raycast": {"geometry_pass": 1}, "wavefront": {"pathtrace": 1}}
+
+
+def bench_run(module: str, args: list, timeout: float) -> tuple[subprocess.CompletedProcess, float]:
+    """`python -m kylespathtracer_tpu_torch.<module> ARGS` from the repo root
+    → (the finished process, its wall seconds); raises unless it exits 0."""
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run([sys.executable, "-m", f"kylespathtracer_tpu_torch.{module}", *args],
+                              capture_output=True, text=True, timeout=timeout,
+                              cwd=os.path.dirname(os.path.abspath(__file__)))
+    except subprocess.TimeoutExpired as e:
+        raise AssertionError(f"phase 32: {module} did not end within {timeout} s:\n{e.stdout}\n{e.stderr}") \
+            from None
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"phase 32: {module} exited {proc.returncode}:\n{proc.stdout[-4000:]}\n"
+                             f"{proc.stderr[-6000:]}")
+    return proc, wall
+
+
+def json_lines(text: str) -> list:
+    return [json.loads(ln) for ln in text.splitlines() if ln.startswith("{")]
+
+
+def bench_phase(card: str) -> dict:
+    """Phase 32: bench, bench_configs and bench_profile as a user runs them,
+    each a subprocess writing into a new --out path under a temporary
+    directory; holds every bench.py metric name (less scaling_*) on its own
+    line, the launches of each measurement's step, every configuration's
+    bar, the profile's device time within the bench's slope × 1.05, and the
+    card named in every record → bench's metrics by name."""
+    failed = []
+    log("phase 32: python -m kylespathtracer_tpu_torch.bench, .bench_configs and .bench_profile, each with --out "
+        "in a new temporary path")
+    with tempfile.TemporaryDirectory() as tmp:
+        proc, wall = bench_run("bench", ["--out", f"{tmp}/bench.jsonl"], 300)
+        lines = json_lines(proc.stderr)
+        headline = json.loads(proc.stdout.strip().splitlines()[-1])
+        recorded = open(f"{tmp}/bench.jsonl").read().splitlines()
+        metrics = {r["metric"]: r for r in lines}
+        log(f"  bench in {wall:.1f} s; headline {json.dumps(headline)}")
+        for r in lines:
+            log(f"  {json.dumps(r)}")
+        if headline.get("metric") != "primary_rays_per_s_fwd_1080p" or not headline.get("value", 0) > 0:
+            failed.append(f"bench's last stdout line is not the headline: {headline}")
+        missing = [m for m in BENCH_METRICS + tuple(f"{t}_timing_detail" for t in BENCH_LAUNCHES) if m not in metrics]
+        if missing:
+            failed.append(f"bench printed no line for {missing}")
+        for tag, want in BENCH_LAUNCHES.items():
+            got = metrics.get(f"{tag}_timing_detail", {}).get("launches_per_step")
+            if got != want:
+                failed.append(f"bench's {tag} step launched {got}, not {want}")
+        if any(r.get("device") != card for r in lines + [headline]):
+            failed.append("a bench record does not name the card")
+        if [json.loads(ln) for ln in recorded] != lines + [headline]:
+            failed.append("bench's --out record differs from its output")
+
+        proc, wall = bench_run("bench_configs", ["--out", f"{tmp}/configs"], 600)
+        configs = json.load(open(f"{tmp}/configs/configs.json"))
+        recovery = json.load(open(f"{tmp}/configs/recovery.json"))
+        log(f"  bench_configs in {wall:.1f} s: all_passed {configs['all_passed']} [{configs['device']}]")
+        for r in configs["configs"]:
+            shown = {k: v for k, v in r.items() if k not in ("recovery", "timing", "spec", "traceback")}
+            log(f"  {json.dumps(shown)}")
+            if not r.get("passed") or r.get("device") != card:
+                failed.append(f"configuration {r['name']} did not pass or does not name the card")
+        log(f"  recovery.json: errors {[recovery[k] for k in ('err_position', 'err_radius', 'err_albedo')]}, "
+            f"{recovery['steps']} steps")
+        if not configs["all_passed"] or configs["device"] != card:
+            failed.append("bench_configs: not all passed, or the record does not name the card")
+
+        proc, wall = bench_run("bench_profile", ["--out", f"{tmp}/profile"], 300)
+        prof = json.load(open(f"{tmp}/profile/profile.json"))
+        trace_mb = os.path.getsize(f"{tmp}/profile/trace.json") / 1e6
+        log(f"  bench_profile in {wall:.1f} s: device {prof['device_per_frame_ms']:.4f} ms per frame, span "
+            f"{prof['span_per_frame_ms']:.4f} ms, busy {prof['busy_share']:.4f}, idle {prof['idle_share']:.4f}, "
+            f"{prof['device_events']} device events; its slope {prof['fwd_frame_ms_1080p']:.4f} ms "
+            f"({prof['slope_over_device']:.3f}x the device time); trace {trace_mb:.1f} MB [{prof['device']}]")
+        for e in prof["top_device_events"]:
+            log(f"    {e['per_frame_ms']:.4f} ms per frame, {e['count']} launches: {e['name'][:120]}")
+        fwd_ms = metrics.get("fwd_frame_ms_1080p", {}).get("value", 0.0)
+        if not (prof["device_within_slope"] and prof["device_per_frame_ms"] <= fwd_ms * 1.05):
+            failed.append(f"the profile's device time {prof['device_per_frame_ms']} ms exceeds 1.05x the slope "
+                          f"(its own {prof['fwd_frame_ms_1080p']}, bench's {fwd_ms})")
+        if prof["device"] != card:
+            failed.append("the profile does not name the card")
+    check_holds(failed, "phase 32")
+    return metrics
+
+
 def free_port() -> int:
     import socket
 
@@ -1566,7 +1668,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device; this smoke run needs a GPU")
 
-    from kylespathtracer_tpu_torch import bench_ceiling
+    from kylespathtracer_tpu_torch import bench_ceiling, bench_configs
     from kylespathtracer_tpu_torch.app import cli, driver
     from kylespathtracer_tpu_torch.diff import inverse
     from kylespathtracer_tpu_torch.ops import _build
@@ -1584,8 +1686,8 @@ def main() -> int:
     from kylespathtracer_tpu_torch.render.camera import Camera
     from kylespathtracer_tpu_torch.render.passes import Channel
     from kylespathtracer_tpu_torch.scene.scene import default_scene, sphere_scene
-    from kylespathtracer_tpu_torch.scene.types import BSDF
     from kylespathtracer_tpu_torch.utils.config import RenderConfig
+    from kylespathtracer_tpu_torch.utils.metrics import card_line
 
     dev = torch.device("cuda")
 
@@ -2051,13 +2153,7 @@ def main() -> int:
 
     # Phase 14: K7 against its plain version on the card.
     log("phase 14: path kernel (K7) vs plain, on the card")
-    config3 = sphere_scene(  # bench_configs.py:282-289
-        [[-1.5, 1.0, 6.0], [1.5, 1.2, 6.5], [0.0, 0.8, 4.5]], [1.0, 1.2, 0.8],
-        [[0.9, 0.9, 0.9], [0.7, 0.8, 0.9], [0.9, 0.6, 0.5]],
-        kinds=[BSDF.MIRROR, BSDF.DIELECTRIC, BSDF.DIFFUSE], iors=[1.5, 1.5, 1.5], device=dev,
-    )
-    cam3 = Camera.create(loc=(0.0, 2.0, -2.0), orient=(-0.1, 0.0), device=dev)
-    cfg3 = RenderConfig(width=512, height=512, spp=4, max_depth=6)
+    config3, cam3, cfg3 = bench_configs.config3_case(dev)
     k7_err, k7_images = 0.0, {}
     for label, sc, cm, c in (("default_scene 256x128 spp 2", scene, camera(), RenderConfig(
             width=256, height=128, spp=2, max_depth=6)), ("config 3 512x512 spp 4", config3, cam3, cfg3)):
@@ -2498,6 +2594,10 @@ def main() -> int:
     app_counts = app_phases(dev, card, res, rec_wall)
     log(f"  launches in phases 28-30: {app_counts}; phase 22's resume: {resume_launches}")
 
+    # Phase 32: the three benches as a user runs them.
+    torch.cuda.empty_cache()
+    bench_phase(card)
+
     # Bounds, from this run's inputs (frame_ops, bound): each kernel's work
     # as (operations, bytes).
     ops1 = frame_ops(scene, cfg, ref["oid"])
@@ -2618,6 +2718,7 @@ def main() -> int:
     idle = [k["name"] for k in kernels if k["launches"] < 1]
     if idle:
         raise AssertionError(f"kernels never launched on their paths: {idle}")
+    log(f"chip_smoke: {time.perf_counter() - T_START:.1f} s wall")
     log(card_line())
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -43,17 +43,12 @@ import torch
 
 from kylespathtracer_tpu_torch.ops import _build
 from kylespathtracer_tpu_torch.ops import ceiling_kernel as ck
+from kylespathtracer_tpu_torch.utils.metrics import card_line, slope_fit
 
 KS = (16, 64, 112)
 REPS = 4
 # f32 lanes of one Hopper SM.
 F32_LANES = 128
-
-
-def card_line() -> str:
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
 
 
 def no_fma_rate() -> float:
@@ -97,11 +92,8 @@ def slope_ms(launch, ks=KS, reps: int = REPS) -> tuple[float, dict]:
             end.synchronize()
             best = min(best, start.elapsed_time(end))
         totals.append(best)
-    mk, mt = sum(ks) / len(ks), sum(totals) / len(totals)
-    slope = sum((k - mk) * (t - mt) for k, t in zip(ks, totals)) / sum((k - mk) ** 2 for k in ks)
-    sub = [(totals[i + 1] - totals[i]) / (ks[i + 1] - ks[i]) for i in range(len(ks) - 1)]
-    return slope, {"ks": list(ks), "totals_ms": totals, "sub_slopes_ms": sub,
-                   "linear_ok": max(sub) <= min(sub) * 1.2}
+    slope, sub, linear = slope_fit(ks, totals)
+    return slope, {"ks": list(ks), "totals_ms": totals, "sub_slopes_ms": sub, "linear_ok": linear}
 
 
 def ops_of(variant, pixels: int) -> int:

@@ -132,6 +132,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from kylespathtracer_tpu_torch.bench_configs import config3_case
 from kylespathtracer_tpu_torch.diff import inverse
 from kylespathtracer_tpu_torch.ops import _build
 from kylespathtracer_tpu_torch.ops import ceiling_kernel as ck
@@ -146,9 +147,9 @@ from kylespathtracer_tpu_torch.ops import shade_kernel as sk
 from kylespathtracer_tpu_torch.render import gbuffer, passes
 from kylespathtracer_tpu_torch.render.camera import Camera
 from kylespathtracer_tpu_torch.render.passes import Channel
-from kylespathtracer_tpu_torch.scene.scene import default_scene, sphere_scene
-from kylespathtracer_tpu_torch.scene.types import BSDF
+from kylespathtracer_tpu_torch.scene.scene import default_scene
 from kylespathtracer_tpu_torch.utils.config import RenderConfig
+from kylespathtracer_tpu_torch.utils.metrics import card_line
 
 ROOT = Path(__file__).resolve().parents[2]
 ADJ, SHADE, BODY, HIST, PATH, GEO = ("frame_adjoint.cuh", "shade_core.cuh", "frame_body.cuh", "frame_hist.cu",
@@ -246,13 +247,6 @@ GROUPS = {
                  ("frame_kernel.cu", "reproject_kernel.cu", "frame_grad.cu", "loss_kernel.cu", "path_kernel.cu",
                   "frame_hist.cu", "shade_kernel.cu", "ceiling_kernel.cu")),
 }
-
-
-def card_line() -> str:
-    """The card's name and power limit, as nvidia-smi gives them."""
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
 
 
 def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
@@ -519,18 +513,6 @@ def frame_times(dev, rng) -> callable:
     return run
 
 
-def config3(dev):
-    """The JAX package's config 3 (bench_configs.py:282-289): a mirror, a
-    dielectric and a diffuse sphere on a floor → (scene, camera, config at
-    512×512, 4 spp, depth 6), as chip_smoke.py phase 14 builds it."""
-    scene = sphere_scene(
-        [[-1.5, 1.0, 6.0], [1.5, 1.2, 6.5], [0.0, 0.8, 4.5]], [1.0, 1.2, 0.8],
-        [[0.9, 0.9, 0.9], [0.7, 0.8, 0.9], [0.9, 0.6, 0.5]],
-        kinds=[BSDF.MIRROR, BSDF.DIELECTRIC, BSDF.DIFFUSE], iors=[1.5, 1.5, 1.5], device=dev)
-    cam = Camera.create(loc=(0.0, 2.0, -2.0), orient=(-0.1, 0.0), device=dev)
-    return scene, cam, RenderConfig(width=512, height=512, spp=4, max_depth=6)
-
-
 def path_cells(dev) -> dict:
     """The cells of the --path group: K7 at bench.py's wavefront cell and on
     config 3, K4 on the default scene's G-buffer at 1920×1080 (the inputs of
@@ -540,7 +522,7 @@ def path_cells(dev) -> dict:
     cfg_p = RenderConfig(width=1920, height=1080, pipeline="pass", shade_backend="pallas")
     gb = gbuffer.geometry_pass(scene, cam, cfg_p)
     _, seed = passes._shade_common(scene, cfg_p, gb, cam, 3)
-    return {"k7": (scene, cam, RenderConfig(width=1920, height=1080, spp=4, max_depth=6)), "k7_3": config3(dev),
+    return {"k7": (scene, cam, RenderConfig(width=1920, height=1080, spp=4, max_depth=6)), "k7_3": config3_case(dev),
             "k4": (scene, gb, cam, seed, cfg_p)}
 
 

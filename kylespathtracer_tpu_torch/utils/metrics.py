@@ -4,13 +4,16 @@ Port of kylespathtracer_tpu/utils/metrics.py: every step emits a JSONL
 record (`MetricsLogger`), a block can be traced with torch.profiler
 (`profiler_trace`; the frame's stages are the spans of
 render/pipeline.py:STAGES), and `Timer` and `time_fn` time device work
-behind a synchronize.
+behind a synchronize. `slope_fit` is the arithmetic of the benches' slope
+timings (bench.py, bench_ceiling.py) and `card_line` names the card beside
+every measurement.
 """
 
 from __future__ import annotations
 
 import contextlib
 import json
+import subprocess
 import sys
 import time
 from pathlib import Path
@@ -22,6 +25,26 @@ import torch
 # place a kernel up to ~5 ms before its launch, so a kernel launched just
 # after the session starts may fall outside it (tools/profiler_sessions.py).
 PROFILER_MARGIN_S = 0.02
+
+
+def card_line() -> str:
+    """The card's name and power limit as `nvidia-smi --query-gpu=name,
+    power.limit --format=csv,noheader` prints them (the first card)."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def slope_fit(ks, totals, slack: float = 0.0) -> tuple[float, list, bool]:
+    """The least-squares slope of `totals` over `ks` (three or more
+    ascending counts), the slopes between neighbouring counts, and whether
+    those agree: the largest at most 1.2 × the smallest + `slack` (the
+    totals' unit)."""
+    n = len(ks)
+    mk, mt = sum(ks) / n, sum(totals) / n
+    slope = sum((k - mk) * (t - mt) for k, t in zip(ks, totals)) / sum((k - mk) ** 2 for k in ks)
+    sub = [(totals[i + 1] - totals[i]) / (ks[i + 1] - ks[i]) for i in range(n - 1)]
+    return slope, sub, max(sub) <= min(sub) * 1.2 + slack
 
 
 class MetricsLogger:

@@ -183,6 +183,35 @@ def test_ift_backward_matches_jax_vjp(which):
         np.testing.assert_allclose(np_(b), a, rtol=0, atol=1e-4 * np.abs(a).max(), err_msg=name)
 
 
+@pytest.mark.parametrize("offset,inside_core", [(0.5, True), (0.85, False)], ids=["in_core", "in_rounding"])
+def test_ray_from_inside_the_box_core_is_a_reference_side_fault(offset, inside_core):
+    """A reference-side fault that the port does not copy: a ray that starts
+    inside the rounded box's core (every |p - c| - half < 0, `offset` 0.5)
+    hits at once, and there max(d, 0) is 0 in every component: JAX's
+    maximum passes the NaN of sqrt's gradient at 0 on to every input, where
+    torch's maximum zeroes the smaller operand's cotangent, so the port's
+    gradient is finite. Started just outside the core, in the 0.1 rounding
+    (`offset` 0.85), the same ray gets equal t, IDs and gradients (1e-4·max)
+    from both."""
+    ro = (BOX + np.float32([offset, 0.2, -0.1]))[None].astype(np.float32)
+    rd = _unit(np.float32([[1.0, 0.3, 0.2]]))
+    (t_j, id_j), vjp = jax.vjp(lambda bx, o, d: jsdf.march(SCENE.replace(boxes=bx), o, d, -1, 255),
+                               SCENE.boxes, jnp.asarray(ro), jnp.asarray(rd))
+    ref = [np.asarray(a) for a in vjp((jnp.ones(1), np.zeros(1, jax.dtypes.float0)))]
+    ts = to_torch_scene(SCENE)
+    leaves = [x.clone().requires_grad_() for x in (ts.boxes, torch.from_numpy(ro), torch.from_numpy(rd))]
+    t_t, id_t = sdf.march(dataclasses.replace(ts, boxes=leaves[0]), leaves[1], leaves[2])
+    got = [np_(g) for g in torch.autograd.grad(t_t.sum(), leaves)]
+    assert np_(id_t)[0] == int(id_j[0]) == OBJ.BOX
+    np.testing.assert_allclose(np_(t_t.detach()), np.asarray(t_j), atol=1e-6, rtol=0)
+    assert all(np.isfinite(g).all() for g in got) and np.abs(got[0]).max() > 0
+    for name, a, b in zip(("boxes", "ro", "rd"), ref, got):
+        if inside_core:
+            assert np.isnan(a).all(), name
+        else:
+            np.testing.assert_allclose(b, a, rtol=0, atol=1e-4 * np.abs(a).max(), err_msg=name)
+
+
 @pytest.mark.parametrize("column,want", [(2, 1.0), (3, -1.0)], ids=["translation", "radius"])
 def test_march_gradients_match_finite_differences(column, want):
     """tests/test_scene.py:86-123 in torch: a ray straight at a unit sphere;
