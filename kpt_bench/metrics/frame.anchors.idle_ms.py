@@ -1,0 +1,10 @@
+"""frame.anchors.idle_ms (ms a frame): the device's idle time while the host is
+inside the `frame.anchors` span (render/pipeline.py:split_temporal_frame), the
+reprojection anchors and the camera's speed. Read by kpt_bench/spans.py from
+the spans of the traced window. Moves frame_ms in temporal.spline1080."""
+
+from kpt_bench.spans import stage_value
+
+
+def read(ctx):
+    return stage_value(ctx, "frame", "frame.anchors", "idle_ms")

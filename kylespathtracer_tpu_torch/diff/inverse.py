@@ -15,6 +15,10 @@ global-norm clip, written to equal the optax chain of the JAX package
 (`ClippedAdam`). `run_recovery` checkpoints the parameters and the
 optimizer state after each β phase and resumes from them
 (utils/checkpoint.py).
+
+Each of `fit`'s steps is one `fit.step` profiler span holding its stages
+(FIT_STAGES), so a profiler trace splits the step by stage; outside a
+profiler a span is one boolean check (utils/metrics.py:span).
 """
 
 from __future__ import annotations
@@ -35,8 +39,13 @@ from kylespathtracer_tpu_torch.render.pipeline import init_history, render_frame
 from kylespathtracer_tpu_torch.scene.types import Scene
 from kylespathtracer_tpu_torch.utils import checkpoint as ckpt_mod
 from kylespathtracer_tpu_torch.utils.config import RenderConfig
+from kylespathtracer_tpu_torch.utils.metrics import span
 
 Params = dict[str, torch.Tensor]
+
+# The profiler spans of an optimizer step, children of its `fit.step` span
+# (`fit.view`, one a view of the fused route, nests in fit.value_and_grad).
+FIT_STAGES = ("fit.value_and_grad", "fit.update")
 
 # Frame index where target-realization seeds start (seed-paired fitting,
 # see `fit`): far from the 0..steps frames ordinary fitting consumes.
@@ -182,7 +191,7 @@ class ClippedAdam:
     def update(self, grads: Params, state: AdamState, params: Params) -> Params:
         """One step from `params` along `grads` → the new parameters
         (state.params, updated in place)."""
-        with torch.no_grad():
+        with span("fit.update"), torch.no_grad():
             for k, p in state.params.items():
                 if params[k] is not p:
                     p.copy_(params[k])
@@ -207,21 +216,23 @@ def value_and_grad(params: Params, scene0: Scene, camera: Camera, target: torch.
     and its gradient; otherwise, or with the environment's KPT_FUSED_LOSS=0
     (the JAX package's switch, to compare the two), autograd through
     `loss_fn`."""
-    if config.pipeline != "fused" or os.environ.get("KPT_FUSED_LOSS", "1") == "0":
-        p = {k: v.detach().requires_grad_() for k, v in params.items()}
-        loss = loss_fn(p, scene0, camera, target, frame, config)
-        return loss.detach(), dict(zip(p, torch.autograd.grad(loss, list(p.values()))))
-    sc = apply_params(scene0, params)
-    views = [(camera, target)] if target.ndim == 3 else [
-        (camera[v], target[v]) for v in range(int(target.shape[0]))]
-    losses, grads = [], []
-    for cam_v, tgt_v in views:
-        lval, (d_scene, _) = lk.loss_and_grad(sc, cam_v, frame, config, target=tgt_v,
-                                              keys=tuple(params))
-        losses.append(lval)
-        grads.append({k: d_scene[k] for k in params})
-    loss = torch.mean(torch.stack(losses))
-    return loss, {k: torch.mean(torch.stack([g[k] for g in grads]), dim=0) for k in params}
+    with span("fit.value_and_grad"):
+        if config.pipeline != "fused" or os.environ.get("KPT_FUSED_LOSS", "1") == "0":
+            p = {k: v.detach().requires_grad_() for k, v in params.items()}
+            loss = loss_fn(p, scene0, camera, target, frame, config)
+            return loss.detach(), dict(zip(p, torch.autograd.grad(loss, list(p.values()))))
+        sc = apply_params(scene0, params)
+        views = [(camera, target)] if target.ndim == 3 else [
+            (camera[v], target[v]) for v in range(int(target.shape[0]))]
+        losses, grads = [], []
+        for cam_v, tgt_v in views:
+            with span("fit.view"):
+                lval, (d_scene, _) = lk.loss_and_grad(sc, cam_v, frame, config, target=tgt_v,
+                                                      keys=tuple(params))
+                losses.append(lval)
+                grads.append({k: d_scene[k] for k in params})
+        loss = torch.mean(torch.stack(losses))
+        return loss, {k: torch.mean(torch.stack([g[k] for g in grads]), dim=0) for k in params}
 
 
 def fit(
@@ -261,14 +272,15 @@ def fit(
 
     losses = []
     for i in range(steps):
-        if paired:
-            s = i % n_seeds
-            frame, tgt = SEED_BASE + s, target[:, s]
-        else:
-            frame, tgt = (i if vary_seed else 0), target
-        loss, grads = value_and_grad(params, scene0, camera, tgt, frame, config)
-        params = opt.update(grads, opt_state, params)
-        losses.append(loss)
+        with span("fit.step"):
+            if paired:
+                s = i % n_seeds
+                frame, tgt = SEED_BASE + s, target[:, s]
+            else:
+                frame, tgt = (i if vary_seed else 0), target
+            loss, grads = value_and_grad(params, scene0, camera, tgt, frame, config)
+            params = opt.update(grads, opt_state, params)
+            losses.append(loss)
     losses = torch.stack(losses).tolist() if losses else []
     fitted = apply_params(scene0, {k: v.detach().clone() for k, v in params.items()})
     if return_state:

@@ -19,9 +19,10 @@ the diffuse and specular passes (render/passes.py, the shade kernel K4 with
 `shade_backend="xla"`, through the intersectors' implicit-function backward
 (scene/sdf.py). Everything runs on the scene's device.
 
-The stages are `torch.profiler` spans (STAGES), so a profiler trace splits
-the frame's device time by stage; outside a profiler they cost a few
-microseconds per frame.
+Each frame is one `frame` span, and the split temporal frame's stages are
+its child spans (STAGES), so a profiler trace splits the frame's device
+time, launches and idle time by stage; outside a profiler a span is one
+boolean check (utils/metrics.py:span).
 """
 
 from __future__ import annotations
@@ -29,7 +30,6 @@ from __future__ import annotations
 import dataclasses
 
 import torch
-from torch.profiler import record_function
 
 from kylespathtracer_tpu_torch import DEFAULT_DEVICE
 from kylespathtracer_tpu_torch.core import gmath
@@ -51,8 +51,11 @@ from kylespathtracer_tpu_torch.render.passes import (
     specular_anchor,
 )
 from kylespathtracer_tpu_torch.scene.types import Scene
+from kylespathtracer_tpu_torch.utils.metrics import span
 
-# Profiler span names, in frame order.
+# The split temporal frame's profiler spans, in frame order; children of
+# the `frame` span of render_frame (the tiled renderer's tiles have no
+# `frame` span around them).
 STAGES = ("frame.ray_dirs", "frame.k1", "frame.anchors", "frame.reproject", "frame.tail")
 
 
@@ -103,16 +106,18 @@ def render_frame(
     frame,
     config,
 ) -> tuple[torch.Tensor, History]:
-    """One frame → (sRGB image f32[H,W,3], new history)."""
-    if config.pipeline != "fused":
-        return pass_frame(scene, camera, history, frame, config)
-    if not _temporal_window(config):
-        return differentiable_frame(scene, camera, history, frame, config)
-    if config.temporal_fusion == "mono":
-        return mono_temporal_frame(scene, camera, history, frame, config)
-    with record_function("frame.ray_dirs"):
-        rd = cam_mod.ray_dirs(camera, config.width, config.height, config.fov)
-    return split_temporal_frame(scene, camera, history, frame, config, rd)
+    """One frame → (sRGB image f32[H,W,3], new history), inside one `frame`
+    span whatever the pipeline."""
+    with span("frame"):
+        if config.pipeline != "fused":
+            return pass_frame(scene, camera, history, frame, config)
+        if not _temporal_window(config):
+            return differentiable_frame(scene, camera, history, frame, config)
+        if config.temporal_fusion == "mono":
+            return mono_temporal_frame(scene, camera, history, frame, config)
+        with span("frame.ray_dirs"):
+            rd = cam_mod.ray_dirs(camera, config.width, config.height, config.fov)
+        return split_temporal_frame(scene, camera, history, frame, config, rd)
 
 
 def pass_frame(scene: Scene, camera: Camera, history: History, frame, config):
@@ -202,12 +207,12 @@ def split_temporal_frame(
     history window of rows + 2·hist_halo rows from the halo exchange, K1 in
     row mode and K2 in tile mode."""
     tile = rows is not None
-    with record_function("frame.k1"):
+    with span("frame.k1"):
         out = fk.frame_forward(scene, camera, frame, config, row_base, rows)
-    with record_function("frame.anchors"):
+    with span("frame.anchors"):
         hl, sl = _anchors(scene, camera, rd, out)
         vv = gmath.length(camera.loc - prev_hist.camera.loc)
-    with record_function("frame.reproject"):
+    with span("frame.reproject"):
         (rgb_d, cnt_d), (rgb_s, cnt_s) = rk.reproject_window(
             prev_hist.camera, hl, sl, out["oid"],
             prev_hist.diffuse, prev_hist.specular, config.fov,
@@ -216,7 +221,7 @@ def split_temporal_frame(
             row_base=row_base, hist_halo=hist_halo,
         )
 
-    with record_function("frame.tail"):
+    with span("frame.tail"):
         d = _accumulate(rgb_d, cnt_d, out["add_d"], vv, out["oid"], config)
         s = _accumulate(rgb_s, cnt_s, out["add_s"], vv, out["oid"], config)
         image = comp_mod.composite_from(out["alb"], out["ene"], d, s, config)

@@ -2,8 +2,9 @@
 
 Port of kylespathtracer_tpu/utils/metrics.py: every step emits a JSONL
 record (`MetricsLogger`), a block can be traced with torch.profiler
-(`profiler_trace`; the frame's stages are the spans of
-render/pipeline.py:STAGES), and `Timer` and `time_fn` time device work
+(`profiler_trace`) and every span of the port goes through `span` (the
+frame and its stages, render/pipeline.py:STAGES; the optimizer step,
+diff/inverse.py:FIT_STAGES), and `Timer` and `time_fn` time device work
 behind a synchronize. `slope_fit` is the arithmetic of the benches' slope
 timings (bench.py, bench_ceiling.py) and `card_line` names the card beside
 every measurement.
@@ -25,6 +26,17 @@ import torch
 # place a kernel up to ~5 ms before its launch, so a kernel launched just
 # after the session starts may fall outside it (tools/profiler_sessions.py).
 PROFILER_MARGIN_S = 0.02
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A profiler span named `name` (torch.profiler's `record_function`)
+    while a profiler is active; otherwise a shared null context, so a span
+    costs one boolean check when nothing traces."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
 
 
 def card_line() -> str:
