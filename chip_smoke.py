@@ -96,7 +96,7 @@ it and read just after:
   kylespathtracer_tpu_torch.bench`, `.bench_configs` and `.bench_profile`,
   each a subprocess with `--out` in a new temporary path: every bench.py
   metric name (less scaling_*) on its own line and the headline last, the
-  kernels one step of each measurement launches (K1 + 2 × K2, K6, K1 + K5,
+  kernels one step of each measurement launches (K1 + K2, K6, K1 + K5,
   K3, K7), every configuration of BASELINE.json within its JAX bar (config 5
   with the sharded witness on 8 gloo ranks sharing the card), the profile's
   device time per frame within 1.05 × the bench's slope, the card named in
@@ -221,6 +221,10 @@ def shade_ops(scene, config, oid, smp: int) -> float:
         sample = 40 + occl + (occl + 10) / smp
     return shaded * smp * sample
 
+
+# K2's per-pixel work (csrc/reproject_kernel.cu): per channel set the
+# previous-camera projection (~60) and the four taps (~10 each).
+K2_OPS = 2 * (60 + 4 * 10)
 
 # K8's per-pixel work beyond K1's frame (csrc/frame_hist.cu): the anchors
 # (~30), and per channel set the previous-camera projection (~45), the four
@@ -684,7 +688,7 @@ def rank_phase(backend: str, hist0, tiled, params, new_params, loss, target, car
             f"{rep['split']['frame_ms_all']:.4f}, mono {rep['mono']['frame_ms_rank']:.4f} / "
             f"{rep['mono']['frame_ms_all']:.4f}; halo exchange {rep['exchange_ms']:.4f} ms; train step "
             f"{rep['train']['step_ms_rank']:.4f} / {rep['train']['step_ms_all']:.4f} ms [{card}; {per_rank}]")
-        if rep["split"]["launches"] != {"frame": 2, "frame rows": 2, "reproject": 4, "reproject tile": 4,
+        if rep["split"]["launches"] != {"frame": 2, "frame rows": 2, "reproject": 2, "reproject tile": 2,
                                         "frame_hist": 0, "frame_hist tile": 0} or \
                 rep["mono"]["launches"]["frame_hist tile"] != 2 or \
                 rep["train"]["launches"] != {"frame rows": 1, "backward rows": 1}:
@@ -1282,7 +1286,7 @@ def app_phases(dev, card: str, rec_ref: dict, rec_wall: float) -> dict:
         f"{restore_ms:.3f} ms (medians of 5, host clock) [{card}]")
     if saved != [3] or "resumed from checkpoint step 3" not in said.getvalue():
         failed.append(f"checkpoints {saved}, not [3], or the run did not resume from step 3")
-    if launches != {"frame": 4, "reproject": 8}:
+    if launches != {"frame": 4, "reproject": 4}:
         failed.append(f"the resumed frames 4-7 did not run through K1 and K2: {launches}")
     if not torch.equal(img, ref_img) or gaps:
         failed.append(f"the resumed run is not bitwise the uninterrupted one (image max |d| {diff}, {gaps})")
@@ -1456,7 +1460,7 @@ def app_phases(dev, card: str, rec_ref: dict, rec_wall: float) -> dict:
         f"{[round(v, 4) for v in states[-1].orient.tolist()]}; speeds {[round(v, 5) for v in speeds]}")
     log(f"  controller on the card vs the CPU, max |d| over the {T} states: {worst:.3g}; first step's speed "
         f"{(speeds[0] - float(accel)) / np.spacing(accel):+.1f} ulps from ACCEL_SPEED (the dead stop's knife edge)")
-    if fly_launches != {"frame": T, "reproject": 2 * T} or play_launches != fly_launches:
+    if fly_launches != {"frame": T, "reproject": T} or play_launches != fly_launches:
         failed.append(f"fly or playback did not run through K1 and K2: {fly_launches}, {play_launches}")
     if differ:
         failed.append(f"fly and playback part on frames {differ}")
@@ -1562,7 +1566,7 @@ def app_phases(dev, card: str, rec_ref: dict, rec_wall: float) -> dict:
 BENCH_METRICS = ("host_device_roundtrip_ms", "fwd_frame_ms_1080p", "traced_rays_per_s_1080p",
                  "fwd_bwd_rays_per_s_1080p", "fwd_bwd_generic_rays_per_s_1080p", "raycast_rays_per_s_1080p",
                  "wavefront_segments_per_s_1080p")
-BENCH_LAUNCHES = {"fwd_fused": {"frame_forward": 1, "reproject_window": 2},
+BENCH_LAUNCHES = {"fwd_fused": {"frame_forward": 1, "reproject_window": 1},
                   "fwd_bwd_fused_loss": {"render_loss_and_grad": 1},
                   "fwd_bwd": {"frame_forward": 1, "frame_backward": 1},
                   "raycast": {"geometry_pass": 1}, "wavefront": {"pathtrace": 1}}
@@ -1709,7 +1713,8 @@ def main() -> int:
     _build.load()
     log(f"phase 1: built {path.name} in {time.perf_counter() - t0:.1f} s")
     ptxas = {label: ptxas_lines(report.getvalue(), source) for label, source in (
-        ("K1", "frame_kernel.cu"), ("K3", "geometry_kernel.cu"), ("K7", "path_kernel.cu"), ("K8", "frame_hist.cu"),
+        ("K1", "frame_kernel.cu"), ("K2", "reproject_kernel.cu"), ("K3", "geometry_kernel.cu"),
+        ("K7", "path_kernel.cu"), ("K8", "frame_hist.cu"),
         ("K4", "shade_kernel.cu"), ("K5", "frame_grad.cu"), ("K6", "loss_kernel.cu"))}
     for label, line in ptxas.items():
         log(f"  ptxas {label}: {line}")
@@ -1748,7 +1753,8 @@ def main() -> int:
         frame_agreement(o, fk.frame_forward_plain(spheres, camera(), 3, c),
                         f"sphere_scene 256x128 {label}")
 
-    # Phase 3: K2 against its plain version at 1920x1080, same query planes.
+    # Phase 3: K2 (both channel sets, query heads included) against its plain
+    # version (`_queries` + `reproject_window_plain`) on the card at 1920x1080.
     log("phase 3: reprojection kernel (K2) vs plain, on the card")
     rng = np.random.default_rng(0)
 
@@ -1761,21 +1767,25 @@ def main() -> int:
 
     from kylespathtracer_tpu_torch.render.camera import ray_dirs
 
-    rd = ray_dirs(camera(1), W, H, cfg.fov)
-    hl = camera(1).loc + rd * ref["depth"][..., None]
-    prev = camera(0)
-    hist = random_channel()
+    hl, sl = pipeline._anchors(scene, camera(1), ray_dirs(camera(1), W, H, cfg.fov), ref)
+    hist, hist_s = random_channel(), random_channel()
     K = min(cfg.reproject_window, rk.MAX_WINDOW)
-    dyrel, dxrel, w4 = rk._queries(prev, hl, ref["oid"], cfg.fov, H, W)
-    rgb_k, cnt_k = rk.reproject_set(ref["oid"], dyrel, dxrel, w4, hist, K)
+    k2_args = (camera(0), hl, sl, ref["oid"], hist, hist_s, cfg.fov)
+    before = rk.LAUNCHES
+    k2_out = rk.reproject_window(*k2_args, window=K)
     torch.cuda.synchronize()
-    rgb_p, cnt_p = rk.reproject_window_plain(ref["oid"], dyrel, dxrel, w4, hist, K)
-    k2_err = max((rgb_k - rgb_p).abs().max().item(), (cnt_k - cnt_p).abs().max().item())
-    log(f"  {W}x{H} K={K}: max |d| rgb {(rgb_k - rgb_p).abs().max().item():.3g}, "
-        f"cnt {(cnt_k - cnt_p).abs().max().item():.3g}; mean reprojected count "
-        f"{cnt_k.mean().item():.4f}")
-    torch.testing.assert_close(rgb_k, rgb_p, atol=1e-5, rtol=0)
-    torch.testing.assert_close(cnt_k, cnt_p, atol=1e-4, rtol=0)
+    k2_launches = rk.LAUNCHES - before
+    k2_ref = rk.reproject_frame_plain(*k2_args, K, H)
+    k2_err = max((a - b).abs().max().item() for got, want in zip(k2_out, k2_ref) for a, b in zip(got, want))
+    k2_bitwise = all(torch.equal(a, b) for got, want in zip(k2_out, k2_ref) for a, b in zip(got, want))
+    rgb_k, cnt_k = k2_out[0]
+    log(f"  {W}x{H} K={K}, both sets in {k2_launches} launch: max |d| {k2_err:.3g}, bitwise {k2_bitwise}; mean "
+        f"reprojected count diffuse {cnt_k.mean().item():.4f}, specular {k2_out[1][1].mean().item():.4f}")
+    for got, want in zip(k2_out, k2_ref):
+        torch.testing.assert_close(got[0], want[0], atol=1e-5, rtol=0)
+        torch.testing.assert_close(got[1], want[1], atol=1e-4, rtol=0)
+    if k2_launches != 1:
+        raise AssertionError(f"reproject_window launched K2 {k2_launches} times, not once")
     if cnt_k.mean().item() <= 1.0:
         raise AssertionError("K2 check carried almost no history; the check is vacuous")
 
@@ -1796,7 +1806,7 @@ def main() -> int:
         raise AssertionError("main path image not finite in [0, 1]")
     if image.shape != (H, W, 3):
         raise AssertionError(f"main path image shape {tuple(image.shape)}")
-    if launches != {"frame": 8, "reproject": 16}:
+    if launches != {"frame": 8, "reproject": 8}:
         raise AssertionError(f"main path did not run through both kernels: {launches}")
     if mean_cnt <= 4.0:
         raise AssertionError(f"history did not accumulate: mean diffuse count {mean_cnt}")
@@ -1856,15 +1866,14 @@ def main() -> int:
     k1_rec_ms = cuda_ms(lambda: fk.frame_forward(start, views[0], f0, c_rec), reps=50, warmup=5)
     k1_rec_alone_ms = cuda_ms(fk.frame_launch(start, views[0], f0, c_rec)[0], reps=50, warmup=5)
     k1_plain_ms = cuda_ms(lambda: fk.frame_forward_plain(scene, camera(), 3, cfg), reps=3, warmup=1)
-    k2_ms = cuda_ms(lambda: rk.reproject_set(ref["oid"], dyrel, dxrel, w4, hist, K), reps=50, warmup=3)
-    k2_plain_ms = cuda_ms(
-        lambda: rk.reproject_window_plain(ref["oid"], dyrel, dxrel, w4, hist, K), reps=20, warmup=2)
+    k2_ms = cuda_ms(lambda: rk.reproject_window(*k2_args, window=K), reps=50, warmup=3)
+    k2_plain_ms = cuda_ms(lambda: rk.reproject_frame_plain(*k2_args, K, H), reps=20, warmup=2)
     log(f"  temporal frame {W}x{H}: {frame_ms:.4f} ms, {W * H / frame_ms / 1e3:.2f} "
         f"primary Mrays/s [{card}]")
     log(f"  K1 frame kernel {W}x{H}: {k1_ms:.4f} ms with its wrapper, {k1_alone_ms:.4f} ms alone; plain on the "
         f"card {k1_plain_ms:.4f} ms; at the 192x128 recovery view {k1_rec_ms:.4f} ms with its wrapper, "
         f"{k1_rec_alone_ms:.4f} ms alone [{card}]; {ptxas['K1']}")
-    log(f"  K2 reprojection {W}x{H} (one set): {k2_ms:.4f} ms; plain on the card "
+    log(f"  K2 reprojection {W}x{H} (both sets, query heads included): {k2_ms:.4f} ms; plain on the card "
         f"{k2_plain_ms:.4f} ms [{card}]")
 
     # Phase 7: where the time goes, from a profiler trace of 10 frames.
@@ -2362,7 +2371,7 @@ def main() -> int:
         records = [json.loads(ln) for ln in said.getvalue().splitlines() if ln.startswith("{")]
         pngs = {n: png_pixels(f"{tmp}/{n}") for n in ("frame_00000.png", "frame_00001.png", "final.png")}
         log(f"  cli render {W}x{H} 2 frames: launches {cli_launches}; metrics {records}; PNGs {pngs}")
-        if cli_launches != {"frame": 2, "reproject": 4} or len(records) != 2:
+        if cli_launches != {"frame": 2, "reproject": 2} or len(records) != 2:
             raise AssertionError(f"the render CLI did not run the fused frame twice: {cli_launches}, {records}")
         if any(v != (W, H, H * (1 + W * 3)) for v in pngs.values()):
             raise AssertionError(f"the render CLI's PNGs are malformed: {pngs}")
@@ -2399,7 +2408,7 @@ def main() -> int:
         hold_frame_gaps(gaps, f"{TILES} tiles vs the unsharded {fusion} frame")
         if img_t.shape != (H, W, 3) or not torch.isfinite(img_t).all():
             raise AssertionError(f"tiled {fusion} image not finite or of the wrong shape")
-    want = {"split": {"frame": 6, "frame rows": 6, "reproject": 12, "reproject tile": 12, "frame_hist": 0,
+    want = {"split": {"frame": 6, "frame rows": 6, "reproject": 6, "reproject tile": 6, "frame_hist": 0,
                       "frame_hist tile": 0},
             "mono": {"frame": 0, "frame rows": 0, "reproject": 0, "reproject tile": 0, "frame_hist": 6,
                      "frame_hist tile": 6}}
@@ -2414,18 +2423,19 @@ def main() -> int:
     torch.cuda.synchronize()
     k1r_ref = fk.frame_forward_plain(scene, cam1, 1, cfg, r0, rows_t)
     k1r_stats = frame_agreement(k1r, k1r_ref, f"K1 row mode, rows [{r0}, {r0 + rows_t})")
-    hl_t = cam1.loc + ray_dirs_window(cam1, W, H, r0, rows_t, cfg.fov) * k1r_ref["depth"][..., None]
-    q_t = rk._queries(hist0.camera, hl_t, k1r_ref["oid"], cfg.fov, H, W, row0=r0)
-    k2t_args = (k1r_ref["oid"], *q_t, win.diffuse, K, H, r0, halo_t)
-    rgb_kt, cnt_kt = rk.reproject_set(*k2t_args)
+    hl_t, sl_t = pipeline._anchors(scene, cam1, ray_dirs_window(cam1, W, H, r0, rows_t, cfg.fov), k1r_ref)
+    k2t_args = (hist0.camera, hl_t, sl_t, k1r_ref["oid"], win.diffuse, win.specular, cfg.fov)
+    k2t_out = rk.reproject_window(*k2t_args, window=K, image_height=H, row_base=r0, hist_halo=halo_t)
     torch.cuda.synchronize()
-    rgb_pt, cnt_pt = rk.reproject_window_plain(*k2t_args)
-    k2t_err = max((rgb_kt - rgb_pt).abs().max().item(), (cnt_kt - cnt_pt).abs().max().item())
-    log(f"  K2 tile mode, rows [{r0}, {r0 + rows_t}) of {H}, {halo_t}-row halo, K={K}: max |d| rgb "
-        f"{(rgb_kt - rgb_pt).abs().max().item():.3g}, cnt {(cnt_kt - cnt_pt).abs().max().item():.3g}; mean "
-        f"reprojected count {cnt_kt.mean().item():.4f}")
-    torch.testing.assert_close(rgb_kt, rgb_pt, atol=1e-5, rtol=0)
-    torch.testing.assert_close(cnt_kt, cnt_pt, atol=1e-4, rtol=0)
+    k2t_ref = rk.reproject_frame_plain(*k2t_args, K, H, r0, halo_t)
+    k2t_err = max((a - b).abs().max().item() for got, want in zip(k2t_out, k2t_ref) for a, b in zip(got, want))
+    k2t_bitwise = all(torch.equal(a, b) for got, want in zip(k2t_out, k2t_ref) for a, b in zip(got, want))
+    cnt_kt = k2t_out[0][1]
+    log(f"  K2 tile mode, rows [{r0}, {r0 + rows_t}) of {H}, {halo_t}-row halo, K={K}, both sets: max |d| "
+        f"{k2t_err:.3g}, bitwise {k2t_bitwise}; mean reprojected count {cnt_kt.mean().item():.4f}")
+    for got, want in zip(k2t_out, k2t_ref):
+        torch.testing.assert_close(got[0], want[0], atol=1e-5, rtol=0)
+        torch.testing.assert_close(got[1], want[1], atol=1e-4, rtol=0)
     tile_kw = dict(block_rows=halo_t, row_base=r0, rows=rows_t, hist_halo=halo_t)
     k8t_args = (scene, cam1, hist0.camera, win.diffuse, win.specular, 1, cfg_m)
     k8t = fh.frame_hist(*k8t_args, **tile_kw)
@@ -2439,13 +2449,14 @@ def main() -> int:
     k1r_ms = cuda_ms(lambda: fk.frame_forward(scene, cam1, 1, cfg, r0, rows_t), reps=20, warmup=2)
     k1r_alone_ms = cuda_ms(fk.frame_launch(scene, cam1, 1, cfg, r0, rows_t)[0], reps=20, warmup=2)
     k1r_plain_ms = cuda_ms(lambda: fk.frame_forward_plain(scene, cam1, 1, cfg, r0, rows_t), reps=3)
-    k2t_ms = cuda_ms(lambda: rk.reproject_set(*k2t_args), reps=50, warmup=3)
-    k2t_plain_ms = cuda_ms(lambda: rk.reproject_window_plain(*k2t_args), reps=20, warmup=2)
+    k2t_ms = cuda_ms(lambda: rk.reproject_window(*k2t_args, window=K, image_height=H, row_base=r0,
+                                                 hist_halo=halo_t), reps=50, warmup=3)
+    k2t_plain_ms = cuda_ms(lambda: rk.reproject_frame_plain(*k2t_args, K, H, r0, halo_t), reps=20, warmup=2)
     k8t_ms = cuda_ms(lambda: fh.frame_hist(*k8t_args, **tile_kw), reps=20, warmup=2)
     k8t_alone_ms = cuda_ms(fh.frame_hist_launch(*k8t_args, **tile_kw)[0], reps=20, warmup=2)
     k8t_plain_ms = cuda_ms(lambda: fh.frame_hist_plain(*k8t_args, **tile_kw), reps=3)
     log(f"  one tile of {rows_t}x{W}: K1 row mode {k1r_ms:.4f} ms with its wrapper, {k1r_alone_ms:.4f} alone, "
-        f"plain {k1r_plain_ms:.4f}; K2 tile mode (one set) {k2t_ms:.4f}, plain {k2t_plain_ms:.4f}; K8 tile mode "
+        f"plain {k1r_plain_ms:.4f}; K2 tile mode (both sets) {k2t_ms:.4f}, plain {k2t_plain_ms:.4f}; K8 tile mode "
         f"{k8t_ms:.4f} with its wrapper, {k8t_alone_ms:.4f} alone, plain {k8t_plain_ms:.4f} [{card}]")
     tile_state = {f: (3, tiled[f][1]) for f in tiled}
 
@@ -2603,8 +2614,9 @@ def main() -> int:
     ops1 = frame_ops(scene, cfg, ref["oid"])
     tab_bytes = sum(t.numel() * t.element_size() for t in fk.pack_tables(scene, camera()))
     k1_work = (ops1, tab_bytes + W * H * (13 * 4 + 4))
-    k2_io = (ref["oid"], dyrel, dxrel, *w4, hist.rgb, hist.cnt, hist.oid, rgb_k, cnt_k)
-    k2_work = (W * H * 4 * 10, sum(t.numel() * t.element_size() for t in k2_io))
+    k2_io = (hl, sl, ref["oid"], *(t for ch in (hist, hist_s) for t in (ch.rgb, ch.cnt, ch.oid)),
+             *(t for pair in k2_out for t in pair))
+    k2_work = (W * H * K2_OPS, sum(t.numel() * t.element_size() for t in k2_io))
     # The gradient of a scalar costs at most ~3 times its forward's operations
     # (reverse mode); K6 adds the composite and the loss (~120 per pixel).
     k5_work = (3 * ops1, tab_bytes + sum(v.numel() * 4 for v in g_all.values()))
@@ -2635,8 +2647,9 @@ def main() -> int:
     # The tile launches (phases 21-22): their share of the frame's work, on
     # the middle tile's data.
     k1r_work = (frame_ops(scene, cfg, k1r_ref["oid"]), tab_bytes + rows_t * W * (13 * 4 + 4))
-    k2t_io = (k1r_ref["oid"], *q_t[:2], *q_t[2], win.diffuse.rgb, win.diffuse.cnt, win.diffuse.oid, rgb_kt, cnt_kt)
-    k2t_work = (rows_t * W * 4 * 10, sum(t.numel() * t.element_size() for t in k2t_io))
+    k2t_io = (hl_t, sl_t, k1r_ref["oid"], *(t for ch in (win.diffuse, win.specular) for t in (ch.rgb, ch.cnt, ch.oid)),
+              *(t for pair in k2t_out for t in pair))
+    k2t_work = (rows_t * W * K2_OPS, sum(t.numel() * t.element_size() for t in k2t_io))
     ops8t = frame_ops(scene, cfg_m, k8t_ref["oid"]) + rows_t * W * HIST_OPS
     win_bytes = sum(t.numel() * t.element_size() for ch in (win.diffuse, win.specular)
                     for t in (ch.rgb, ch.cnt, ch.oid))

@@ -1,72 +1,173 @@
-// K2: the windowed temporal reprojection of one channel set.
+// K2: the split temporal frame's windowed reprojection, both channel sets
+// and their query heads in one launch.
 //
 // Replaces kylespathtracer_tpu/ops/reproject_kernel.py:reproject_pallas
-// (its body `_reproject_kernel` → `_set_kernel_dyn`), in full-frame and in
-// tile mode. One launch per channel set (diffuse, then specular), as on the
-// TPU.
+// (its query head `_queries` and its body `_reproject_kernel` →
+// `_set_kernel_dyn`), in full-frame and in tile mode. The TPU version runs
+// the head as XLA and the tap sum as one kernel per channel set; here one
+// launch does both sets, head included.
 //
-// Per pixel: the 2×2 bilinear history taps inside ±K whose object ID
-// matches, summed by `tap_sum` (reproject_core.cuh, shared with K8).
+// Per pixel, for the diffuse anchor hl and then the specular anchor sl: the
+// anchor projected into the previous camera (render/reproject.py:
+// reproject_query), the tap window's offset from the pixel and its separable
+// bilinear weights (ops/reproject_kernel.py:_queries), then the 2×2 bilinear
+// history taps inside ±K whose object ID matches, summed by `tap_sum`
+// (reproject_core.cuh, shared with K8).
+//
+// Rounding: the head repeats the split frame's plain head operation for
+// operation, each rounded on its own (this file builds with -fmad=false,
+// ops/_build.py), in the order torch's CUDA code takes them: a sum over a
+// trailing axis of three adds the third product to the first, then the
+// second (the reduction splits the axis over two lanes), and
+// torch.linalg.cross contracts each component's first product into a fused
+// multiply-add. So the kernel's taps and weights are those of the plain head
+// on the card. It is not K8's head (rsqrt basis, fov-first division), which
+// parts from this one by association ulps.
 //
 // Tile mode (the tile branch of reproject_pallas, run by the sharded
-// renderer, parallel/shard.py): the queries cover image rows
-// [row_base, row_base+rows) of an H-row image, and the history is the
-// window of rows + 2·halo rows around them that the halo exchange
-// assembles, its first row image row hist_row0 = row_base − halo. The TPU
-// kernel reads that window through BlockSpecs shifted by the halo's
-// blocks; here a tap's window row is its image row less hist_row0. Taps
-// reach at most K ≤ halo rows (the wrapper checks), so they stay inside
-// the window; rows beyond the image carry zero weight from the query head.
+// renderer, parallel/shard.py): the anchors cover image rows
+// [row_base, row_base+rows) of an H-row image, whose H also sets the NDC
+// mapping and the bounds, and the history is the window of rows + 2·halo
+// rows around them that the halo exchange assembles, its first row image
+// row hist_row0 = row_base − halo. A tap's window row is its image row less
+// hist_row0. Taps reach at most K ≤ halo rows (the wrapper checks), so they
+// stay inside the window; rows beyond the image carry zero weight from the
+// query head.
 //
-// What bounds it on an H100: device-memory bytes. Per pixel it reads 7
-// query planes (28 B) and, for each live tap, 5 history floats, and writes
-// 16 B; the arithmetic is a few dozen instructions. The TPU kernel needed
-// row-block halos and lane rolls to avoid a gather; here the gather is
-// direct and bounded: neighbouring threads read neighbouring history
-// texels, so the taps of a warp fall in a few cache lines served by L1/L2.
+// What bounds it on an H100: device-memory bytes. Per pixel it reads the two
+// anchors (24 B) and the object ID, for each live tap 5 history floats, and
+// writes 32 B; the head is a few hundred instructions, the previous camera's
+// basis computed once per block. Neighbouring threads read neighbouring
+// history texels, so the taps of a warp fall in a few cache lines served by
+// L1/L2.
 #include "reproject_core.cuh"
 
 namespace kpt {
 
-// Query row r is image row row_base + r; the full frame has row_base =
-// hist_row0 = 0 and rows = H.
-__global__ void __launch_bounds__(256) reproject_kernel(
-    const int* __restrict__ ho, const int* __restrict__ dyrel, const int* __restrict__ dxrel,
-    const float* __restrict__ wy0, const float* __restrict__ wy1, const float* __restrict__ wx0,
-    const float* __restrict__ wx1, const float* __restrict__ hist_rgb, const float* __restrict__ hist_cnt,
-    const int* __restrict__ hist_oid, float* __restrict__ out_rgb, float* __restrict__ out_cnt, int rows, int H,
-    int W, int K, int row_base, int hist_row0) {
-  const int x = blockIdx.x * blockDim.x + threadIdx.x;
-  const int r = blockIdx.y;
-  if (x >= W || r >= rows) return;
-  const size_t p = (size_t)r * W + x;
-  const int id = ho[p];
-  const int dy = dyrel[p], dx = dxrel[p];
-  const float wy[2] = {wy0[p], wy1[p]};
-  const float wx[2] = {wx0[p], wx1[p]};
+namespace {
 
-  float acc[4];
-  tap_sum(hist_rgb, hist_cnt, hist_oid, id, row_base + r, x, dy, dx, wy, wx, K, H, W, hist_row0, acc);
+struct Vec3 {
+  float x, y, z;
+};
+
+// torch's CUDA sum of a trailing axis of three.
+__device__ __forceinline__ float sum3(float a, float b, float c) { return (a + c) + b; }
+__device__ __forceinline__ float dot3(Vec3 a, Vec3 b) { return sum3(a.x * b.x, a.y * b.y, a.z * b.z); }
+// torch.linalg.cross on the card.
+__device__ __forceinline__ Vec3 cross3(Vec3 a, Vec3 b) {
+  return {__fmaf_rn(a.y, b.z, -(a.z * b.y)), __fmaf_rn(a.z, b.x, -(a.x * b.z)), __fmaf_rn(a.x, b.y, -(a.y * b.x))};
+}
+// gmath.normalize: v · 1/sqrt(max(v·v, 1e-20)), a NaN kept as torch.clamp keeps it.
+__device__ __forceinline__ Vec3 normalize3(Vec3 v) {
+  float n2 = dot3(v, v);
+  n2 = n2 < 1e-20f ? 1e-20f : n2;
+  const float inv = 1.0f / sqrtf(n2);
+  return {v.x * inv, v.y * inv, v.z * inv};
+}
+
+// The previous camera's basis (render/reproject.py:reproject_query):
+// lf = rotate_xy((0, 0, 1), orient) as gmath.rotate_xy computes it,
+// r = normalize(cross(lf, (0, 1, 0))), u = normalize(cross(lf, r)).
+__device__ __forceinline__ void prev_camera_basis(const float* __restrict__ orient, Vec3& lf, Vec3& r, Vec3& u) {
+  const float cx = cosf(orient[0]), cy = cosf(orient[1]);
+  const float sx = sinf(orient[0]), sy = sinf(orient[1]);
+  const float x = 0.0f, y = 0.0f, z = 1.0f;
+  const float y2 = y * cx + z * sx;
+  const float z1 = -y * sx + z * cx;
+  const float x2 = x * cy + z1 * sy;
+  const float z2 = -x * sy + z1 * cy;
+  lf = {x2, y2, z2};
+  r = normalize3(cross3(lf, {0.0f, 1.0f, 0.0f}));
+  u = normalize3(cross3(lf, r));
+}
+
+// One anchor's query (reproject_query, then _queries) → the tap window's
+// offset from image pixel (px, py) and its separable bilinear weights.
+// Border fractions can be negative (trunc), and so can the weights.
+__device__ __forceinline__ void split_query(Vec3 anchor, const float* __restrict__ loc, const Vec3& lf, const Vec3& r,
+                                            const Vec3& u, int px, int py, int W, int H, float fov, float asp,
+                                            int& dy, int& dx, float (&wy)[2], float (&wx)[2]) {
+  const Vec3 nhl = normalize3({loc[0] - anchor.x, loc[1] - anchor.y, loc[2] - anchor.z});
+  float denom = dot3(nhl, lf);
+  denom = fabsf(denom) < 1e-6f ? 1e-6f : denom;
+  const float lu = dot3(nhl, r) / denom * fov / asp;
+  const float lv = dot3(nhl, u) / denom * fov / 1.0f;
+  const bool inside = lu <= 1.0f && lu >= -1.0f && lv <= 1.0f && lv >= -1.0f;
+  // NDC → pixel coordinates less the half-pixel centre offset.
+  const float fu = (lu * -0.5f + 0.5f) * (float)W - 0.5f;
+  const float fv = (lv * -0.5f + 0.5f) * (float)H - 0.5f;
+  const int iu = (int)truncf(fu), iv = (int)truncf(fv);
+  const float du = fu - (float)iu, dv = fv - (float)iv;
+  dy = iv - py;
+  dx = iu - px;
+  wy[0] = (iv >= 0 && iv < H) ? 1.0f - dv : 0.0f;
+  wy[1] = (iv >= -1 && iv < H - 1) ? dv : 0.0f;
+  wx[0] = (iu >= 0 && iu < W && inside) ? 1.0f - du : 0.0f;
+  wx[1] = (iu >= -1 && iu < W - 1 && inside) ? du : 0.0f;
+}
+
+// One channel set of one pixel: query, tap sum, the reprojected rgb and count.
+__device__ __forceinline__ void one_set(const float* __restrict__ anchors, const float* __restrict__ loc,
+                                        const Vec3& lf, const Vec3& r, const Vec3& u,
+                                        const float* __restrict__ hist_rgb, const float* __restrict__ hist_cnt,
+                                        const int* __restrict__ hist_oid, int id, size_t p, int x, int y, int W,
+                                        int H, int K, float fov, float asp, int hist_row0,
+                                        float* __restrict__ out_rgb, float* __restrict__ out_cnt) {
+  const Vec3 a = {anchors[3 * p], anchors[3 * p + 1], anchors[3 * p + 2]};
+  int dy, dx;
+  float wy[2], wx[2], acc[4];
+  split_query(a, loc, lf, r, u, x, y, W, H, fov, asp, dy, dx, wy, wx);
+  tap_sum(hist_rgb, hist_cnt, hist_oid, id, y, x, dy, dx, wy, wx, K, H, W, hist_row0, acc);
   out_rgb[3 * p] = acc[0];
   out_rgb[3 * p + 1] = acc[1];
   out_rgb[3 * p + 2] = acc[2];
   out_cnt[p] = acc[3];
 }
 
+}  // namespace
+
+// Row r of the anchors and outputs is image row row_base + r; the full
+// frame has row_base = hist_row0 = 0 and rows = H. prev_loc [3] and
+// prev_orient [2] are the previous camera's, read on the device.
+__global__ void __launch_bounds__(256) reproject_kernel(
+    const float* __restrict__ hl, const float* __restrict__ sl, const int* __restrict__ ho,
+    const float* __restrict__ prev_loc, const float* __restrict__ prev_orient, const float* __restrict__ hd_rgb,
+    const float* __restrict__ hd_cnt, const int* __restrict__ hd_oid, const float* __restrict__ hs_rgb,
+    const float* __restrict__ hs_cnt, const int* __restrict__ hs_oid, float* __restrict__ out_drgb,
+    float* __restrict__ out_dcnt, float* __restrict__ out_srgb, float* __restrict__ out_scnt, float fov, float asp,
+    int rows, int H, int W, int K, int row_base, int hist_row0) {
+  __shared__ Vec3 basis[3];
+  if (threadIdx.x == 0) prev_camera_basis(prev_orient, basis[0], basis[1], basis[2]);
+  __syncthreads();
+  const int x = blockIdx.x * blockDim.x + threadIdx.x;
+  const int r = blockIdx.y;
+  if (x >= W || r >= rows) return;
+  const Vec3 lf = basis[0], rt = basis[1], up = basis[2];
+  const size_t p = (size_t)r * W + x;
+  const int id = ho[p];
+  const int y = row_base + r;
+  one_set(hl, prev_loc, lf, rt, up, hd_rgb, hd_cnt, hd_oid, id, p, x, y, W, H, K, fov, asp, hist_row0, out_drgb,
+          out_dcnt);
+  one_set(sl, prev_loc, lf, rt, up, hs_rgb, hs_cnt, hs_oid, id, p, x, y, W, H, K, fov, asp, hist_row0, out_srgb,
+          out_scnt);
+}
+
 }  // namespace kpt
 
-// The queries and outputs are [rows][W] for image rows [row_base,
-// row_base+rows) of an H-row image; the history's first row is image row
-// hist_row0 (the full frame: rows = H, row_base = hist_row0 = 0).
-extern "C" int kpt_reproject_window(const int* ho, const int* dyrel, const int* dxrel, const float* wy0,
-                                    const float* wy1, const float* wx0, const float* wx1,
-                                    const float* hist_rgb, const float* hist_cnt, const int* hist_oid,
-                                    float* out_rgb, float* out_cnt, int rows, int H, int W, int K, int row_base,
-                                    int hist_row0, void* stream) {
+// The anchors, object IDs and outputs are [rows][W] for image rows
+// [row_base, row_base+rows) of an H-row image; each history's first row is
+// image row hist_row0 (the full frame: rows = H, row_base = hist_row0 = 0).
+// asp is W/H rounded to float.
+extern "C" int kpt_reproject_frame(const float* hl, const float* sl, const int* ho, const float* prev_loc,
+                                   const float* prev_orient, const float* hd_rgb, const float* hd_cnt,
+                                   const int* hd_oid, const float* hs_rgb, const float* hs_cnt, const int* hs_oid,
+                                   float* out_drgb, float* out_dcnt, float* out_srgb, float* out_scnt, float fov,
+                                   float asp, int rows, int H, int W, int K, int row_base, int hist_row0,
+                                   void* stream) {
   const dim3 block(256, 1);
   const dim3 grid((W + block.x - 1) / block.x, rows);
   kpt::reproject_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-      ho, dyrel, dxrel, wy0, wy1, wx0, wx1, hist_rgb, hist_cnt, hist_oid, out_rgb, out_cnt, rows, H, W, K,
-      row_base, hist_row0);
+      hl, sl, ho, prev_loc, prev_orient, hd_rgb, hd_cnt, hd_oid, hs_rgb, hs_cnt, hs_oid, out_drgb, out_dcnt,
+      out_srgb, out_scnt, fov, asp, rows, H, W, K, row_base, hist_row0);
   return (int)cudaGetLastError();
 }

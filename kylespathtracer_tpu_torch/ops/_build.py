@@ -39,11 +39,12 @@ NVCC_FLAGS = (
 # kernel a contracted multiply-add can flip a sampling decision, which
 # changes the whole path after it; in the mono temporal kernel (K8) an ulp
 # of ray direction moves the reprojected tap position by ~4e-5 pixel at
-# 1080p. The op-mix probe (K9) is held bitwise to its plain version. K1
+# 1080p. The op-mix probe (K9) is held bitwise to its plain version, and
+# so is K2, whose query head repeats the split frame's plain head. K1
 # alone keeps nvcc's default contraction.
 SOURCE_FLAGS = {name: ("-fmad=false",) for name in (
-    "frame_grad.cu", "loss_kernel.cu", "geometry_kernel.cu", "path_kernel.cu", "shade_kernel.cu",
-    "frame_hist.cu", "ceiling_kernel.cu")}
+    "reproject_kernel.cu", "frame_grad.cu", "loss_kernel.cu", "geometry_kernel.cu", "path_kernel.cu",
+    "shade_kernel.cu", "frame_hist.cu", "ceiling_kernel.cu")}
 
 _lock = threading.Lock()
 _lib = None
@@ -72,10 +73,11 @@ _SIGNATURES = {
         _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I,
         _I, _I, _I, _F, _I, _P, _P,
     ),
-    # ho, dyrel, dxrel, wy0, wy1, wx0, wx1, hist_rgb, hist_cnt, hist_oid,
-    # out_rgb, out_cnt, rows, H, W, K, row_base, hist_row0, stream
-    "kpt_reproject_window": (
-        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P,
+    # hl, sl, ho, prev loc, prev orient, hist d rgb/cnt/oid, hist s
+    # rgb/cnt/oid, out d_rgb, d_cnt, s_rgb, s_cnt, fov, asp, rows, H, W, K,
+    # row_base, hist_row0, stream
+    "kpt_reproject_frame": (
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _F, _I, _I, _I, _I, _I, _I, _P,
     ),
     # ftab, itab, seeds, n_seeds, nP, nS, nB, nK, width, height, fov, frame,
     # row_base, rows, smp, decorrelate, biased, soft_beta, gloss, g, present,

@@ -103,9 +103,9 @@ version's. It prints once the plain version's and the G-buffer module's
 checkout ROOT and from this one, in turns (ROOT, this, this, ROOT), each
 in a process of its own: with --path K7 and K4 on the cells above, with
 --geometry K3 on its three cells, with
---frame K1 (frame 3), K8 (frame 1 on a seeded history) and K2 (one
-channel set of the split frame's reprojection, K = 8, on the same
-history) at 1920×1080, full frame.
+--frame K1 (frame 3), K8 (frame 1 on a seeded history) and K2 (the
+split frame's reprojection of both channel sets, query heads included,
+K = 8, on the same histories) at 1920×1080, full frame.
 
 With `--parent CSRC` (the csrc directory of another checkout) it first
 compiles the kernels that the group leaves alone from both trees and says
@@ -476,15 +476,15 @@ def frame_cells(dev, rng):
     return scene, cam, prev, cfg, channel(), channel()
 
 
-def k2_args(scene, cam, prev, cfg, hist) -> tuple:
-    """K2's arguments for one channel set of the split frame (the diffuse
-    anchor of K1's frame 1 on `cam`, K = 8) → reproject_set(*args)."""
+def k2_args(scene, cam, prev, cfg, hd, hs) -> tuple:
+    """K2's arguments for the split frame's reprojection (the anchors of
+    K1's frame 1 on `cam`, K = 8) → reproject_window(*args)."""
+    from kylespathtracer_tpu_torch.render import pipeline
     from kylespathtracer_tpu_torch.render.camera import ray_dirs
 
     ref = fk.frame_forward(scene, cam, 1, cfg)
-    hl = cam.loc + ray_dirs(cam, cfg.width, cfg.height, cfg.fov) * ref["depth"][..., None]
-    dyrel, dxrel, w4 = rk._queries(prev, hl, ref["oid"], cfg.fov, cfg.height, cfg.width)
-    return ref["oid"], dyrel, dxrel, w4, hist, 8
+    hl, sl = pipeline._anchors(scene, cam, ray_dirs(cam, cfg.width, cfg.height, cfg.fov), ref)
+    return prev, hl, sl, ref["oid"], hd, hs, cfg.fov, 8
 
 
 def frame_times(dev, rng) -> callable:
@@ -658,10 +658,10 @@ def tree_times(group: str) -> dict:
                 ("K4 1920x1080", lambda: sk.dual_mis(*cells["k4"]), "shade_kernel", 20))
     else:
         scene, cam, prev, cfg, hd, hs = frame_cells(dev, np.random.default_rng(1))
-        k2 = k2_args(scene, cam, prev, cfg, hd)
+        k2 = k2_args(scene, cam, prev, cfg, hd, hs)
         jobs = (("K1 1920x1080", lambda: fk.frame_forward(scene, cam, 3, cfg), "frame_kernel", 20),
                 ("K8 1920x1080", lambda: fh.frame_hist(scene, cam, prev, hd, hs, 1, cfg), "frame_hist_kernel", 20),
-                ("K2 1920x1080", lambda: rk.reproject_set(*k2), "reproject_kernel", 50))
+                ("K2 1920x1080", lambda: rk.reproject_window(*k2), "reproject_kernel", 50))
     out = {"build_s": build_s, "tree": str(Path(pk.__file__).resolve().parents[2]), "times": {}}
     for key, fn, kernel, reps in jobs:
         out["times"][key] = {"with_wrapper": cuda_ms(fn, reps=reps, warmup=2), "alone": kernel_ms(fn, kernel, reps)}

@@ -4,9 +4,13 @@ Port of kylespathtracer_tpu/ops/reproject_kernel.py. Temporal
 reprojection only reads near the current pixel, so each 2×2 bilinear
 history tap is kept only when its row and column offsets lie inside ±K;
 taps beyond restart the history, exactly like an off-screen tap
-(common.glsl:673-674). The query head `_queries` stays plain tensor code
-(it is XLA in the JAX package); the tap sum is the kernel,
-csrc/reproject_kernel.cu, launched once per channel set.
+(common.glsl:673-674). On CUDA tensors `reproject_window` is one launch of
+csrc/reproject_kernel.cu for both channel sets, the query head included
+(the JAX package runs the head as XLA and the tap sum as one kernel per
+set); the kernel reads the previous camera on the device, so the launch
+makes no host copy. On CPU tensors it runs the plain version: the query
+head `_queries` (render/reproject.py:reproject_query) and the tap sum
+`reproject_window_plain`, which the kernel repeats operation for operation.
 
 Tile mode (`image_height`/`row_base`/`hist_halo`, the sharded renderer's,
 parallel/shard.py): the queries cover image rows [row_base, row_base+rows)
@@ -24,8 +28,8 @@ from kylespathtracer_tpu_torch.ops import _build
 from kylespathtracer_tpu_torch.render import reproject as rep_mod
 from kylespathtracer_tpu_torch.render.passes import Channel
 
-# Launches of the CUDA kernel by `reproject_set` in this process, and the
-# tile-mode launches among them.
+# Launches of the CUDA kernel by `reproject_window` in this process (one a
+# split frame, both channel sets), and the tile-mode launches among them.
 LAUNCHES = 0
 TILE_LAUNCHES = 0
 # The widest window the JAX kernel serves: its vertical halo is one 8-row
@@ -97,48 +101,19 @@ def reproject_window_plain(ho, dyrel, dxrel, w4, prev: Channel, K: int,
     return rgb, cnt
 
 
-def reproject_set(ho, dyrel, dxrel, w4, prev: Channel, K: int,
-                  image_height: int | None = None, row_base: int = 0, hist_halo: int = 0):
-    """One channel set's reprojected history → (rgb[rows,W,3], cnt[rows,W]);
-    the rows and the history window as in `reproject_window_plain`. CUDA
-    tensors launch the kernel (or raise); CPU tensors run the plain
-    version."""
-    global LAUNCHES, TILE_LAUNCHES
-    device = ho.device
-    if device.type == "cpu":
-        return reproject_window_plain(ho, dyrel, dxrel, w4, prev, K, image_height, row_base, hist_halo)
-    if device.type != "cuda":
-        raise ValueError(f"reproject_set: unsupported device {device}")
-    rows, W = ho.shape
-    H = rows if image_height is None else int(image_height)
-    window = rows + 2 * hist_halo
-    if row_base < 0 or row_base + rows > H or hist_halo < 0:
-        raise ValueError(f"reproject_set: rows [{row_base}, {row_base + rows}) with a "
-                         f"{hist_halo}-row halo do not fit a {H}-row image")
-    i32, f32 = torch.int32, torch.float32
-    _check = _build.check_tensor
-    _check("ho", ho, i32, (rows, W), device)
-    _check("dyrel", dyrel, i32, (rows, W), device)
-    _check("dxrel", dxrel, i32, (rows, W), device)
-    for name, w in zip(("wy0", "wy1", "wx0", "wx1"), w4):
-        _check(name, w, f32, (rows, W), device)
-    _check("prev.rgb", prev.rgb, f32, (window, W, 3), device)
-    _check("prev.cnt", prev.cnt, f32, (window, W), device)
-    _check("prev.oid", prev.oid, i32, (window, W), device)
-    rgb = torch.empty((rows, W, 3), dtype=f32, device=device)
-    cnt = torch.empty((rows, W), dtype=f32, device=device)
-    err = _build.load().kpt_reproject_window(
-        ho.data_ptr(), dyrel.data_ptr(), dxrel.data_ptr(),
-        *(w.data_ptr() for w in w4),
-        prev.rgb.data_ptr(), prev.cnt.data_ptr(), prev.oid.data_ptr(),
-        rgb.data_ptr(), cnt.data_ptr(), rows, H, W, int(K), int(row_base),
-        int(row_base - hist_halo), torch.cuda.current_stream(device).cuda_stream,
-    )
-    _build.check(err, "kpt_reproject_window")
-    LAUNCHES += 1
-    if rows != H or hist_halo:
-        TILE_LAUNCHES += 1
-    return rgb, cnt
+def reproject_frame_plain(prev_cam, hl, sl, ho, prev_d: Channel, prev_s: Channel, fov, K: int, H: int,
+                          row_base: int = 0, hist_halo: int = 0):
+    """K2's plain version on the tensors' device → ((rgb_d, cnt_d), (rgb_s,
+    cnt_s)): per channel set the query head `_queries` and the tap sum
+    `reproject_window_plain`, for image rows [row_base, row_base+rows) of an
+    H-row image, the history's first row image row row_base - hist_halo."""
+    W = ho.shape[1]
+
+    def one_set(anchor, prev):
+        dyrel, dxrel, w4 = _queries(prev_cam, anchor, ho, fov, H, W, row0=row_base)
+        return reproject_window_plain(ho, dyrel, dxrel, w4, prev, K, H, row_base, hist_halo)
+
+    return one_set(hl, prev_d), one_set(sl, prev_s)
 
 
 def reproject_window(
@@ -154,9 +129,10 @@ def reproject_window(
     row_base: int = 0,
     hist_halo: int = 0,
 ):
-    """Both reprojections (diffuse anchor hl, specular anchor sl), one
-    launch each → ((rgb_d, cnt_d), (rgb_s, cnt_s)). Taps beyond
-    K = min(window, MAX_WINDOW) rows or columns drop their history.
+    """Both reprojections (diffuse anchor hl, specular anchor sl) →
+    ((rgb_d, cnt_d), (rgb_s, cnt_s)): on CUDA tensors one launch of K2,
+    on CPU tensors the plain version. Taps beyond K = min(window,
+    MAX_WINDOW) rows or columns drop their history.
 
     Full frame by default. `image_height` other than the query rows selects
     tile mode: hl/sl/ho cover image rows [row_base, row_base+rows), and the
@@ -193,9 +169,49 @@ def reproject_window(
         if ch.cnt.shape[0] != rows + 2 * hist_halo:
             raise ValueError(f"{name}: a history of {ch.cnt.shape[0]} rows; expected "
                              f"{rows} query rows + 2 × {hist_halo} halo rows")
+    device = ho.device
+    if device.type == "cpu":
+        return reproject_frame_plain(prev_cam, hl, sl, ho, prev_d, prev_s, fov, K, H, row_base, hist_halo)
+    if device.type != "cuda":
+        raise ValueError(f"reproject_window: unsupported device {device}")
+    return _launch(prev_cam, hl, sl, ho, prev_d, prev_s, fov, K, H, row_base, hist_halo)
 
-    def one_set(anchor, prev):
-        dyrel, dxrel, w4 = _queries(prev_cam, anchor, ho, fov, H, W, row0=row_base)
-        return reproject_set(ho, dyrel, dxrel, w4, prev, K, H, row_base, hist_halo)
 
-    return one_set(hl, prev_d), one_set(sl, prev_s)
+def _launch(prev_cam, hl, sl, ho, prev_d: Channel, prev_s: Channel, fov, K: int, H: int, row_base: int,
+            hist_halo: int):
+    """One launch of K2 for both channel sets, after checking every tensor
+    it reads; no tensor op, so nothing waits on the device."""
+    global LAUNCHES, TILE_LAUNCHES
+    rows, W = ho.shape
+    window = rows + 2 * hist_halo
+    device = ho.device
+    if row_base < 0 or row_base + rows > H or hist_halo < 0:
+        raise ValueError(f"reproject_window: rows [{row_base}, {row_base + rows}) with a "
+                         f"{hist_halo}-row halo do not fit a {H}-row image")
+    i32, f32 = torch.int32, torch.float32
+    _check = _build.check_tensor
+    _check("hl", hl, f32, (rows, W, 3), device)
+    _check("sl", sl, f32, (rows, W, 3), device)
+    _check("ho", ho, i32, (rows, W), device)
+    _check("prev_cam.loc", prev_cam.loc, f32, (3,), device)
+    _check("prev_cam.orient", prev_cam.orient, f32, (2,), device)
+    for name, ch in (("prev_d", prev_d), ("prev_s", prev_s)):
+        _check(f"{name}.rgb", ch.rgb, f32, (window, W, 3), device)
+        _check(f"{name}.cnt", ch.cnt, f32, (window, W), device)
+        _check(f"{name}.oid", ch.oid, i32, (window, W), device)
+    rgb_d = torch.empty((rows, W, 3), dtype=f32, device=device)
+    cnt_d = torch.empty((rows, W), dtype=f32, device=device)
+    rgb_s = torch.empty((rows, W, 3), dtype=f32, device=device)
+    cnt_s = torch.empty((rows, W), dtype=f32, device=device)
+    err = _build.load().kpt_reproject_frame(
+        hl.data_ptr(), sl.data_ptr(), ho.data_ptr(), prev_cam.loc.data_ptr(), prev_cam.orient.data_ptr(),
+        *(t.data_ptr() for ch in (prev_d, prev_s) for t in (ch.rgb, ch.cnt, ch.oid)),
+        rgb_d.data_ptr(), cnt_d.data_ptr(), rgb_s.data_ptr(), cnt_s.data_ptr(),
+        float(fov), W / H, rows, H, W, int(K), int(row_base), int(row_base - hist_halo),
+        torch.cuda.current_stream(device).cuda_stream,
+    )
+    _build.check(err, "kpt_reproject_frame")
+    LAUNCHES += 1
+    if rows != H or hist_halo:
+        TILE_LAUNCHES += 1
+    return (rgb_d, cnt_d), (rgb_s, cnt_s)

@@ -6,8 +6,9 @@ Port of kylespathtracer_tpu/render/pipeline.py:
 
 `pipeline="fused"`: the temporal frame (`reproject_backend="window"`) is,
 with `temporal_fusion="split"`, one frame-kernel launch (K1), one
-windowed-reprojection launch per channel set (K2), and a short tail of
-tensor ops (count floor, velocity clamp, accumulate, ACES composite); with
+windowed-reprojection launch for both channel sets (K2, query heads
+included), and a short tail of tensor ops (count floor, velocity clamp,
+accumulate, ACES composite); with
 `"mono"`, one launch of the mono temporal kernel (K8) and the composite.
 Both are forward-only, as the JAX paths are. The differentiable frame
 (`no_history=True`, or `reproject_backend="xla"`) runs K1 through
@@ -199,7 +200,7 @@ def split_temporal_frame(
     rows: int | None = None,
     hist_halo: int = 0,
 ):
-    """Frame kernel + one windowed reprojection per channel set + count
+    """Frame kernel + one windowed reprojection of both channel sets + count
     floor / velocity clamp / accumulate + ACES composite.
 
     One body for the full frame (`rows` None) and the sharded renderer's

@@ -138,16 +138,20 @@ def test_queries_match_jax():
 
 
 def test_cpu_tensors_take_the_plain_version():
+    """On CPU tensors reproject_window launches nothing and is, for each
+    channel set, the query head `_queries` then the tap sum
+    `reproject_window_plain`."""
     rng = np.random.default_rng(1)
+    cam = to_torch_camera(Camera.create(loc=(3.0, 2.0, -3.0), orient=(0.0, 0.7)))
+    hl = _t((rng.normal(0, 2, (H, W, 3)) + np.array([0, 0, 5])).astype(np.float32))
+    sl = hl + 0.05
     ho = _t(rng.integers(0, 4, (H, W)).astype(np.int32))
-    zeros = torch.zeros((H, W), dtype=torch.int32)
-    w4 = tuple(torch.full((H, W), 0.5) for _ in range(4))
-    prev = to_torch_channel(_channels(rng))
+    pd, ps = to_torch_channel(_channels(rng)), to_torch_channel(_channels(rng))
     before = rk.LAUNCHES
-    a = rk.reproject_set(ho, zeros, zeros, w4, prev, 4)
-    b = rk.reproject_window_plain(ho, zeros, zeros, w4, prev, 4)
+    got = rk.reproject_window(cam, hl, sl, ho, pd, ps, 1.5, window=4)
     assert rk.LAUNCHES == before
-    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
-    # Zero motion, all weights 0.5: each matching tap adds 0.25 of itself.
-    match = (prev.oid == ho)
-    assert torch.all(a[1][match] >= 0.25 * prev.cnt[match] - 1e-6)
+    for anchor, prev, (rgb, cnt) in zip((hl, sl), (pd, ps), got):
+        dyrel, dxrel, w4 = rk._queries(cam, anchor, ho, 1.5, H, W)
+        rgb_p, cnt_p = rk.reproject_window_plain(ho, dyrel, dxrel, w4, prev, 4)
+        assert torch.equal(rgb, rgb_p) and torch.equal(cnt, cnt_p)
+    assert got[0][1].max() > 0, "no history carried; the test is vacuous"
