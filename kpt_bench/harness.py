@@ -53,12 +53,25 @@ def load_bench(root: Path = ROOT) -> dict:
     return json.loads((root / "BENCHMARK.json").read_text())
 
 
+def with_pending(root: Path = ROOT) -> dict:
+    """BENCHMARK.json, with the entries of each pending/<cell>.json whose
+    names it lacks: a cell built and kept out of it, which a run can still
+    name and which a later change admits by copying those entries over."""
+    bench = load_bench(root)
+    for path in sorted((HERE / "pending").glob("*.json")):
+        entries = json.loads(path.read_text())
+        for group in ("configs", "workloads", "end_to_end", "per_layer"):
+            have = {e["name"] for e in bench[group]}
+            bench[group] = bench[group] + [e for e in entries.get(group, []) if e["name"] not in have]
+    return bench
+
+
 def _applies(metric: dict, cell: str) -> bool:
     return "workloads" not in metric or cell in metric["workloads"]
 
 
 def load_cell(name: str, root: Path = ROOT) -> Cell:
-    bench = load_bench(root)
+    bench = with_pending(root)
     work = {w["name"]: w for w in bench["workloads"]}
     if name not in work:
         raise SystemExit(f"kpt_bench: no workload {name!r} in BENCHMARK.json (have {sorted(work)})")
@@ -160,6 +173,22 @@ def note(what: str, since: float) -> float:
     return now
 
 
+def over_ranks(mem: int, busy: float, device) -> tuple:
+    """(the largest memory peak, the mean busy seconds, the number of ranks)
+    over the ranks of the run's process group; this rank's own and 1 where
+    there is none."""
+    import torch.distributed as dist
+
+    if not (dist.is_available() and dist.is_initialized()):
+        return mem, busy, 1
+    on = device if dist.get_backend() == "nccl" else "cpu"
+    peak = torch.tensor([float(mem)], dtype=torch.float64, device=on)
+    total = torch.tensor([float(busy)], dtype=torch.float64, device=on)
+    dist.all_reduce(peak, op=dist.ReduceOp.MAX)
+    dist.all_reduce(total)
+    return int(peak.item()), float(total.item()) / dist.get_world_size(), dist.get_world_size()
+
+
 def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device, t0: float) -> dict:
     """One run → the result dict (`correct`, `attempted`, `failed`,
     `metrics`, `device`, `breakdown`, `checks`). `t0` is the wall-clock time
@@ -174,10 +203,11 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device, t0: flo
     win = kind.window(float(seconds), trace_steps)
     counters = {k: v - c0[k] for k, v in launch_counters().items()}
     mem = torch.cuda.max_memory_allocated(device) if torch.device(device).type == "cuda" else 0
+    # Read before the check frees the program's state; the readers run
+    # after it, once the check has found its frames' hits.
+    mem, busy, count = over_ranks(mem, win["traced"].busy_s() if trace else 0.0, device)
     if trace:
-        # Read before the check frees the program's state; the readers run
-        # after it, once the check has found its frames' hits.
-        busy, window_s = win["traced"].busy_s(), win["traced"].window_s
+        window_s = win["traced"].window_s
     t = time.perf_counter()
     checks = kind.check()
     note("the check (not set-up)", t)
@@ -199,7 +229,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device, t0: flo
             metrics[m["name"]] = {"value": float(e2e[m["name"]]), "unit": m["unit"]}
     dev = {"platform": "gpu" if torch.device(device).type == "cuda" else "cpu",
            "kind": torch.cuda.get_device_name(device) if torch.device(device).type == "cuda" else "cpu",
-           "count": cell.chips, "memory_peak_bytes": int(mem)}
+           "count": count, "memory_peak_bytes": int(mem)}
     out = {"correct": all(c.ok for c in checks), "attempted": int(win["steps"]),
            "failed": int(win["steps"]) if not all(c.ok for c in checks) else 0,
            "metrics": metrics, "device": dev}

@@ -6,8 +6,10 @@ trace_steps)` runs the measured window and returns {"steps", "metrics"
 (its end-to-end metrics by name) and, when tracing, "traced" (a
 trace.Traced) and "traced_steps"}; `check()` frees the
 program's state and compares what the timed path produced with the plain
-reference (a list of harness.Check); `facts()` gives the per-layer
-metrics' readers the work of a step.
+reference (a list of harness.Check); `faults()` gives, by side, the
+numbers of the check with the control, and each fault the reference stands
+in for, in the program's place (kpt_bench/calibrate.py); `facts()` gives
+the per-layer metrics' readers the work of a step.
 """
 
 from __future__ import annotations

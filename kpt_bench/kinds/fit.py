@@ -104,17 +104,6 @@ class Loop(Kind):
         self.count += steps
         return losses
 
-    def snapshot(self) -> dict:
-        """The program's parameters and Adam's moments, by key, through
-        `AdamState.state_dict()` (Adam's state is keyed by the parameters'
-        order)."""
-        sd = self.state.state_dict()
-        adam = sd["adam"]["state"]
-        keys = list(sd["params"])
-        return {"p": {k: sd["params"][k].detach().float().clone() for k in keys},
-                "m": {k: adam[i]["exp_avg"].detach().float().clone() for i, k in enumerate(keys)},
-                "v": {k: adam[i]["exp_avg_sq"].detach().float().clone() for i, k in enumerate(keys)}}
-
     def window(self, seconds: float, trace_steps: int) -> dict:
         from kpt_bench import trace as tr_mod
 
@@ -130,9 +119,9 @@ class Loop(Kind):
             n += chunk
         # The window's last call, one step, with the program's state kept on
         # both sides of it for the check.
-        self.before, self.count_before = self.snapshot(), self.count
+        self.before, self.count_before = training.snapshot(self.state), self.count
         self.last_loss = self.run_fit(1)
-        self.after = self.snapshot()
+        self.after = training.snapshot(self.state)
         n += 1
         out.update(steps=n, metrics={"step_ms": (time.perf_counter() - t0) * 1e3 / n})
         return out
@@ -157,12 +146,7 @@ class Loop(Kind):
         return [(self.base, [(self.locs[v], self.ors[v], self.targets[p][v, 0], p) for v in range(self.V)])]
 
     def window_observed(self) -> dict:
-        """The program's last step in the form of `training.follow`: its loss,
-        the gradient Adam got (the first moment's change over 1 - β1), the
-        parameters before and after."""
-        b, a = self.before, self.after
-        g = {k: (a["m"][k] - training.BETA1 * b["m"][k]) / (1.0 - training.BETA1) for k in b["m"]}
-        return {"losses": self.last_loss, "g1": g, "p0": b["p"], "p3": a["p"]}
+        return training.step_observed(self.before, self.after, self.last_loss)
 
     def window_reference(self, dtype=torch.float32, steps=None) -> dict:
         """The reference's step from the program's state before the window's
@@ -192,11 +176,21 @@ class Loop(Kind):
 
     def check(self) -> list:
         self.free()
-        g = training.gaps(self.observed, self.reference())
-        g.update({f"window_{k}": v for k, v in training.gaps(self.window_observed(), self.window_reference()).items()})
+        g = training.check_gaps(self)
         self._shaded = self.shaded()
         lim = self.cell.traffic["limits"]
         return [harness.Check(k, g[k], float(lim[k])) for k in CHECKS]
+
+    def faults(self) -> dict:
+        """The control and the fault that the reference stands in for, read
+        against the float32 reference (kpt_bench/calibrate.py): the reference
+        in bfloat16; half of the views left out, the mean taken over the
+        rest."""
+        half = lambda steps: [(f, views[: (len(views) + 1) // 2]) for f, views in steps]
+        bf16 = {"dtype": torch.bfloat16}
+        return training.faults(self, {"control": (bf16, bf16),
+                                      "half_views": ({"steps": half(self.first_steps())},
+                                                     {"steps": half(self.last_step())})})
 
     def facts(self) -> dict:
         rc = self.rc[self.phases[0]]

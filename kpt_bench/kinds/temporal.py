@@ -158,6 +158,22 @@ class Loop(Kind):
         return [harness.Check(k, max(r[k] for r in rows), float(lim[k])) for k in ("image_far", "history_far",
                                                                                  "oid_mismatch")]
 
+    def faults(self) -> dict:
+        """The control (kpt_bench/calibrate.py): each kept frame from the
+        program's previous history by the reference in bfloat16."""
+        low = torch.bfloat16
+        sc = rf.scene_tables(self.tree, self.device, low)
+
+        def program(prev, i, img, new):
+            h = _hist_dict(prev)
+            h = {k: ({f: (v.to(low) if v.is_floating_point() else v) for f, v in h[k].items()}
+                     if isinstance(h[k], dict) else h[k].to(low)) for k in h}
+            loc, orient = self.locs[i % self.loop], self.ors[i % self.loop]
+            return rf.temporal_frame(sc, loc.to(low), orient.to(low), h, self.frame_base + i, self.rc)
+
+        rows = self.frames_compared(program)
+        return {"control": {k: max(r[k] for r in rows) for k in rows[0]}}
+
     def facts(self) -> dict:
         px = int(self.rc["width"]) * int(self.rc["height"])
         return {"tree": self.tree, "rc": self.rc, "pixels": px, "shaded": getattr(self, "shaded", px),

@@ -56,14 +56,17 @@ def moving_rows(g1: dict) -> set:
 
 
 def follow(tree: dict, params0: dict, steps: list, rc_of, opt_cfg: dict, device, dtype=torch.float32,
-           block_rows: int = 270, moments=None, count: int = 0) -> dict:
+           block_rows: int = 270, moments=None, count: int = 0, rows=None, scale: float = 1.0) -> dict:
     """The reference's steps from `params0` → {"losses", "g1", "p0", "p3"}
     in the program's form ("g1": the first step's clipped gradient, "p3":
     the parameters after the last). `steps` lists, per step, the frame and
     the views as (cam_loc, cam_orient, target, phase); `rc_of(phase)` gives
     the render knobs. `moments` (Adam's first and second, by key) and
     `count` (the steps taken) resume the optimizer from a state; a fresh
-    one by default. With dtype=bfloat16 this is the control."""
+    one by default. With dtype=bfloat16 this is the control. `rows` (image
+    rows [start, stop)) and `scale` stand the reference in for a program
+    that loses rows: each view's loss and gradient over those rows alone,
+    times `scale`."""
     # The optimizer keeps float32 in the control too: the control lowers the
     # precision of the frame, the loss and the gradient.
     opt = ref_adam.Adam({k: v.float() for k, v in params0.items()}, float(opt_cfg["lr"]),
@@ -76,10 +79,10 @@ def follow(tree: dict, params0: dict, steps: list, rc_of, opt_cfg: dict, device,
         for loc, orient, target, phase in views:
             sc = rf.scene_tables(tree, device, dtype, grad_keys=tuple(opt.params), params=opt.params)
             lval, g = rf.mse_loss_and_grad(sc, loc.to(dtype), orient.to(dtype), frame, rc_of(phase),
-                                           target.to(dtype), block_rows)
-            total += float(lval)
+                                           target.to(dtype), block_rows, rows)
+            total += float(lval) * scale
             for k in grads:
-                grads[k] += g[k]
+                grads[k] += g[k] * scale
         n = len(views)
         losses.append(total / n)
         opt.update({k: (v / n) for k, v in grads.items()})
@@ -95,6 +98,45 @@ def gaps(prog: dict, ref: dict) -> dict:
     dr = {k: ref["p3"][k] - ref["p0"][k] for k in ref["p0"]}
     return {"loss_gap": loss, "grad_gap": norm_gap(prog["g1"], ref["g1"]),
             "step_gap": norm_gap(dp, dr, keep=moving_rows(ref["g1"]))}
+
+
+def snapshot(state) -> dict:
+    """The program's parameters and Adam's moments, by key, through
+    `AdamState.state_dict()` (Adam's state is keyed by the parameters'
+    order)."""
+    sd = state.state_dict()
+    adam = sd["adam"]["state"]
+    keys = list(sd["params"])
+    return {"p": {k: sd["params"][k].detach().float().clone() for k in keys},
+            "m": {k: adam[i]["exp_avg"].detach().float().clone() for i, k in enumerate(keys)},
+            "v": {k: adam[i]["exp_avg_sq"].detach().float().clone() for i, k in enumerate(keys)}}
+
+
+def step_observed(before: dict, after: dict, losses: list) -> dict:
+    """One step of the program in the form of `follow`, from the snapshots
+    on both sides of it: its loss, the gradient Adam got (the first moment's
+    change over 1 - β1), the parameters before and after."""
+    g = {k: (after["m"][k] - BETA1 * before["m"][k]) / (1.0 - BETA1) for k in before["m"]}
+    return {"losses": losses, "g1": g, "p0": before["p"], "p3": after["p"]}
+
+
+def check_gaps(kind) -> dict:
+    """A training loop's six numbers: its first steps' against
+    `kind.reference()`, its window's last step's (`window_`) against
+    `kind.window_reference()`."""
+    g = gaps(kind.observed, kind.reference())
+    g.update({f"window_{k}": v for k, v in gaps(kind.window_observed(), kind.window_reference()).items()})
+    return g
+
+
+def faults(kind, sides: dict) -> dict:
+    """{side: its six numbers}, each side the reference put in the program's
+    place: `sides` gives, by side, the arguments of `kind.reference` and of
+    `kind.window_reference`, read against both at float32."""
+    ref, wref = kind.reference(), kind.window_reference()
+    return {side: {**gaps(kind.reference(**first), ref),
+                   **{f"window_{k}": v for k, v in gaps(kind.window_reference(**last), wref).items()}}
+            for side, (first, last) in sides.items()}
 
 
 class FirstMoment:

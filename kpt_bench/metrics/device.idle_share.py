@@ -1,6 +1,8 @@
 """device.idle_share (%), split by the end-to-end metric it moves:
 device.idle_share.frame moves frame_ms (temporal.spline1080),
-device.idle_share.step moves step_ms (inverse10.views1080).
+device.idle_share.step moves step_ms (inverse10.views1080),
+device.idle_share.shard moves shard_step_ms (inverse10_rows4.step1080, read
+on rank 0's trace).
 
 1 - the union of the kernel, copy and fill intervals (trace.union_us) over
 the traced window's span. Read under the profiler, whose own host cost

@@ -1,8 +1,8 @@
 """frame.reproject.idle_ms (ms a frame): the device's idle time while the host
 is inside the `frame.reproject` span (render/pipeline.py:split_temporal_frame),
-the query heads of both channel sets and their K2 launches
-(ops/reproject_kernel.py). Read by kpt_bench/spans.py from the spans of the
-traced window. Moves frame_ms in temporal.spline1080."""
+one K2 launch (ops/reproject_kernel.py) for both channel sets, their query
+heads computed in the kernel. Read by kpt_bench/spans.py from the spans of
+the traced window. Moves frame_ms in temporal.spline1080."""
 
 from kpt_bench.spans import stage_value
 

@@ -1,7 +1,9 @@
 """mfu (%), the whole step's share of the card's f32 peak, split by the
 end-to-end metric it moves: mfu.frame moves frame_ms (temporal.spline1080:
 K1 of a frame; K2, which has no roofline file, is not counted), mfu.step
-moves step_ms (inverse10.views1080: K6 of every view of an optimizer step).
+moves step_ms (inverse10.views1080: K6 of every view of an optimizer step),
+mfu.shard moves shard_step_ms (inverse10_rows4.step1080: K1 and K5 of a
+step on rank 0's rows, over rank 0's traced time a step: its card's share).
 
 The operations of the step's hand-written kernels, each counted by its
 roofline metric's `work` (metrics/<kernel>_roofline.py) times its launches

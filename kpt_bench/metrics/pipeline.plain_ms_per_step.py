@@ -1,7 +1,8 @@
 """pipeline.plain_ms_per_step (ms): device time per frame of the events that
 are neither K1 (`kpt::frame_kernel(`) nor K2 (`kpt::reproject_kernel(`):
 the plain tensor code of render/pipeline.py (ray directions, anchors, the
-reprojection's query head, the tail, the composite). Moves frame_ms."""
+tail, the composite; the reprojection's query heads run inside K2). Moves
+frame_ms."""
 
 KERNELS = ("kpt::frame_kernel(", "kpt::reproject_kernel(")
 

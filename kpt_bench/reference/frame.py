@@ -244,19 +244,21 @@ def fresh_image(sc, cam, orient, frame, rc: dict, block_rows: int = 270) -> torc
 
 
 def mse_loss_and_grad(sc, cam, orient, frame: int, rc: dict, target: torch.Tensor,
-                      block_rows: int = 135):
+                      block_rows: int = 135, row_range=None):
     """mean((image - target)**2) over H·W·3 and its gradient in the leaves of
     `sc` (scene_tables' grad_keys), by autograd through the plain frame in
     blocks of rows: the loss is a sum over pixels, so the blocks' gradients
-    add up → (loss f32, {key: grad f32})."""
+    add up → (loss f32, {key: grad f32}). `row_range` (start, stop) sums
+    over those image rows alone, still over H·W·3."""
     H, W = int(rc["height"]), int(rc["width"])
     n = float(H * W * 3)
+    first, stop = (0, H) if row_range is None else row_range
     keys = list(sc["leaves"])
     leaves = [sc["leaves"][k] for k in keys]
     total = torch.zeros((), dtype=torch.float64, device=target.device)
     grads = [torch.zeros(p.shape, dtype=torch.float32, device=p.device) for p in leaves]
-    for r0 in range(0, H, block_rows):
-        rows = min(block_rows, H - r0)
+    for r0 in range(first, stop, block_rows):
+        rows = min(block_rows, stop - r0)
         with torch.enable_grad():
             img = fresh_image_planes(frame_planes(sc, cam, orient, frame, rc, r0, rows), float(rc["brightness"]))
             tgt = target[r0:r0 + rows]

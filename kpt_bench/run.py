@@ -8,9 +8,11 @@ what the timed path produced against the plain reference (`correct`), and
 prints one JSON line last on standard output; the numbers compared, each
 beside its limit, are the last lines of standard error and the result's
 last key. `--trace 1` is a run of its own under torch.profiler and reports
-the per-layer metrics. Every cell runs on one card. The run exits non-zero,
-and prints no result, without a CUDA card, or if JAX or the JAX package
-was loaded.
+the per-layer metrics. A cell on n > 1 cards runs as n ranks, one a card
+(kpt_bench/ranks.py): this process is rank 0 and starts the others, and
+only rank 0 reports. The run exits non-zero, and prints no result, with
+fewer CUDA cards than the cell asks for, if JAX or the JAX package was
+loaded on any rank, or if a rank fails.
 """
 
 from __future__ import annotations
@@ -60,21 +62,39 @@ def main(argv=None) -> int:
     args = parse(argv)
     import torch
 
-    from kpt_bench import harness
+    from kpt_bench import harness, ranks
 
     cell = harness.load_cell(args.workload)
     if not torch.cuda.is_available() or torch.cuda.device_count() < cell.chips:
         n = torch.cuda.device_count() if torch.cuda.is_available() else 0
         print(f"kpt_bench: {args.workload} needs {cell.chips} CUDA card(s), found {n}", file=sys.stderr)
         return 2
-    if cell.chips != 1:
-        # A cell across cards needs its ranks started here: no cell has one yet.
-        print(f"kpt_bench: {args.workload} asks for {cell.chips} cards; the harness runs cells on one",
-              file=sys.stderr)
-        return 2
-    device = torch.device("cuda", 0)
-    torch.cuda.set_device(device)
-    return report(harness.run_cell(cell, args.seed, args.seconds, bool(args.trace), device, T0))
+
+    def body(rank: int) -> dict:
+        device = torch.device("cuda", rank)
+        torch.cuda.set_device(device)
+        return harness.run_cell(cell, args.seed, args.seconds, bool(args.trace), device, T0)
+
+    if cell.chips == 1:
+        return report(body(0))
+    if ranks.rank() == 0:
+        # One build of the kernels, before the other ranks start and load it.
+        from kylespathtracer_tpu_torch.ops import _build
+
+        _build.build()
+    argv = ["--workload", args.workload, "--seed", str(args.seed), "--seconds", str(args.seconds),
+            "--trace", str(args.trace)]
+    return ranks.run(cell.chips, [sys.executable, "-m", "kpt_bench.run", *argv], ranks.limit_s(args.seconds),
+                     join_group, body, report, cwd=str(ROOT))
+
+
+def join_group(rank: int) -> None:
+    """Join the run's process group through the program's launch contract
+    (parallel/multihost.py), on the rank's card."""
+    from kylespathtracer_tpu_torch.parallel import mesh, multihost
+
+    if not multihost.initialize_from_env(device=mesh.local_device(rank)):
+        raise SystemExit("kpt_bench: the ranks' environment does not name a process group")
 
 
 if __name__ == "__main__":

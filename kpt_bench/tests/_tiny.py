@@ -8,6 +8,8 @@ import time
 from kpt_bench import harness
 
 SEED = 2**31 + 4099
+# The row-sharded cell, kept out of BENCHMARK.json (pending/<cell>.json).
+ROWS = "inverse10_rows4.step1080"
 
 
 def tiny_cell(name: str, width: int = 32, height: int = 16):
@@ -20,6 +22,8 @@ def tiny_cell(name: str, width: int = 32, height: int = 16):
         cell.config["optimizer"] = dict(cell.config["optimizer"], realizations=2)
     if kind == "fit":
         cell.traffic.update(chunk_steps=2)
+    if kind == "rows":
+        cell.traffic.update(warm_steps=2)
     return cell
 
 

@@ -15,7 +15,7 @@ from __future__ import annotations
 import pytest
 import torch
 
-from kpt_bench import calibrate, harness
+from kpt_bench import harness
 from kpt_bench.tests._tiny import SEED, tiny_cell
 from kpt_bench.tests._tiny import run as tiny_run
 
@@ -137,7 +137,7 @@ def test_the_temporal_control_fails_the_limits():
     cell = tiny_cell("temporal.spline1080")
     kind = harness.kind_class("temporal")(cell, SEED, "cpu")
     kind.window(0.0, 0)
-    got, lim = calibrate.temporal_control(kind), _limits("temporal.spline1080")
+    got, lim = kind.faults()["control"], _limits("temporal.spline1080")
     assert any(got[k] > lim[k] for k in lim), got
 
 
@@ -146,7 +146,7 @@ def test_the_training_control_and_fault_fail_the_limits():
     kind = harness.kind_class(cell.traffic["kind"])(cell, SEED, "cpu")
     kind.window(0.0, 0)
     lim = _limits("inverse10.views1080")
-    for side, got in calibrate.training_faults(kind).items():
+    for side, got in kind.faults().items():
         for part in ("", "window_"):
             names = [part + k for k in ("loss_gap", "grad_gap", "step_gap")]
             assert any(not (got[k] <= lim[k]) for k in names), (side, part, got)

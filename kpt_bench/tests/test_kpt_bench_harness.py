@@ -25,7 +25,9 @@ from kpt_bench.trace import Traced, idle_gaps, summarize_trace, union_us
 BENCH = harness.load_bench()
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.\-]{0,63}$")
 CHECK_NAMES = {"temporal": {"image_far", "history_far", "oid_mismatch"},
-               "fit": {"loss_gap", "grad_gap", "step_gap", "window_loss_gap", "window_grad_gap", "window_step_gap"}}
+               "fit": {"loss_gap", "grad_gap", "step_gap", "window_loss_gap", "window_grad_gap", "window_step_gap"},
+               "rows": {"loss_gap", "grad_gap", "step_gap", "window_loss_gap", "window_grad_gap", "window_step_gap",
+                        "rank_param_gap"}}
 
 
 def test_benchmark_keys_and_names():
@@ -123,6 +125,14 @@ def test_readers_on_a_synthetic_trace():
     for name in ("mfu.step", "mfu.frame"):
         assert read(name, ctx(facts)) == pytest.approx(100 * ops / (5e-4 * roofline.F32_FLOPS))
     assert 0 < read("k6_roofline", ctx(facts)) < 100
+    k5_ops, k5_bytes = 3 * ops, 2 * roofline.table_bytes(tree) + 1000 * 11 * 4
+    assert read("k5_roofline", ctx(facts)) == pytest.approx(
+        100 * max(k5_ops / roofline.F32_FLOPS, k5_bytes / roofline.HBM_BYTES) / 50e-6)
+    assert read("mfu.shard", ctx(dict(facts, per_step={"k1": 1, "k5": 1}))) == pytest.approx(
+        100 * (ops + k5_ops) / (5e-4 * roofline.F32_FLOPS))
+    assert read("shard.allreduce_ms", ctx()) == pytest.approx(40 / 1e3 / 2)
+    assert read("shard.allreduce_ms", harness.Context(Traced(), 1, facts, {})) is None
+    assert read("kernel.launches_per_step.shard", ctx(counters={"k1": 1.0, "k2": 0.0, "k5": 1.0, "k6": 0.0})) == 2
     assert read("k1_roofline", harness.Context(Traced(), 1, facts, {})) is None
     assert read("frame_ms_p95", ctx({"frame_times_ms": [float(i) for i in range(1, 101)]})) == pytest.approx(95.05)
     assert read("frame_ms_p95", ctx()) is None
@@ -144,6 +154,13 @@ def test_operation_counts_by_hand():
     # Soft shadows trace the direct light: 60 + 52 + 30 × 2.
     assert roofline.shade_ops(tree, {"smp": 2, "biased": True, "soft_shadows": 0.01}, 1) == 2 * (172 + 150 + 844)
     assert roofline.least_seconds(67e12, 0) == 1.0 and roofline.least_seconds(0, 3.35e12) == 1.0
+    # K5 in row mode: 3 × the frame on the tile's pixels; the tables read and
+    # their gradients written, 11 cotangent planes read a pixel.
+    k5 = harness.load_module(harness.metric_file("k5_roofline")).work(
+        {"tree": tree, "rc": {"smp": 1, "biased": True, "soft_shadows": 0.0}, "pixels": 10, "shaded": 4})
+    assert k5 == (3 * (10 * 117 + 4 * 1126), 2 * roofline.table_bytes(tree) + 10 * 44)
+    # Geometry 4 + 1 + 8 + 2 + 3 floats, 4 materials' 64, the camera's 10.
+    assert roofline.table_bytes(tree) == 4 * (18 + 64) + 4 * 10
 
 
 def test_result_line_schema():
