@@ -10,16 +10,20 @@ reports its end-to-end metrics by name; the run prints those that
 `BENCHMARK.json` lists for the cell. A per-layer metric split by the
 end-to-end metric it moves (`<metric>.<split>`, as `mfu.frame` and
 `mfu.step`) is read by `metrics/<metric>.py` where it has no file of its
-own.
+own. The program's launch counters that the readers get are `LAUNCHES` of
+every module of its ops package that keeps one (`counted_modules`), so a
+cell on another kernel needs no edit here either.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import importlib
 import importlib.util
 import json
 import math
+import re
 import sys
 import time
 from pathlib import Path
@@ -32,6 +36,10 @@ ROOT = HERE.parent
 # has closed: JAX, and the JAX package the port was made from. Compared
 # whole, since the port's own name begins with the JAX package's.
 BANNED = ("jax", "jaxlib", "flax", "kylespathtracer_tpu")
+# The program's package of kernel wrappers, and the line by which one of its
+# modules keeps a launch counter.
+OPS = "kylespathtracer_tpu_torch.ops"
+COUNTER = re.compile(r"^LAUNCHES\s*=", re.M)
 
 
 @dataclasses.dataclass
@@ -158,12 +166,21 @@ class Context:
         self.traced, self.steps, self.facts, self.counters = traced, steps, facts, counters
 
 
-def launch_counters() -> dict:
-    """The program's own launch counters (`LAUNCHES` of ops/*.py)."""
-    from kylespathtracer_tpu_torch.ops import frame_grad, frame_kernel, loss_kernel, reproject_kernel
+@functools.cache
+def counted_modules() -> tuple:
+    """Every module of the program's ops package that keeps a launch counter:
+    one whose source sets a top-level `LAUNCHES`. Found by reading the
+    sources, so a new kernel's module is counted with no edit here, and a
+    module without a counter is not imported."""
+    root = Path(importlib.util.find_spec(OPS).submodule_search_locations[0])
+    names = sorted(p.stem for p in root.glob("*.py") if COUNTER.search(p.read_text()))
+    return tuple(importlib.import_module(f"{OPS}.{n}") for n in names)
 
-    return {"k1": frame_kernel.LAUNCHES, "k2": reproject_kernel.LAUNCHES, "k5": frame_grad.LAUNCHES,
-            "k6": loss_kernel.LAUNCHES}
+
+def launch_counters() -> dict:
+    """The program's own launch counters, `LAUNCHES` of each counted module,
+    by the module's name."""
+    return {m.__name__.rsplit(".", 1)[1]: m.LAUNCHES for m in counted_modules()}
 
 
 def note(what: str, since: float) -> float:
@@ -202,6 +219,8 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device, t0: flo
     trace_steps = int(cell.traffic["trace_steps"]) if trace else 0
     win = kind.window(float(seconds), trace_steps)
     counters = {k: v - c0[k] for k, v in launch_counters().items()}
+    launched = {k: v for k, v in counters.items() if v}
+    print(f"kpt_bench: kernel launches in the window, by module: {launched}", file=sys.stderr)
     mem = torch.cuda.max_memory_allocated(device) if torch.device(device).type == "cuda" else 0
     # Read before the check frees the program's state; the readers run
     # after it, once the check has found its frames' hits.

@@ -41,6 +41,11 @@ def phase_steps(steps: int, n_phases: int) -> list:
 
 
 class Loop(Kind):
+    @classmethod
+    def tiny(cls, cell) -> None:
+        cell.config["optimizer"] = dict(cell.config["optimizer"], realizations=2)
+        cell.traffic.update(chunk_steps=2)
+
     def __init__(self, cell, seed: int, device):
         from kylespathtracer_tpu_torch.diff import inverse
         from kylespathtracer_tpu_torch.render.camera import Camera

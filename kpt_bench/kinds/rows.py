@@ -46,6 +46,11 @@ CHECKS = ("loss_gap", "grad_gap", "step_gap", "window_loss_gap", "window_grad_ga
 
 
 class Loop(Kind):
+    @classmethod
+    def tiny(cls, cell) -> None:
+        cell.config["optimizer"] = dict(cell.config["optimizer"], realizations=2)
+        cell.traffic.update(warm_steps=2)
+
     def __init__(self, cell, seed: int, device):
         from kylespathtracer_tpu_torch.diff import inverse
         from kylespathtracer_tpu_torch.parallel import multihost, shard

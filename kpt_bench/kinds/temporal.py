@@ -26,6 +26,8 @@ from kpt_bench import harness, roofline, scenes
 from kpt_bench.kinds import Kind
 from kpt_bench.reference import frame as rf
 
+CHECKS = ("image_far", "history_far", "oid_mismatch")
+
 
 def _hist_dict(h) -> dict:
     """The program's History as the reference's plain dict."""
@@ -49,6 +51,10 @@ def compare(img, hist: dict, ref_img, ref_hist: dict) -> dict:
 
 
 class Loop(Kind):
+    @classmethod
+    def tiny(cls, cell) -> None:
+        cell.traffic.update(warmup_frames=2, check_within=3, check_frames=2)
+
     def __init__(self, cell, seed: int, device):
         from kylespathtracer_tpu_torch.render.camera import Camera
         from kylespathtracer_tpu_torch.render.pipeline import init_history, render_frame
@@ -155,8 +161,7 @@ class Loop(Kind):
             torch.cuda.empty_cache()
         rows = self.frames_compared(lambda prev, i, img, new: (img, _hist_dict(new)))
         lim = self.cell.traffic["limits"]
-        return [harness.Check(k, max(r[k] for r in rows), float(lim[k])) for k in ("image_far", "history_far",
-                                                                                 "oid_mismatch")]
+        return [harness.Check(k, max(r[k] for r in rows), float(lim[k])) for k in CHECKS]
 
     def faults(self) -> dict:
         """The control (kpt_bench/calibrate.py): each kept frame from the

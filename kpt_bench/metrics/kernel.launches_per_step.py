@@ -5,9 +5,10 @@ K2 a frame), kernel.launches_per_step.step moves step_ms
 kernel.launches_per_step.shard moves shard_step_ms
 (inverse10_rows4.step1080: K1 and K5 in row mode a step, on rank 0).
 
-The program's own launch counters of its hand-written kernels (`LAUNCHES`
-in ops/frame_kernel.py, reproject_kernel.py, frame_grad.py,
-loss_kernel.py) over the window, per step."""
+The program's own launch counters of its hand-written kernels over the
+window, per step, summed: `LAUNCHES` of every module of its ops package
+that keeps one (harness.counted_modules; nine: K1-K9's wrappers), so a
+kernel a cell adds is counted with no edit here."""
 
 
 def read(ctx):

@@ -8,22 +8,17 @@ import time
 from kpt_bench import harness
 
 SEED = 2**31 + 4099
-# The row-sharded cell, kept out of BENCHMARK.json (pending/<cell>.json).
-ROWS = "inverse10_rows4.step1080"
+# The blocks of image rows a traffic renders its targets and its reference in.
+ROW_BLOCKS = ("block_rows", "target_rows")
 
 
 def tiny_cell(name: str, width: int = 32, height: int = 16):
+    """The cell `name` at width × height, 2 traced steps, blocks of 8 rows
+    where its traffic has them; the rest its loop cuts (`Loop.tiny`)."""
     cell = harness.load_cell(name)
-    kind = cell.traffic["kind"]
-    cell.traffic.update(width=width, height=height, block_rows=8, target_rows=8, trace_steps=2)
-    if kind == "temporal":
-        cell.traffic.update(warmup_frames=2, check_within=3, check_frames=2)
-    else:
-        cell.config["optimizer"] = dict(cell.config["optimizer"], realizations=2)
-    if kind == "fit":
-        cell.traffic.update(chunk_steps=2)
-    if kind == "rows":
-        cell.traffic.update(warm_steps=2)
+    cell.traffic.update(width=width, height=height, trace_steps=2)
+    cell.traffic.update({k: 8 for k in ROW_BLOCKS if k in cell.traffic})
+    harness.kind_class(cell.traffic["kind"]).tiny(cell)
     return cell
 
 

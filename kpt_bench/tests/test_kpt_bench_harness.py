@@ -8,12 +8,15 @@ loads is JAX or the JAX package.
 
 from __future__ import annotations
 
+import importlib
+import importlib.util
 import io
 import json
 import re
 import subprocess
 import sys
 from contextlib import redirect_stderr, redirect_stdout
+from pathlib import Path
 
 import pytest
 
@@ -24,10 +27,11 @@ from kpt_bench.trace import Traced, idle_gaps, summarize_trace, union_us
 
 BENCH = harness.load_bench()
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.\-]{0,63}$")
-CHECK_NAMES = {"temporal": {"image_far", "history_far", "oid_mismatch"},
-               "fit": {"loss_gap", "grad_gap", "step_gap", "window_loss_gap", "window_grad_gap", "window_step_gap"},
-               "rows": {"loss_gap", "grad_gap", "step_gap", "window_loss_gap", "window_grad_gap", "window_step_gap",
-                        "rank_param_gap"}}
+
+
+def loop_module(kind: str):
+    """kinds/<kind>.py, the module of the loop a traffic mix names."""
+    return importlib.import_module(harness.kind_class(kind).__module__)
 
 
 def test_benchmark_keys_and_names():
@@ -55,7 +59,9 @@ def test_every_cell_loads_by_name(cell):
     c = harness.load_cell(cell)
     kind = c.traffic["kind"]
     assert harness.kind_class(kind).__module__ == f"kpt_bench.kinds.{kind}"
-    assert set(c.traffic["limits"]) == CHECK_NAMES[kind]
+    checks = loop_module(kind).CHECKS
+    assert len(set(checks)) == len(checks) and all(NAME.match(k) for k in checks)
+    assert set(c.traffic["limits"]) == set(checks)
     names = {m["name"] for m in c.end_to_end}
     assert "setup_s" in names and len(names) >= 2 and c.per_layer
     for m in c.per_layer:
@@ -64,22 +70,44 @@ def test_every_cell_loads_by_name(cell):
 
 
 def test_the_harness_names_no_cell_loop_or_metric():
-    """A new cell, loop or metric is new files and entries: nothing of one
-    is named in the harness's own code, and a split metric finds its base's
-    reader."""
+    """A new cell, loop, metric or kernel is new files and entries: nothing
+    of one is named in the harness's own code or in the tests' cutting of a
+    cell for the CPU, and a split metric finds its base's reader."""
     names = [w["name"] for w in BENCH["workloads"]] + [m["name"] for m in BENCH["end_to_end"] + BENCH["per_layer"]]
     loops = {harness.load_cell(w["name"]).traffic["kind"] for w in BENCH["workloads"]}
-    for src in ("harness.py", "run.py"):
+    kernels = [m.__name__.rsplit(".", 1)[1] for m in harness.counted_modules()]
+    for src in ("harness.py", "run.py", "tests/_tiny.py"):
         text = (harness.HERE / src).read_text()
         # setup_s is every cell's, by the benchmark's contract.
         assert not [n for n in names if n != "setup_s" and (f'"{n}"' in text or f"'{n}'" in text)], src
-        assert not [k for k in loops if f"kinds.{k}" in text or f"{k}:" in text], src
+        # A loop named: imported, keyed, or branched on.
+        assert not [k for k in loops if f"kinds.{k}" in text or f"{k}:" in text or f'== "{k}"' in text
+                    or f"== '{k}'" in text], src
+        assert not [k for k in kernels if k in text], src
     assert harness.metric_file("mfu.frame") == harness.metric_file("mfu.step") == harness.HERE / "metrics" / "mfu.py"
     assert harness.metric_file("k1_roofline").name == "k1_roofline.py"
     with pytest.raises(SystemExit):
         harness.metric_file("no_such.metric")
     with pytest.raises(SystemExit):
         harness.kind_class("no_such_loop")
+
+
+def test_every_kernel_counter_is_read():
+    """launch_counters reads `LAUNCHES` of every module of the program's ops
+    package that sets one at its top level, and imports no other module."""
+    ops = Path(importlib.util.find_spec(harness.OPS).submodule_search_locations[0])
+    have = sorted(p.stem for p in ops.glob("*.py") if re.search(r"^LAUNCHES\s*=", p.read_text(), re.M))
+    assert len(have) >= 9 and {"frame_kernel", "reproject_kernel", "loss_kernel", "path_kernel"} <= set(have)
+    counters = harness.launch_counters()
+    assert sorted(counters) == have
+    # Read live: a launch counted in a module shows in the next reading.
+    for m in harness.counted_modules():
+        name = m.__name__.rsplit(".", 1)[1]
+        m.LAUNCHES += 3
+        try:
+            assert harness.launch_counters()[name] == counters[name] + 3
+        finally:
+            m.LAUNCHES -= 3
 
 
 def _ev(name, ts, dur, cat="kernel"):
@@ -164,7 +192,8 @@ def test_operation_counts_by_hand():
 
 
 def test_result_line_schema():
-    out = tiny_run(tiny_cell("temporal.spline1080"))
+    cell = tiny_cell("temporal.spline1080")
+    out = tiny_run(cell)
     err, buf = io.StringIO(), io.StringIO()
     with redirect_stdout(buf), redirect_stderr(err):
         assert run.report(out) == 0
@@ -173,6 +202,7 @@ def test_result_line_schema():
     assert {"correct", "attempted", "failed", "metrics", "device"} <= set(line)
     assert line["correct"] is True and line["attempted"] > 0 and line["failed"] == 0
     assert set(line["metrics"]) == {"frame_ms", "setup_s"}
+    assert list(line["checks"]) == list(loop_module(cell.traffic["kind"]).CHECKS)
     assert all(set(m) == {"value", "unit"} for m in line["metrics"].values())
     assert set(line["device"]) == {"platform", "kind", "count", "memory_peak_bytes"}
     assert all(set(c) == {"value", "limit"} for c in line["checks"].values())

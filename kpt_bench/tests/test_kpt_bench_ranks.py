@@ -20,9 +20,10 @@ import pytest
 from kpt_bench import harness
 from kpt_bench.kinds import rows
 from kpt_bench.tests import _rank_worker as worker
-from kpt_bench.tests._tiny import ROWS, SEED, tiny_cell
+from kpt_bench.tests._rank_worker import ROWS
+from kpt_bench.tests._tiny import SEED, tiny_cell
 from kpt_bench.tests._tiny import run as tiny_run
-from kpt_bench.tests.test_kpt_bench_harness import CHECK_NAMES, NAME
+from kpt_bench.tests.test_kpt_bench_harness import NAME
 
 KPT_ENV = ("KPT_COORDINATOR", "KPT_NUM_PROCESSES", "KPT_PROCESS_ID")
 
@@ -95,7 +96,7 @@ def test_the_cell_loads_from_its_files():
     would pass BENCHMARK.json's own rules once copied there."""
     c = harness.load_cell(ROWS)
     assert c.chips == 4 == c.config["chips"] and harness.kind_class(c.traffic["kind"]) is rows.Loop
-    assert set(c.traffic["limits"]) == CHECK_NAMES["rows"] == set(rows.CHECKS)
+    assert set(c.traffic["limits"]) == set(rows.CHECKS)
     assert {m["name"] for m in c.end_to_end} == {"shard_step_ms", "setup_s"} and c.per_layer
     for m in c.per_layer:
         assert callable(harness.load_reader(m["name"])) and m["moves"] == "shard_step_ms"

@@ -93,7 +93,8 @@ def fit_trace() -> Traced:
     return t
 
 
-NEW = [m for m in harness.load_bench()["per_layer"] if m["source"] == "program_span"]
+BENCH = harness.load_bench()
+NEW = [m for m in BENCH["per_layer"] if m["source"] == "program_span"]
 
 
 def read(name, traced, steps=2):
@@ -152,14 +153,24 @@ def test_no_spans_no_numbers():
     for m in NEW:
         for t in (bare, host_only, Traced()):
             assert read(m["name"], t) is None, m["name"]
+    # A metric reads None from a trace without its family's spans: the
+    # frame's from the optimizer step's trace, the step's from the frames'.
     for m in NEW:
-        if m["name"].startswith("fit."):
-            assert read(m["name"], frames_trace()) is None, m["name"]
+        family = m["name"].split(".")[0]
+        for t in (frames_trace(), fit_trace()):
+            if not any(e["name"].split(".")[0] == family for e in t.events if e["cat"] == "user_annotation"):
+                assert read(m["name"], t) is None, m["name"]
 
 
 def test_every_new_metric_loads_its_reader():
-    assert len(NEW) == 22
+    """Every span metric of BENCHMARK.json has a reader file of its own name,
+    and every cell it lists (every cell, where it lists none) reports the
+    end-to-end metric it moves."""
+    assert NEW
     for m in NEW:
         assert callable(harness.load_reader(m["name"]))
         assert harness.metric_file(m["name"]).name == m["name"] + ".py"
-        assert m["workloads"] == (["temporal.spline1080"] if m["moves"] == "frame_ms" else ["inverse10.views1080"])
+        cells = m.get("workloads", [w["name"] for w in BENCH["workloads"]])
+        assert cells, m["name"]
+        for cell in cells:
+            assert m["moves"] in {e["name"] for e in harness.load_cell(cell).end_to_end}, (m["name"], cell)
