@@ -6,7 +6,8 @@ paths through the kernels, each with the launch counts set to 0 just before
 it and read just after:
 
 - the fused temporal frame (`app.driver.render_animation` at 1920×1080,
-  K1 + K2; phases 2-7: card vs CPU, CUDA-event times, a torch.profiler
+  K1 + K2 with its tail; phases 2-7: K2 alone and with its tail bitwise
+  its plain route at 1080p, card vs CPU, CUDA-event times, a torch.profiler
   split of the frame's device time by pipeline stage);
 - the generic training step (`diff.inverse.train_step` at 1920×1080, K1 +
   the backward kernel K5; phase 10);
@@ -33,8 +34,8 @@ it and read just after:
   1920×1080 (its fused default, K1 + K2) and at 256×128 (`--pipeline pass`);
 - the sharded renderer and trainer (`parallel/shard.py`): 3 tiles of 360
   rows at 1920×1080 in this process, two frames each of the split frame
-  (K1 row mode + K2 tile mode) and the mono frame (K8 tile mode) from a
-  populated history, stitched and held against the unsharded frame, each
+  (K1 row mode + K2 tile mode with its tail) and the mono frame (K8 tile
+  mode) from a populated history, stitched and held against the unsharded frame, each
   tile launch held against its plain version (phase 21); the tiled training
   step (K1 + K5 row mode) at 1920×1080 in 3 tiles and at the 192×128
   recovery view in 2, held against the unsharded `train_step` (phase 22);
@@ -225,6 +226,62 @@ def shade_ops(scene, config, oid, smp: int) -> float:
 # K2's per-pixel work (csrc/reproject_kernel.cu): per channel set the
 # previous-camera projection (~60) and the four taps (~10 each).
 K2_OPS = 2 * (60 + 4 * 10)
+
+# K2's tail, per pixel beyond K2_OPS: per channel set the count floor, clamp
+# and accumulate (~10); the composite's modulation (~10 a channel) and the
+# ACES fit's two matrices (~30), rational (~7 a channel) and sRGB curve with
+# its pow (~25 a channel).
+TAIL_OPS = 2 * 10 + 3 * 10 + 30 + 3 * 7 + 3 * 25
+
+# The camera's move between the previous history and K2's tail in phases 3
+# and 21: |v| ~ 0.017, so the velocity clamp's limit is T - 4, under many of
+# the histories' counts (0-16).
+TAIL_MOVE = (0.01, -0.01, 0.01)
+
+
+def tail_plain(prev_cam, loc, hl, sl, out, prev_d, prev_s, config, image_height=None, row_base=0, hist_halo=0):
+    """K2 with its tail as the plain route, on the tensors' device:
+    `reproject_frame_plain`, `accumulate` for each set against the camera's
+    speed, `composite_from` → (image, diffuse, specular), as
+    `reproject_tail` returns them."""
+    from kylespathtracer_tpu_torch.core import gmath
+    from kylespathtracer_tpu_torch.ops import reproject_kernel as rk
+    from kylespathtracer_tpu_torch.render.composite import composite_from
+    from kylespathtracer_tpu_torch.render.passes import accumulate
+
+    ho = out["oid"]
+    H = ho.shape[0] if image_height is None else image_height
+    K = min(config.reproject_window, rk.MAX_WINDOW)
+    (rgb_d, cnt_d), (rgb_s, cnt_s) = rk.reproject_frame_plain(prev_cam, hl, sl, ho, prev_d, prev_s, config.fov,
+                                                              K, H, row_base, hist_halo)
+    vv = gmath.length(loc - prev_cam.loc)
+    d = accumulate(rgb_d, cnt_d, out["add_d"], vv, ho, config)
+    s = accumulate(rgb_s, cnt_s, out["add_s"], vv, ho, config)
+    return composite_from(out["alb"], out["ene"], d, s, config), d, s
+
+
+def hold_tail(got, want, label: str) -> float:
+    """K2 with its tail against `tail_plain` on the same inputs: the new
+    history (rgb and count of both sets) and the image bitwise, the new
+    channels' oid K1's own tensor → the max |d| (0), logged; raises if not."""
+    pairs = {"image": (got[0], want[0])}
+    for name, g, w in (("diffuse", got[1], want[1]), ("specular", got[2], want[2])):
+        pairs[f"{name} rgb"], pairs[f"{name} cnt"] = (g.rgb, w.rgb), (g.cnt, w.cnt)
+    gaps = {k: (a - b).abs().max().item() for k, (a, b) in pairs.items()}
+    differ = [k for k, (a, b) in pairs.items() if not torch.equal(a, b)]
+    log(f"  {label}: max |d| {max(gaps.values()):.3g}; planes not bitwise: {differ}")
+    if differ or got[1].oid is not want[1].oid or got[2].oid is not want[2].oid:
+        raise AssertionError(f"{label}: K2 with its tail parts from the plain route on {differ} ({gaps})")
+    return max(gaps.values())
+
+
+def tail_io_bytes(args, got) -> int:
+    """The bytes K2 with its tail moves: the anchors, object IDs, both
+    histories and K1's four planes in, the new history and the image out."""
+    _, loc, hl, sl, out, prev_d, prev_s, _ = args
+    io = (hl, sl, out["oid"], *(t for ch in (prev_d, prev_s) for t in (ch.rgb, ch.cnt, ch.oid)),
+          *(out[k] for k in ("add_d", "add_s", "alb", "ene")), got[0], *(t for ch in got[1:] for t in (ch.rgb, ch.cnt)))
+    return sum(t.numel() * t.element_size() for t in io)
 
 # K8's per-pixel work beyond K1's frame (csrc/frame_hist.cu): the anchors
 # (~30), and per channel set the previous-camera projection (~45), the four
@@ -518,15 +575,16 @@ def tiled_frames(scene, hist0, dev):
     for fusion in ("split", "mono"):
         cfg_x = RenderConfig(width=W, height=H, pipeline="fused", temporal_fusion=fusion)
         hist = hist0
-        fk.LAUNCHES = fk.ROW_LAUNCHES = rk.LAUNCHES = rk.TILE_LAUNCHES = fh.LAUNCHES = fh.TILE_LAUNCHES = 0
+        fk.LAUNCHES = fk.ROW_LAUNCHES = rk.LAUNCHES = rk.TILE_LAUNCHES = rk.TAIL_LAUNCHES = 0
+        fh.LAUNCHES = fh.TILE_LAUNCHES = 0
         with warnings.catch_warnings():
             warnings.filterwarnings("error", message="fused tiled path")
             for i in (1, 2):
                 img, hist = render_tiles(scene, cfg_x, hist, i, dev)
         torch.cuda.synchronize()
         launches[fusion] = {"frame": fk.LAUNCHES, "frame rows": fk.ROW_LAUNCHES, "reproject": rk.LAUNCHES,
-                            "reproject tile": rk.TILE_LAUNCHES, "frame_hist": fh.LAUNCHES,
-                            "frame_hist tile": fh.TILE_LAUNCHES}
+                            "reproject tile": rk.TILE_LAUNCHES, "reproject tail": rk.TAIL_LAUNCHES,
+                            "frame_hist": fh.LAUNCHES, "frame_hist tile": fh.TILE_LAUNCHES}
         tiled[fusion] = (img, hist)
     return tiled, launches
 
@@ -1674,6 +1732,7 @@ def main() -> int:
 
     from kylespathtracer_tpu_torch import bench_ceiling, bench_configs
     from kylespathtracer_tpu_torch.app import cli, driver
+    from kylespathtracer_tpu_torch.core import gmath
     from kylespathtracer_tpu_torch.diff import inverse
     from kylespathtracer_tpu_torch.ops import _build
     from kylespathtracer_tpu_torch.ops.adjoint_variants import BOX_AIMED, burst_ms
@@ -1754,7 +1813,8 @@ def main() -> int:
                         f"sphere_scene 256x128 {label}")
 
     # Phase 3: K2 (both channel sets, query heads included) against its plain
-    # version (`_queries` + `reproject_window_plain`) on the card at 1920x1080.
+    # version (`_queries` + `reproject_window_plain`) on the card at 1920x1080,
+    # alone and with its tail.
     log("phase 3: reprojection kernel (K2) vs plain, on the card")
     rng = np.random.default_rng(0)
 
@@ -1789,16 +1849,38 @@ def main() -> int:
     if cnt_k.mean().item() <= 1.0:
         raise AssertionError("K2 check carried almost no history; the check is vacuous")
 
+    # K2 with its tail (`reproject_tail`), the launch the main path makes: on
+    # K1's planes and the same histories, the camera moved by TAIL_MOVE so the
+    # velocity clamp cuts counts, against `tail_plain` on the card.
+    tail_args = (camera(0), camera(1).loc + torch.tensor(TAIL_MOVE, device=dev), hl, sl, ref, hist, hist_s, cfg)
+    before = (rk.LAUNCHES, rk.TAIL_LAUNCHES)
+    tail_out = rk.reproject_tail(*tail_args)
+    torch.cuda.synchronize()
+    tail_launches = (rk.LAUNCHES - before[0], rk.TAIL_LAUNCHES - before[1])
+    tail_err = hold_tail(tail_out, tail_plain(*tail_args), f"{W}x{H} K={K}, K2 with its tail in {tail_launches[0]} "
+                         "launch vs reproject_frame_plain + accumulate x2 + composite_from")
+    vv = gmath.length(tail_args[1] - camera(0).loc)
+    floor = passes.count_floor(k2_ref[0][1])
+    cut = (passes._temporal_clamp(k2_ref[0][0], floor, vv, cfg)[1] < floor).sum().item()
+    vv = vv.item()
+    log(f"  camera speed {vv:.4g}; diffuse counts the clamp cut {cut} of {W * H}; mean new diffuse count "
+        f"{tail_out[1].cnt.mean().item():.4f}")
+    if tail_launches != (1, 1):
+        raise AssertionError(f"reproject_tail launched K2 {tail_launches[0]} times, {tail_launches[1]} with its "
+                             "tail, not once")
+    if vv <= 0.0 or cut == 0:
+        raise AssertionError("K2's tail check cut no count; the clamp went untested")
+
     # Phase 4: the main path, through the kernels.
     log(f"phase 4: main path, render_animation 8 frames at {W}x{H} on the card")
     cams = [camera(i) for i in range(8)]
     stacked = Camera(loc=torch.stack([c.loc for c in cams]),
                      orient=torch.stack([c.orient for c in cams]))
     fk.LAUNCHES = 0
-    rk.LAUNCHES = 0
+    rk.LAUNCHES = rk.TAIL_LAUNCHES = 0
     image, history = driver.render_animation(scene, cfg, num_frames=8, cameras=stacked)
     torch.cuda.synchronize()
-    launches = {"frame": fk.LAUNCHES, "reproject": rk.LAUNCHES}
+    launches = {"frame": fk.LAUNCHES, "reproject": rk.LAUNCHES, "reproject tail": rk.TAIL_LAUNCHES}
     mean_cnt = history.diffuse.cnt.mean().item()
     log(f"  launches {launches}; image {tuple(image.shape)} range "
         f"[{image.min().item():.4f}, {image.max().item():.4f}]; mean diffuse count {mean_cnt:.4f}")
@@ -1806,8 +1888,8 @@ def main() -> int:
         raise AssertionError("main path image not finite in [0, 1]")
     if image.shape != (H, W, 3):
         raise AssertionError(f"main path image shape {tuple(image.shape)}")
-    if launches != {"frame": 8, "reproject": 8}:
-        raise AssertionError(f"main path did not run through both kernels: {launches}")
+    if launches != {"frame": 8, "reproject": 8, "reproject tail": 8}:
+        raise AssertionError(f"main path did not run through K1 and K2 with its tail: {launches}")
     if mean_cnt <= 4.0:
         raise AssertionError(f"history did not accumulate: mean diffuse count {mean_cnt}")
 
@@ -1868,13 +1950,16 @@ def main() -> int:
     k1_plain_ms = cuda_ms(lambda: fk.frame_forward_plain(scene, camera(), 3, cfg), reps=3, warmup=1)
     k2_ms = cuda_ms(lambda: rk.reproject_window(*k2_args, window=K), reps=50, warmup=3)
     k2_plain_ms = cuda_ms(lambda: rk.reproject_frame_plain(*k2_args, K, H), reps=20, warmup=2)
+    tail_ms = cuda_ms(lambda: rk.reproject_tail(*tail_args), reps=50, warmup=3)
+    tail_plain_ms = cuda_ms(lambda: tail_plain(*tail_args), reps=20, warmup=2)
     log(f"  temporal frame {W}x{H}: {frame_ms:.4f} ms, {W * H / frame_ms / 1e3:.2f} "
         f"primary Mrays/s [{card}]")
     log(f"  K1 frame kernel {W}x{H}: {k1_ms:.4f} ms with its wrapper, {k1_alone_ms:.4f} ms alone; plain on the "
         f"card {k1_plain_ms:.4f} ms; at the 192x128 recovery view {k1_rec_ms:.4f} ms with its wrapper, "
         f"{k1_rec_alone_ms:.4f} ms alone [{card}]; {ptxas['K1']}")
     log(f"  K2 reprojection {W}x{H} (both sets, query heads included): {k2_ms:.4f} ms; plain on the card "
-        f"{k2_plain_ms:.4f} ms [{card}]")
+        f"{k2_plain_ms:.4f} ms; with its tail (the main path's launch) {tail_ms:.4f} ms, plain on the card "
+        f"{tail_plain_ms:.4f} ms [{card}]")
 
     # Phase 7: where the time goes, from a profiler trace of 10 frames.
     log("phase 7: torch.profiler trace of 10 temporal frames")
@@ -2265,7 +2350,7 @@ def main() -> int:
                     "oid": split_hist.diffuse.oid}
     try:
         stats = fh.check_agreement({k: k8[k] for k in split_planes}, split_planes, "K8 vs split")
-        log(f"  K8 vs the split frame (K1 + K2 + tail) on the same inputs, within the bar: {stats}")
+        log(f"  K8 vs the split frame (K1 + K2 with its tail) on the same inputs, within the bar: {stats}")
     except AssertionError as e:
         log(f"  K8 vs the split frame on the same inputs, beyond the bar (logged, not held): {e}")
 
@@ -2408,10 +2493,10 @@ def main() -> int:
         hold_frame_gaps(gaps, f"{TILES} tiles vs the unsharded {fusion} frame")
         if img_t.shape != (H, W, 3) or not torch.isfinite(img_t).all():
             raise AssertionError(f"tiled {fusion} image not finite or of the wrong shape")
-    want = {"split": {"frame": 6, "frame rows": 6, "reproject": 6, "reproject tile": 6, "frame_hist": 0,
-                      "frame_hist tile": 0},
-            "mono": {"frame": 0, "frame rows": 0, "reproject": 0, "reproject tile": 0, "frame_hist": 6,
-                     "frame_hist tile": 6}}
+    want = {"split": {"frame": 6, "frame rows": 6, "reproject": 6, "reproject tile": 6, "reproject tail": 6,
+                      "frame_hist": 0, "frame_hist tile": 0},
+            "mono": {"frame": 0, "frame rows": 0, "reproject": 0, "reproject tile": 0, "reproject tail": 0,
+                     "frame_hist": 6, "frame_hist tile": 6}}
     if tile_launches != want:
         raise AssertionError(f"the tiled frames did not run through the tile modes: {tile_launches}")
 
@@ -2425,8 +2510,10 @@ def main() -> int:
     k1r_stats = frame_agreement(k1r, k1r_ref, f"K1 row mode, rows [{r0}, {r0 + rows_t})")
     hl_t, sl_t = pipeline._anchors(scene, cam1, ray_dirs_window(cam1, W, H, r0, rows_t, cfg.fov), k1r_ref)
     k2t_args = (hist0.camera, hl_t, sl_t, k1r_ref["oid"], win.diffuse, win.specular, cfg.fov)
+    before = rk.TILE_LAUNCHES
     k2t_out = rk.reproject_window(*k2t_args, window=K, image_height=H, row_base=r0, hist_halo=halo_t)
     torch.cuda.synchronize()
+    k2t_launches = rk.TILE_LAUNCHES - before
     k2t_ref = rk.reproject_frame_plain(*k2t_args, K, H, r0, halo_t)
     k2t_err = max((a - b).abs().max().item() for got, want in zip(k2t_out, k2t_ref) for a, b in zip(got, want))
     k2t_bitwise = all(torch.equal(a, b) for got, want in zip(k2t_out, k2t_ref) for a, b in zip(got, want))
@@ -2436,6 +2523,21 @@ def main() -> int:
     for got, want in zip(k2t_out, k2t_ref):
         torch.testing.assert_close(got[0], want[0], atol=1e-5, rtol=0)
         torch.testing.assert_close(got[1], want[1], atol=1e-4, rtol=0)
+    # K2 tile mode with its tail, the sharded split frame's launch, the
+    # camera moved by TAIL_MOVE.
+    tail_t_args = (hist0.camera, cam1.loc + torch.tensor(TAIL_MOVE, device=dev), hl_t, sl_t, k1r_ref,
+                   win.diffuse, win.specular, cfg)
+    tail_t_kw = dict(image_height=H, row_base=r0, hist_halo=halo_t)
+    before = (rk.LAUNCHES, rk.TILE_LAUNCHES, rk.TAIL_LAUNCHES)
+    tail_t_out = rk.reproject_tail(*tail_t_args, **tail_t_kw)
+    torch.cuda.synchronize()
+    tail_t_launches = tuple(n - b for n, b in zip((rk.LAUNCHES, rk.TILE_LAUNCHES, rk.TAIL_LAUNCHES), before))
+    tail_t_err = hold_tail(tail_t_out, tail_plain(*tail_t_args, **tail_t_kw),
+                           f"K2 tile mode with its tail, rows [{r0}, {r0 + rows_t}), launches (all, tile, tail) "
+                           f"{tail_t_launches}")
+    if tail_t_launches != (1, 1, 1):
+        raise AssertionError(f"reproject_tail in tile mode launched {tail_t_launches}, not one tile launch with "
+                             "its tail")
     tile_kw = dict(block_rows=halo_t, row_base=r0, rows=rows_t, hist_halo=halo_t)
     k8t_args = (scene, cam1, hist0.camera, win.diffuse, win.specular, 1, cfg_m)
     k8t = fh.frame_hist(*k8t_args, **tile_kw)
@@ -2452,11 +2554,14 @@ def main() -> int:
     k2t_ms = cuda_ms(lambda: rk.reproject_window(*k2t_args, window=K, image_height=H, row_base=r0,
                                                  hist_halo=halo_t), reps=50, warmup=3)
     k2t_plain_ms = cuda_ms(lambda: rk.reproject_frame_plain(*k2t_args, K, H, r0, halo_t), reps=20, warmup=2)
+    tail_t_ms = cuda_ms(lambda: rk.reproject_tail(*tail_t_args, **tail_t_kw), reps=50, warmup=3)
+    tail_t_plain_ms = cuda_ms(lambda: tail_plain(*tail_t_args, **tail_t_kw), reps=20, warmup=2)
     k8t_ms = cuda_ms(lambda: fh.frame_hist(*k8t_args, **tile_kw), reps=20, warmup=2)
     k8t_alone_ms = cuda_ms(fh.frame_hist_launch(*k8t_args, **tile_kw)[0], reps=20, warmup=2)
     k8t_plain_ms = cuda_ms(lambda: fh.frame_hist_plain(*k8t_args, **tile_kw), reps=3)
     log(f"  one tile of {rows_t}x{W}: K1 row mode {k1r_ms:.4f} ms with its wrapper, {k1r_alone_ms:.4f} alone, "
-        f"plain {k1r_plain_ms:.4f}; K2 tile mode (both sets) {k2t_ms:.4f}, plain {k2t_plain_ms:.4f}; K8 tile mode "
+        f"plain {k1r_plain_ms:.4f}; K2 tile mode (both sets) {k2t_ms:.4f}, plain {k2t_plain_ms:.4f}; with its tail "
+        f"{tail_t_ms:.4f}, plain {tail_t_plain_ms:.4f}; K8 tile mode "
         f"{k8t_ms:.4f} with its wrapper, {k8t_alone_ms:.4f} alone, plain {k8t_plain_ms:.4f} [{card}]")
     tile_state = {f: (3, tiled[f][1]) for f in tiled}
 
@@ -2617,6 +2722,7 @@ def main() -> int:
     k2_io = (hl, sl, ref["oid"], *(t for ch in (hist, hist_s) for t in (ch.rgb, ch.cnt, ch.oid)),
              *(t for pair in k2_out for t in pair))
     k2_work = (W * H * K2_OPS, sum(t.numel() * t.element_size() for t in k2_io))
+    tail_work = (W * H * (K2_OPS + TAIL_OPS), tail_io_bytes(tail_args, tail_out))
     # The gradient of a scalar costs at most ~3 times its forward's operations
     # (reverse mode); K6 adds the composite and the loss (~120 per pixel).
     k5_work = (3 * ops1, tab_bytes + sum(v.numel() * 4 for v in g_all.values()))
@@ -2650,6 +2756,7 @@ def main() -> int:
     k2t_io = (hl_t, sl_t, k1r_ref["oid"], *(t for ch in (win.diffuse, win.specular) for t in (ch.rgb, ch.cnt, ch.oid)),
               *(t for pair in k2t_out for t in pair))
     k2t_work = (rows_t * W * K2_OPS, sum(t.numel() * t.element_size() for t in k2t_io))
+    tail_t_work = (rows_t * W * (K2_OPS + TAIL_OPS), tail_io_bytes(tail_t_args, tail_t_out))
     ops8t = frame_ops(scene, cfg_m, k8t_ref["oid"]) + rows_t * W * HIST_OPS
     win_bytes = sum(t.numel() * t.element_size() for ch in (win.diffuse, win.specular)
                     for t in (ch.rgb, ch.cnt, ch.oid))
@@ -2666,7 +2773,8 @@ def main() -> int:
         f"{(hist_bytes + out_bytes) / (W * H):.1f} B/pixel), K4 {k4_bound[0]:.4f} ms ({k4_bound[1]}, "
         f"{ops4 / 1e9:.3f} GFLOP)")
     log(f"  bounds at {W}x{H}: K1 {k1_bound[0]:.4f} ms ({k1_bound[1]}, {ops1 / 1e9:.3f} GFLOP), "
-        f"K2 {k2_bound[0]:.4f} ms ({k2_bound[1]}), K5 {k5_bound[0]:.4f} ms ({k5_bound[1]}), "
+        f"K2 {k2_bound[0]:.4f} ms ({k2_bound[1]}), with its tail {bound(*tail_work)[0]:.4f} ms "
+        f"({tail_work[1] / (W * H):.1f} B/pixel), K5 {k5_bound[0]:.4f} ms ({k5_bound[1]}), "
         f"K6 {k6_bound[0]:.4f} ms ({k6_bound[1]}), K3 view (a) {k3_bound[0]:.4f} ms ({k3_bound[1]}, "
         f"{ops3 / 1e9:.3f} GFLOP, {(W * H * 24) / 1e6:.1f} MB out; view (b) {k3_bound_b[0]:.4f} ms, "
         f"{k3_bound_b[1]}, {geometry_ops(scene, k3_box_work['b']) / 1e9:.3f} GFLOP), K7 {k7_bound[0]:.4f} ms "
@@ -2698,13 +2806,18 @@ def main() -> int:
                 "bound_ms": bnd[0], "bound_by": bnd[1], "bound_measured_ms": measured[0], "library_ms": None,
                 **({} if alone_ms is None else {"alone_ms": alone_ms})}
 
+    # K2's two routes: the main path's split frames (phases 4, 28-30; the
+    # sharded tiles of phase 23) run it with its tail; the tap sums alone
+    # (`reproject_window`) launch here in phases 3 and 21, and in bench.py.
     jax_ops = "kylespathtracer_tpu/ops/"
     kernels = [
         entry("frame_forward", "frame_kernel.cu", jax_ops + "frame_kernel.py:381",
               launches["frame"] + app_counts["frame"] + resume_launches["frame"], k1_stats["max_abs"], k1_ms,
               k1_plain_ms, k1_work, alone_ms=k1_alone_ms),
-        entry("reproject_window", "reproject_kernel.cu", jax_ops + "reproject_kernel.py:290",
-              launches["reproject"] + app_counts["reproject"], k2_err, k2_ms, k2_plain_ms, k2_work),
+        entry("reproject_window", "reproject_kernel.cu", jax_ops + "reproject_kernel.py:290", k2_launches, k2_err,
+              k2_ms, k2_plain_ms, k2_work),
+        entry("reproject_tail", "reproject_kernel.cu", jax_ops + "reproject_kernel.py:290",
+              launches["reproject tail"] + app_counts["reproject"], tail_err, tail_ms, tail_plain_ms, tail_work),
         entry("frame_backward", "frame_grad.cu", jax_ops + "frame_grad.py:189",
               train_launches["backward"] + resume_launches["backward"], k5_err, k5_ms, k5_plain_ms, k5_work),
         entry("render_loss_and_grad", "loss_kernel.cu", jax_ops + "loss_kernel.py:216",
@@ -2720,7 +2833,9 @@ def main() -> int:
         entry("frame_forward (rows)", "frame_kernel.cu", jax_ops + "frame_kernel.py:299",
               rank_launches["frame rows"], k1r_stats["max_abs"], k1r_ms, k1r_plain_ms, k1r_work),
         entry("reproject_window (tile)", "reproject_kernel.cu", jax_ops + "reproject_kernel.py:211",
-              rank_launches["reproject tile"], k2t_err, k2t_ms, k2t_plain_ms, k2t_work),
+              k2t_launches, k2t_err, k2t_ms, k2t_plain_ms, k2t_work),
+        entry("reproject_tail (tile)", "reproject_kernel.cu", jax_ops + "reproject_kernel.py:211",
+              rank_launches["reproject tile"], tail_t_err, tail_t_ms, tail_t_plain_ms, tail_t_work),
         entry("frame_hist (tile)", "frame_hist.cu", jax_ops + "frame_hist.py:241", rank_launches["frame_hist tile"],
               k8t_stats["max_abs"], k8t_ms, k8t_plain_ms, k8t_work),
         entry("frame_backward (rows)", "frame_grad.cu", jax_ops + "frame_grad.py:117", rank_launches["backward rows"],

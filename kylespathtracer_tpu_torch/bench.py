@@ -12,7 +12,7 @@ supplementary metrics go to stderr as JSON lines under bench.py's names,
 each with "device" too:
 
   * fwd: `render_frame`, pipeline="fused" (the split temporal frame: K1 +
-    K2 + the tail) at 1920×1080, panning 1e-3 rad a frame with the
+    the anchors + K2 with its tail) at 1920×1080, panning 1e-3 rad a frame with the
     history carried → fwd_frame_ms_1080p, traced_rays_per_s_1080p (9 rays
     a pixel) and the headline;
   * fwd+bwd: `ops/loss_kernel.render_loss_and_grad`, loss="mean" (K6) →

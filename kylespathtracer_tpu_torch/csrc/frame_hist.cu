@@ -8,7 +8,7 @@
 //   → previous-camera projection of each anchor     (frame_hist.py:_queries_block)
 //   → windowed 2×2 tap sum (reproject_core.cuh: tap_sum, K2's, with the loads gathered)
 //   → floor(count + 1e-4) + velocity clamp           (diffuse.frag:46-51)
-//   → accumulate (rgb + this frame's estimate, count + 1)
+//   → accumulate (rgb + this frame's estimate, count + 1; reproject_core.cuh, K2's)
 //
 // In: the scene tables, the previous camera (ptab: loc 3, orient 2) and both
 // history channels (rgb [H][W][3], cnt, oid); out: d_rgb, s_rgb, alb
@@ -47,6 +47,7 @@
 // add a few hundred operations per pixel after the shade, when the shade's
 // registers are free again, under __launch_bounds__(128, 5).
 #include "frame_body.cuh"
+#include "reproject_core.cuh"
 
 namespace kpt {
 
@@ -108,18 +109,6 @@ __device__ __forceinline__ void query(V3 anchor, const float* __restrict__ ptab,
   wy[1] = (iv >= -1 && iv < H - 1) ? dv : 0.0f;
   wx[0] = (iu >= 0 && iu < W && inside) ? rn_sub(1.0f, du) : 0.0f;
   wx[1] = (iu >= -1 && iu < W - 1 && inside) ? du : 0.0f;
-}
-
-// Reprojected history → floor(count + 1e-4), velocity clamp to `limit`,
-// plus this frame's estimate `add` (frame_hist.py:_temporal_clamp_block).
-__device__ __forceinline__ void accumulate(const float (&acc)[4], const float* add, float limit, float* rgb_out,
-                                           float& cnt_out) {
-  const float cnt = floorf(rn_add(acc[3], 1e-4f));
-  const bool over = cnt > limit;
-  const float scale = over ? __fdiv_rn(limit, fmaxf(cnt, 1e-6f)) : 1.0f;
-#pragma unroll
-  for (int c = 0; c < 3; ++c) rgb_out[c] = rn_add(rn_mul(acc[c], scale), add[c]);
-  cnt_out = rn_add(over ? limit : cnt, 1.0f);
 }
 
 // reproject_core.cuh:tap_sum with the four taps' loads issued together:
@@ -196,7 +185,7 @@ __global__ void __launch_bounds__(BLOCK, 5)
     const float dvx = rn_sub(T.f[T.cam], ptab[0]), dvy = rn_sub(T.f[T.cam + 1], ptab[1]);
     const float dvz = rn_sub(T.f[T.cam + 2], ptab[2]);
     const float vv = sqrtf(fmaxf(rn_add(rn_add(rn_mul(dvx, dvx), rn_mul(dvy, dvy)), rn_mul(dvz, dvz)), 0.0f));
-    B.limit = rn_sub(Q.temporal, fminf(Q.t_m1, floorf(rn_mul(Q.two_t, sqrtf(vv)))));
+    B.limit = clamp_limit(vv, Q.temporal, Q.two_t, Q.t_m1);
   }
   __syncthreads();
 

@@ -1,28 +1,40 @@
 // K2: the split temporal frame's windowed reprojection, both channel sets
-// and their query heads in one launch.
+// and their query heads in one launch, and, when the tail's operands are
+// given, the rest of the frame: count floor, velocity clamp, accumulate and
+// the ACES composite, so that one launch goes from the previous history to
+// the new history and the image.
 //
 // Replaces kylespathtracer_tpu/ops/reproject_kernel.py:reproject_pallas
 // (its query head `_queries` and its body `_reproject_kernel` →
-// `_set_kernel_dyn`), in full-frame and in tile mode. The TPU version runs
-// the head as XLA and the tap sum as one kernel per channel set; here one
-// launch does both sets, head included.
+// `_set_kernel_dyn`), in full-frame and in tile mode, and the tensor ops
+// that follow it in the split frame (render/passes.py:accumulate,
+// render/composite.py:composite_from). The TPU version runs the head as XLA,
+// the tap sum as one kernel per channel set and the tail as XLA; here one
+// launch does all of it.
 //
 // Per pixel, for the diffuse anchor hl and then the specular anchor sl: the
 // anchor projected into the previous camera (render/reproject.py:
 // reproject_query), the tap window's offset from the pixel and its separable
 // bilinear weights (ops/reproject_kernel.py:_queries), then the 2×2 bilinear
 // history taps inside ±K whose object ID matches, summed by `tap_sum`
-// (reproject_core.cuh, shared with K8).
+// (reproject_core.cuh, shared with K8). Without the tail the two sums are
+// the outputs. With it (`SplitTail::image` set), each sum goes through
+// `accumulate` (reproject_core.cuh, K8's too) against the clamp limit of the
+// camera's speed, which one thread a block computes from both cameras'
+// positions on the device; the results are the new history, and their
+// composite with K1's albedo and energies is the sRGB image.
 //
-// Rounding: the head repeats the split frame's plain head operation for
-// operation, each rounded on its own (this file builds with -fmad=false,
-// ops/_build.py), in the order torch's CUDA code takes them: a sum over a
-// trailing axis of three adds the third product to the first, then the
-// second (the reduction splits the axis over two lanes), and
+// Rounding: the head and the tail repeat the split frame's plain code
+// operation for operation, each rounded on its own (this file builds with
+// -fmad=false, ops/_build.py), in the order torch's CUDA code takes them: a
+// sum over a trailing axis of three adds the third product to the first,
+// then the second (the reduction splits the axis over two lanes), and
 // torch.linalg.cross contracts each component's first product into a fused
-// multiply-add. So the kernel's taps and weights are those of the plain head
-// on the card. It is not K8's head (rsqrt basis, fov-first division), which
-// parts from this one by association ulps.
+// multiply-add. Scalars are the Python constants rounded to float, as torch
+// passes them to its kernels; pow, sqrt and division are CUDA's, as torch's.
+// So the kernel's taps, weights, history and image are those of the plain
+// route on the card. Its head is not K8's (rsqrt basis, fov-first
+// division), which parts from this one by association ulps.
 //
 // Tile mode (the tile branch of reproject_pallas, run by the sharded
 // renderer, parallel/shard.py): the anchors cover image rows
@@ -32,17 +44,29 @@
 // row hist_row0 = row_base − halo. A tap's window row is its image row less
 // hist_row0. Taps reach at most K ≤ halo rows (the wrapper checks), so they
 // stay inside the window; rows beyond the image carry zero weight from the
-// query head.
+// query head. The tail is per pixel and reads and writes the tile's rows.
 //
 // What bounds it on an H100: device-memory bytes. Per pixel it reads the two
 // anchors (24 B) and the object ID, for each live tap 5 history floats, and
-// writes 32 B; the head is a few hundred instructions, the previous camera's
-// basis computed once per block. Neighbouring threads read neighbouring
-// history texels, so the taps of a warp fall in a few cache lines served by
-// L1/L2.
+// writes 32 B; with the tail it also reads K1's estimates, albedo and
+// energies (44 B) and writes the image (12 B), ~156 B a pixel in all. The
+// head is a few hundred instructions, the tail ~100 more, the previous
+// camera's basis and the clamp limit computed once per block. Neighbouring
+// threads read neighbouring history texels, so the taps of a warp fall in a
+// few cache lines served by L1/L2.
 #include "reproject_core.cuh"
 
 namespace kpt {
+
+// The split frame's tail: the current camera's loc [3]; K1's estimates
+// add_d, add_s and albedo alb [rows][W][3] and energies ene [rows][W][2];
+// the sRGB image out [rows][W][3]; TEMPORALSMOOTHING T, T·2, T−1 and the
+// exposure. A null image: no tail, the outputs are the tap sums.
+struct SplitTail {
+  const float *loc, *add_d, *add_s, *alb, *ene;
+  float* image;
+  float temporal, two_t, t_m1, brightness;
+};
 
 namespace {
 
@@ -106,38 +130,100 @@ __device__ __forceinline__ void split_query(Vec3 anchor, const float* __restrict
   wx[1] = (iu >= -1 && iu < W - 1 && inside) ? du : 0.0f;
 }
 
-// One channel set of one pixel: query, tap sum, the reprojected rgb and count.
+// One channel set of one pixel: query, then tap sum → acc (rgb, count).
 __device__ __forceinline__ void one_set(const float* __restrict__ anchors, const float* __restrict__ loc,
                                         const Vec3& lf, const Vec3& r, const Vec3& u,
                                         const float* __restrict__ hist_rgb, const float* __restrict__ hist_cnt,
                                         const int* __restrict__ hist_oid, int id, size_t p, int x, int y, int W,
-                                        int H, int K, float fov, float asp, int hist_row0,
-                                        float* __restrict__ out_rgb, float* __restrict__ out_cnt) {
+                                        int H, int K, float fov, float asp, int hist_row0, float (&acc)[4]) {
   const Vec3 a = {anchors[3 * p], anchors[3 * p + 1], anchors[3 * p + 2]};
   int dy, dx;
-  float wy[2], wx[2], acc[4];
+  float wy[2], wx[2];
   split_query(a, loc, lf, r, u, x, y, W, H, fov, asp, dy, dx, wy, wx);
   tap_sum(hist_rgb, hist_cnt, hist_oid, id, y, x, dy, dx, wy, wx, K, H, W, hist_row0, acc);
-  out_rgb[3 * p] = acc[0];
-  out_rgb[3 * p + 1] = acc[1];
-  out_rgb[3 * p + 2] = acc[2];
-  out_cnt[p] = acc[3];
+}
+
+__device__ __forceinline__ void store(const float* rgb, float cnt, size_t p, float* __restrict__ out_rgb,
+                                      float* __restrict__ out_cnt) {
+  out_rgb[3 * p] = rgb[0];
+  out_rgb[3 * p + 1] = rgb[1];
+  out_rgb[3 * p + 2] = rgb[2];
+  out_cnt[p] = cnt;
+}
+
+// torch.clamp's bounds, which keep a NaN.
+__device__ __forceinline__ float clamp_min(float v, float lo) { return v != v ? v : fmaxf(v, lo); }
+__device__ __forceinline__ float clamp01(float v) { return v != v ? v : fminf(fmaxf(v, 0.0f), 1.0f); }
+
+// A row of core/color.py:_mat3, left to right.
+__device__ __forceinline__ float mat_row(const float (&v)[3], float m0, float m1, float m2) {
+  return (v[0] * m0 + v[1] * m1) + v[2] * m2;
+}
+
+// core/color.py:aces_fitted, then linear_srgb, on one pixel's rgb in place.
+__device__ __forceinline__ void aces_srgb(float (&v)[3]) {
+  const float c[3] = {mat_row(v, 0.59719f, 0.35458f, 0.04823f), mat_row(v, 0.07600f, 0.90834f, 0.01566f),
+                      mat_row(v, 0.02840f, 0.13383f, 0.83777f)};
+  float q[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const float a = c[k] * (c[k] + 0.0245786f) - 0.000090537f;
+    const float b = c[k] * (0.983729f * c[k] + 0.4329510f) + 0.238081f;
+    q[k] = a / b;
+  }
+  const float o[3] = {mat_row(q, 1.60475f, -0.53108f, -0.07367f), mat_row(q, -0.10208f, 1.10813f, -0.00605f),
+                      mat_row(q, -0.00327f, -0.07276f, 1.07602f)};
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const float x = clamp01(o[k]);
+    const float lo = 12.92f * x;
+    const float hi = 1.055f * powf(clamp_min(x, 1e-10f), (float)(1.0 / 2.4)) - 0.055f;
+    v[k] = x <= 0.0031308f ? lo : hi;
+  }
+}
+
+// render/composite.py:composite_from on one pixel: the new history of both
+// sets modulated by the primary surface, averaged by sample count, exposed,
+// tonemapped → sRGB out[3].
+__device__ __forceinline__ void composite(const float (&d)[3], float dcnt, const float (&s)[3], float scnt,
+                                          const float* __restrict__ alb, const float* __restrict__ ene,
+                                          float brightness, float* __restrict__ out) {
+  const float dn = clamp_min(floorf(dcnt), 1.0f), sn = clamp_min(floorf(scnt), 1.0f);
+  float v[3];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    const float asq = alb[c] > 0.0f ? sqrtf(alb[c]) : 0.0f;
+    v[c] = (d[c] * alb[c] * ene[0] / dn + s[c] * asq * ene[1] / sn) * brightness;
+  }
+  aces_srgb(v);
+  out[0] = v[0];
+  out[1] = v[1];
+  out[2] = v[2];
 }
 
 }  // namespace
 
 // Row r of the anchors and outputs is image row row_base + r; the full
 // frame has row_base = hist_row0 = 0 and rows = H. prev_loc [3] and
-// prev_orient [2] are the previous camera's, read on the device.
+// prev_orient [2] are the previous camera's, read on the device. The
+// outputs are the tap sums, or with the tail the new history.
 __global__ void __launch_bounds__(256) reproject_kernel(
     const float* __restrict__ hl, const float* __restrict__ sl, const int* __restrict__ ho,
     const float* __restrict__ prev_loc, const float* __restrict__ prev_orient, const float* __restrict__ hd_rgb,
     const float* __restrict__ hd_cnt, const int* __restrict__ hd_oid, const float* __restrict__ hs_rgb,
     const float* __restrict__ hs_cnt, const int* __restrict__ hs_oid, float* __restrict__ out_drgb,
     float* __restrict__ out_dcnt, float* __restrict__ out_srgb, float* __restrict__ out_scnt, float fov, float asp,
-    int rows, int H, int W, int K, int row_base, int hist_row0) {
+    int rows, int H, int W, int K, int row_base, int hist_row0, SplitTail tail) {
   __shared__ Vec3 basis[3];
-  if (threadIdx.x == 0) prev_camera_basis(prev_orient, basis[0], basis[1], basis[2]);
+  __shared__ float limit;
+  if (threadIdx.x == 0) {
+    prev_camera_basis(prev_orient, basis[0], basis[1], basis[2]);
+    if (tail.image) {
+      // The camera's speed, gmath.length(loc − prev loc), and the clamp's limit.
+      const float vx = tail.loc[0] - prev_loc[0], vy = tail.loc[1] - prev_loc[1], vz = tail.loc[2] - prev_loc[2];
+      limit = clamp_limit(sqrtf(sum3(vx * vx, vy * vy, vz * vz)), tail.temporal, tail.two_t, tail.t_m1);
+    }
+  }
   __syncthreads();
   const int x = blockIdx.x * blockDim.x + threadIdx.x;
   const int r = blockIdx.y;
@@ -146,10 +232,20 @@ __global__ void __launch_bounds__(256) reproject_kernel(
   const size_t p = (size_t)r * W + x;
   const int id = ho[p];
   const int y = row_base + r;
-  one_set(hl, prev_loc, lf, rt, up, hd_rgb, hd_cnt, hd_oid, id, p, x, y, W, H, K, fov, asp, hist_row0, out_drgb,
-          out_dcnt);
-  one_set(sl, prev_loc, lf, rt, up, hs_rgb, hs_cnt, hs_oid, id, p, x, y, W, H, K, fov, asp, hist_row0, out_srgb,
-          out_scnt);
+  float accd[4], accs[4];
+  one_set(hl, prev_loc, lf, rt, up, hd_rgb, hd_cnt, hd_oid, id, p, x, y, W, H, K, fov, asp, hist_row0, accd);
+  one_set(sl, prev_loc, lf, rt, up, hs_rgb, hs_cnt, hs_oid, id, p, x, y, W, H, K, fov, asp, hist_row0, accs);
+  if (!tail.image) {
+    store(accd, accd[3], p, out_drgb, out_dcnt);
+    store(accs, accs[3], p, out_srgb, out_scnt);
+    return;
+  }
+  float drgb[3], dcnt, srgb[3], scnt;
+  accumulate(accd, tail.add_d + 3 * p, limit, drgb, dcnt);
+  accumulate(accs, tail.add_s + 3 * p, limit, srgb, scnt);
+  store(drgb, dcnt, p, out_drgb, out_dcnt);
+  store(srgb, scnt, p, out_srgb, out_scnt);
+  composite(drgb, dcnt, srgb, scnt, tail.alb + 3 * p, tail.ene + 2 * p, tail.brightness, tail.image + 3 * p);
 }
 
 }  // namespace kpt
@@ -157,17 +253,20 @@ __global__ void __launch_bounds__(256) reproject_kernel(
 // The anchors, object IDs and outputs are [rows][W] for image rows
 // [row_base, row_base+rows) of an H-row image; each history's first row is
 // image row hist_row0 (the full frame: rows = H, row_base = hist_row0 = 0).
-// asp is W/H rounded to float.
+// asp is W/H rounded to float. `tail` null: the outputs are the tap sums;
+// else the new history, and the image goes to tail->image.
 extern "C" int kpt_reproject_frame(const float* hl, const float* sl, const int* ho, const float* prev_loc,
                                    const float* prev_orient, const float* hd_rgb, const float* hd_cnt,
                                    const int* hd_oid, const float* hs_rgb, const float* hs_cnt, const int* hs_oid,
                                    float* out_drgb, float* out_dcnt, float* out_srgb, float* out_scnt, float fov,
                                    float asp, int rows, int H, int W, int K, int row_base, int hist_row0,
-                                   void* stream) {
+                                   const kpt::SplitTail* tail, void* stream) {
+  if (tail && !tail->image) return (int)cudaErrorInvalidValue;
+  const kpt::SplitTail none{};
   const dim3 block(256, 1);
   const dim3 grid((W + block.x - 1) / block.x, rows);
   kpt::reproject_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
       hl, sl, ho, prev_loc, prev_orient, hd_rgb, hd_cnt, hd_oid, hs_rgb, hs_cnt, hs_oid, out_drgb, out_dcnt,
-      out_srgb, out_scnt, fov, asp, rows, H, W, K, row_base, hist_row0);
+      out_srgb, out_scnt, fov, asp, rows, H, W, K, row_base, hist_row0, tail ? *tail : none);
   return (int)cudaGetLastError();
 }

@@ -59,11 +59,14 @@ _F = ctypes.c_float
 # their 15 and 4 lengths), csrc/frame_kernel.cu:FrameOut (K1's 7 output
 # planes), csrc/geometry_kernel.cu:GeoOut (K3's depth, curv, normal, oid)
 # and csrc/shade_kernel.cu:ShadeIO (K4's G-buffer in and estimator pair
-# out: normal, depth, ray_dir, obj_id, seed, est_d, est_s).
+# out: normal, depth, ray_dir, obj_id, seed, est_d, est_s), and
+# csrc/reproject_kernel.cu:SplitTail (K2's tail: loc, add_d, add_s, alb,
+# ene, image; temporal, two_t, t_m1, brightness).
 TABLE_PARTS = struct.Struct("=19Q19i")
 FRAME_OUT = struct.Struct("=7Q")
 GEO_OUT = struct.Struct("=4Q")
 SHADE_IO = struct.Struct("=7Q")
+SPLIT_TAIL = struct.Struct("=6Q4f")
 
 
 _SIGNATURES = {
@@ -75,9 +78,9 @@ _SIGNATURES = {
     ),
     # hl, sl, ho, prev loc, prev orient, hist d rgb/cnt/oid, hist s
     # rgb/cnt/oid, out d_rgb, d_cnt, s_rgb, s_cnt, fov, asp, rows, H, W, K,
-    # row_base, hist_row0, stream
+    # row_base, hist_row0, tail (SPLIT_TAIL or null), stream
     "kpt_reproject_frame": (
-        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _F, _I, _I, _I, _I, _I, _I, _P,
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _F, _I, _I, _I, _I, _I, _I, _P, _P,
     ),
     # ftab, itab, seeds, n_seeds, nP, nS, nB, nK, width, height, fov, frame,
     # row_base, rows, smp, decorrelate, biased, soft_beta, gloss, g, present,

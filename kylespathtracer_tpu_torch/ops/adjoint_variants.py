@@ -184,8 +184,7 @@ FRAME_OFF = {
                 (HIST, "  tap_sum_gathered(hs_rgb, hs_cnt, hs_oid, oid, y, x, dy, dx, wy, wx, Q.K, H, W, hist_row0, acc);",
                  "  acc[0] = acc[1] = acc[2] = acc[3] = 0.0f;")],
     "serial_taps": [(HIST, "  tap_sum_gathered(hd_rgb,", "  tap_sum(hd_rgb,"),
-                    (HIST, "  tap_sum_gathered(hs_rgb,", "  tap_sum(hs_rgb,"),
-                    (HIST, '#include "frame_body.cuh"\n', '#include "frame_body.cuh"\n#include "reproject_core.cuh"\n')],
+                    (HIST, "  tap_sum_gathered(hs_rgb,", "  tap_sum(hs_rgb,")],
     "no_head_tail": [(HIST, "  // Anchors: the hit point for diffuse",
                       "  {\n    const size_t p = (size_t)r * W + x;\n"
                       "    for (int c = 0; c < 3; ++c) {\n"

@@ -1,4 +1,5 @@
-"""Windowed temporal reprojection: one CUDA kernel (K2) and its plain version.
+"""Windowed temporal reprojection: one CUDA kernel (K2) and its plain version,
+with or without the split frame's tail.
 
 Port of kylespathtracer_tpu/ops/reproject_kernel.py. Temporal
 reprojection only reads near the current pixel, so each 2×2 bilinear
@@ -12,6 +13,15 @@ makes no host copy. On CPU tensors it runs the plain version: the query
 head `_queries` (render/reproject.py:reproject_query) and the tap sum
 `reproject_window_plain`, which the kernel repeats operation for operation.
 
+`reproject_tail` is the split temporal frame from K1's outputs on: both
+reprojections, then per channel set the count floor, velocity clamp and
+accumulate (render/passes.py:accumulate) against the camera's speed, then
+the ACES composite (render/composite.py:composite_from) → (image, the new
+history). On CUDA tensors it is the same single launch of K2 with the tail
+as its epilogue, which writes the new history and the image and nothing
+between; on CPU tensors it runs those plain functions one after another,
+the twin the kernel repeats operation for operation.
+
 Tile mode (`image_height`/`row_base`/`hist_halo`, the sharded renderer's,
 parallel/shard.py): the queries cover image rows [row_base, row_base+rows)
 of an `image_height`-row image, and the history is the window of
@@ -24,14 +34,18 @@ import warnings
 
 import torch
 
+from kylespathtracer_tpu_torch.core import gmath
 from kylespathtracer_tpu_torch.ops import _build
 from kylespathtracer_tpu_torch.render import reproject as rep_mod
-from kylespathtracer_tpu_torch.render.passes import Channel
+from kylespathtracer_tpu_torch.render.composite import composite_from
+from kylespathtracer_tpu_torch.render.passes import Channel, accumulate
 
-# Launches of the CUDA kernel by `reproject_window` in this process (one a
-# split frame, both channel sets), and the tile-mode launches among them.
+# Launches of the CUDA kernel by `reproject_window` and `reproject_tail` in
+# this process (one a split frame, both channel sets), the tile-mode
+# launches among them, and the launches that ran the tail (`reproject_tail`).
 LAUNCHES = 0
 TILE_LAUNCHES = 0
+TAIL_LAUNCHES = 0
 # The widest window the JAX kernel serves: its vertical halo is one 8-row
 # block (the `block_rows` that the JAX callers pass), so it clamps the
 # window to 8 and the port does the same; in tile mode rows and the halo
@@ -116,6 +130,41 @@ def reproject_frame_plain(prev_cam, hl, sl, ho, prev_d: Channel, prev_s: Channel
     return one_set(hl, prev_d), one_set(sl, prev_s)
 
 
+def _window(ho, prev_d: Channel, prev_s: Channel, window: int, image_height: int | None, hist_halo: int):
+    """Check the window and the tile of a reprojection → (K, H): the taps'
+    reach and the image's rows."""
+    rows, W = ho.shape
+    tile = image_height is not None and image_height != rows
+    H = image_height if tile else rows
+    if window > MAX_WINDOW:
+        warnings.warn(
+            f"reproject window={window} exceeds the reference kernel's "
+            f"one-block vertical halo; clamping to {MAX_WINDOW}.",
+            stacklevel=3,
+        )
+    K = min(window, MAX_WINDOW)
+    if tile:
+        if rows % BLOCK_ROWS or hist_halo % BLOCK_ROWS:
+            raise ValueError(
+                f"tile mode needs rows ({rows}) and hist_halo ({hist_halo}) "
+                f"divisible by block_rows ({BLOCK_ROWS})")
+        if hist_halo < K:
+            raise ValueError(
+                f"hist_halo ({hist_halo}) < reprojection window K ({K}): "
+                "cross-tile taps would silently read wrong history rows")
+    elif hist_halo:
+        raise ValueError(
+            f"hist_halo ({hist_halo}) given, but the {rows} query rows span the "
+            "image: a halo'd history window needs tile mode")
+    for name, ch in (("prev_d", prev_d), ("prev_s", prev_s)):
+        if ch.cnt.shape[0] != rows + 2 * hist_halo:
+            raise ValueError(f"{name}: a history of {ch.cnt.shape[0]} rows; expected "
+                             f"{rows} query rows + 2 × {hist_halo} halo rows")
+    if ho.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"reproject_window: unsupported device {ho.device}")
+    return K, H
+
+
 def reproject_window(
     prev_cam,
     hl: torch.Tensor,
@@ -142,46 +191,53 @@ def reproject_window(
     halo would let taps read past the window); unlike it, a halo on a
     history that spans the image raises, where the JAX kernel ignores the
     halo and reads the window shifted."""
-    rows, W = ho.shape
-    tile = image_height is not None and image_height != rows
-    H = image_height if tile else rows
-    if window > MAX_WINDOW:
-        warnings.warn(
-            f"reproject window={window} exceeds the reference kernel's "
-            f"one-block vertical halo; clamping to {MAX_WINDOW}.",
-            stacklevel=2,
-        )
-    K = min(window, MAX_WINDOW)
-    if tile:
-        if rows % BLOCK_ROWS or hist_halo % BLOCK_ROWS:
-            raise ValueError(
-                f"tile mode needs rows ({rows}) and hist_halo ({hist_halo}) "
-                f"divisible by block_rows ({BLOCK_ROWS})")
-        if hist_halo < K:
-            raise ValueError(
-                f"hist_halo ({hist_halo}) < reprojection window K ({K}): "
-                "cross-tile taps would silently read wrong history rows")
-    elif hist_halo:
-        raise ValueError(
-            f"hist_halo ({hist_halo}) given, but the {rows} query rows span the "
-            "image: a halo'd history window needs tile mode")
-    for name, ch in (("prev_d", prev_d), ("prev_s", prev_s)):
-        if ch.cnt.shape[0] != rows + 2 * hist_halo:
-            raise ValueError(f"{name}: a history of {ch.cnt.shape[0]} rows; expected "
-                             f"{rows} query rows + 2 × {hist_halo} halo rows")
-    device = ho.device
-    if device.type == "cpu":
+    K, H = _window(ho, prev_d, prev_s, window, image_height, hist_halo)
+    if ho.device.type == "cpu":
         return reproject_frame_plain(prev_cam, hl, sl, ho, prev_d, prev_s, fov, K, H, row_base, hist_halo)
-    if device.type != "cuda":
-        raise ValueError(f"reproject_window: unsupported device {device}")
-    return _launch(prev_cam, hl, sl, ho, prev_d, prev_s, fov, K, H, row_base, hist_halo)
+    return _launch(prev_cam, hl, sl, ho, prev_d, prev_s, fov, K, H, row_base, hist_halo)[:2]
+
+
+def reproject_tail(
+    prev_cam,
+    loc: torch.Tensor,
+    hl: torch.Tensor,
+    sl: torch.Tensor,
+    out: dict,
+    prev_d: Channel,
+    prev_s: Channel,
+    config,
+    image_height: int | None = None,
+    row_base: int = 0,
+    hist_halo: int = 0,
+):
+    """The split temporal frame from K1's `out` on → (sRGB image
+    f32[rows,W,3], new diffuse Channel, new specular Channel): both
+    reprojections (window `config.reproject_window`; the tile as in
+    `reproject_window`), each accumulated onto this frame's estimate with the
+    velocity clamp of the camera's move from prev_cam.loc to `loc`, then the
+    composite. The new channels' oid is out["oid"]. On CUDA tensors one
+    launch of K2 with its tail; on CPU tensors the plain functions."""
+    ho = out["oid"]
+    K, H = _window(ho, prev_d, prev_s, config.reproject_window, image_height, hist_halo)
+    if ho.device.type == "cpu":
+        (rgb_d, cnt_d), (rgb_s, cnt_s) = reproject_frame_plain(prev_cam, hl, sl, ho, prev_d, prev_s, config.fov,
+                                                               K, H, row_base, hist_halo)
+        vv = gmath.length(loc - prev_cam.loc)
+        d = accumulate(rgb_d, cnt_d, out["add_d"], vv, ho, config)
+        s = accumulate(rgb_s, cnt_s, out["add_s"], vv, ho, config)
+        return composite_from(out["alb"], out["ene"], d, s, config), d, s
+    (rgb_d, cnt_d), (rgb_s, cnt_s), image = _launch(prev_cam, hl, sl, ho, prev_d, prev_s, config.fov, K, H,
+                                                    row_base, hist_halo, tail=(loc, out, config))
+    return image, Channel(rgb=rgb_d, cnt=cnt_d, oid=ho), Channel(rgb=rgb_s, cnt=cnt_s, oid=ho)
 
 
 def _launch(prev_cam, hl, sl, ho, prev_d: Channel, prev_s: Channel, fov, K: int, H: int, row_base: int,
-            hist_halo: int):
+            hist_halo: int, tail=None):
     """One launch of K2 for both channel sets, after checking every tensor
-    it reads; no tensor op, so nothing waits on the device."""
-    global LAUNCHES, TILE_LAUNCHES
+    it reads; no tensor op, so nothing waits on the device. `tail` (loc,
+    K1's out, config) adds the tail: the outputs are then the new history,
+    and the image is returned third (else None)."""
+    global LAUNCHES, TILE_LAUNCHES, TAIL_LAUNCHES
     rows, W = ho.shape
     window = rows + 2 * hist_halo
     device = ho.device
@@ -203,15 +259,27 @@ def _launch(prev_cam, hl, sl, ho, prev_d: Channel, prev_s: Channel, fov, K: int,
     cnt_d = torch.empty((rows, W), dtype=f32, device=device)
     rgb_s = torch.empty((rows, W, 3), dtype=f32, device=device)
     cnt_s = torch.empty((rows, W), dtype=f32, device=device)
+    image = tail_struct = None
+    if tail is not None:
+        loc, out, config = tail
+        _check("loc", loc, f32, (3,), device)
+        for key, n in (("add_d", 3), ("add_s", 3), ("alb", 3), ("ene", 2)):
+            _check(f"out[{key!r}]", out[key], f32, (rows, W, n), device)
+        image = torch.empty((rows, W, 3), dtype=f32, device=device)
+        T = float(config.temporal)
+        tail_struct = _build.SPLIT_TAIL.pack(
+            *(t.data_ptr() for t in (loc, out["add_d"], out["add_s"], out["alb"], out["ene"], image)),
+            T, T * 2.0, T - 1.0, float(config.brightness))
     err = _build.load().kpt_reproject_frame(
         hl.data_ptr(), sl.data_ptr(), ho.data_ptr(), prev_cam.loc.data_ptr(), prev_cam.orient.data_ptr(),
         *(t.data_ptr() for ch in (prev_d, prev_s) for t in (ch.rgb, ch.cnt, ch.oid)),
         rgb_d.data_ptr(), cnt_d.data_ptr(), rgb_s.data_ptr(), cnt_s.data_ptr(),
-        float(fov), W / H, rows, H, W, int(K), int(row_base), int(row_base - hist_halo),
+        float(fov), W / H, rows, H, W, int(K), int(row_base), int(row_base - hist_halo), tail_struct,
         torch.cuda.current_stream(device).cuda_stream,
     )
     _build.check(err, "kpt_reproject_frame")
     LAUNCHES += 1
     if rows != H or hist_halo:
         TILE_LAUNCHES += 1
-    return (rgb_d, cnt_d), (rgb_s, cnt_s)
+    TAIL_LAUNCHES += tail is not None
+    return (rgb_d, cnt_d), (rgb_s, cnt_s), image

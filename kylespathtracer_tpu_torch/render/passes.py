@@ -4,7 +4,8 @@ Port of kylespathtracer_tpu/render/passes.py (diffuse.frag, specular.frag):
 reproject the previous accumulation onto the current hits (the exact gather
 of render/reproject.py), clamp the history by camera velocity, add emission
 plus one MIS (or unbiased) estimate, bump the sample count. `Channel`,
-`count_floor` and `_temporal_clamp` are shared with the fused frame.
+`count_floor`, `_temporal_clamp` and `accumulate` are shared with the
+fused frame.
 
 The passes trace with `config.intersect_mode`'s intersector (`get_trace`):
 analytic (scene/intersect.py) or the sphere trace (scene/sdf.py); both are
@@ -72,6 +73,13 @@ def _temporal_clamp(rep_rgb, rep_cnt, vv, config):
     over = rep_cnt > limit
     scale = torch.where(over, limit / torch.clamp(rep_cnt, min=1e-6), 1.0)
     return rep_rgb * scale[..., None], torch.where(over, limit, rep_cnt)
+
+
+def accumulate(rgb, cnt, add, vv, oid, config) -> Channel:
+    """Reprojected history → count floor, velocity clamp, plus this frame's
+    sample (diffuse.frag:46-56)."""
+    rgb, cnt = _temporal_clamp(rgb, count_floor(cnt), vv, config)
+    return Channel(rgb=rgb + add, cnt=cnt + 1.0, oid=oid)
 
 
 def get_trace(config):

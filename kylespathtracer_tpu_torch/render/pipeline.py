@@ -5,10 +5,10 @@ Port of kylespathtracer_tpu/render/pipeline.py:
     render_frame(scene, camera, history, frame, config) → (image, history)
 
 `pipeline="fused"`: the temporal frame (`reproject_backend="window"`) is,
-with `temporal_fusion="split"`, one frame-kernel launch (K1), one
-windowed-reprojection launch for both channel sets (K2, query heads
-included), and a short tail of tensor ops (count floor, velocity clamp,
-accumulate, ACES composite); with
+with `temporal_fusion="split"`, one frame-kernel launch (K1), the
+reprojection anchors, and one launch of K2 that does the rest for both
+channel sets: query heads, windowed reprojection, count floor, velocity
+clamp, accumulate and the ACES composite; with
 `"mono"`, one launch of the mono temporal kernel (K8) and the composite.
 Both are forward-only, as the JAX paths are. The differentiable frame
 (`no_history=True`, or `reproject_backend="xla"`) runs K1 through
@@ -45,9 +45,8 @@ from kylespathtracer_tpu_torch.render import reproject as rep_mod
 from kylespathtracer_tpu_torch.render.camera import Camera, camera_from_numpy
 from kylespathtracer_tpu_torch.render.passes import (
     Channel,
-    _temporal_clamp,
+    accumulate,
     channel_from_numpy,
-    count_floor,
     shade_passes,
     specular_anchor,
 )
@@ -57,7 +56,7 @@ from kylespathtracer_tpu_torch.utils.metrics import span
 # The split temporal frame's profiler spans, in frame order; children of
 # the `frame` span of render_frame (the tiled renderer's tiles have no
 # `frame` span around them).
-STAGES = ("frame.ray_dirs", "frame.k1", "frame.anchors", "frame.reproject", "frame.tail")
+STAGES = ("frame.ray_dirs", "frame.k1", "frame.anchors", "frame.reproject")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -167,7 +166,7 @@ def differentiable_frame(scene: Scene, camera: Camera, history: History, frame, 
     def accum(anchor, hist, add):
         rgb, cnt = rep_mod.reproject(prev.loc, prev.orient, anchor, ho, hist.rgb, hist.cnt,
                                      hist.oid, config.fov)
-        return _accumulate(rgb, cnt, add, vv, ho, config)
+        return accumulate(rgb, cnt, add, vv, ho, config)
 
     d = accum(hl, history.diffuse, out["add_d"])
     s = accum(sl, history.specular, out["add_s"])
@@ -182,13 +181,6 @@ def _anchors(scene: Scene, camera: Camera, rd: torch.Tensor, out: dict):
     return hl, specular_anchor(scene, hl, rd, out["curv"])
 
 
-def _accumulate(rgb, cnt, add, vv, oid, config) -> Channel:
-    """Reprojected history → count floor, velocity clamp, plus this frame's
-    sample (diffuse.frag:46-56)."""
-    rgb, cnt = _temporal_clamp(rgb, count_floor(cnt), vv, config)
-    return Channel(rgb=rgb + add, cnt=cnt + 1.0, oid=oid)
-
-
 def split_temporal_frame(
     scene: Scene,
     camera: Camera,
@@ -200,8 +192,10 @@ def split_temporal_frame(
     rows: int | None = None,
     hist_halo: int = 0,
 ):
-    """Frame kernel + one windowed reprojection of both channel sets + count
-    floor / velocity clamp / accumulate + ACES composite.
+    """Frame kernel + the anchors + one launch of K2 for the rest: both
+    channel sets' windowed reprojection, count floor, velocity clamp and
+    accumulate, and the ACES composite (ops/reproject_kernel.py:
+    reproject_tail; on CPU tensors its plain twin).
 
     One body for the full frame (`rows` None) and the sharded renderer's
     tile (parallel/shard.py): image rows [row_base, row_base+rows), with a
@@ -212,20 +206,11 @@ def split_temporal_frame(
         out = fk.frame_forward(scene, camera, frame, config, row_base, rows)
     with span("frame.anchors"):
         hl, sl = _anchors(scene, camera, rd, out)
-        vv = gmath.length(camera.loc - prev_hist.camera.loc)
     with span("frame.reproject"):
-        (rgb_d, cnt_d), (rgb_s, cnt_s) = rk.reproject_window(
-            prev_hist.camera, hl, sl, out["oid"],
-            prev_hist.diffuse, prev_hist.specular, config.fov,
-            window=config.reproject_window,
-            image_height=config.height if tile else None,
-            row_base=row_base, hist_halo=hist_halo,
+        image, d, s = rk.reproject_tail(
+            prev_hist.camera, camera.loc, hl, sl, out, prev_hist.diffuse, prev_hist.specular, config,
+            image_height=config.height if tile else None, row_base=row_base, hist_halo=hist_halo,
         )
-
-    with span("frame.tail"):
-        d = _accumulate(rgb_d, cnt_d, out["add_d"], vv, out["oid"], config)
-        s = _accumulate(rgb_s, cnt_s, out["add_s"], vv, out["oid"], config)
-        image = comp_mod.composite_from(out["alb"], out["ene"], d, s, config)
     return image, History(diffuse=d, specular=s, camera=camera)
 
 

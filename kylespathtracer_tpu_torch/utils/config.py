@@ -48,7 +48,7 @@ class RenderConfig:
     # ±reproject_window select kernel) or "xla" (exact gather).
     reproject_backend: str = "window"
     reproject_window: int = 4
-    # "split" (frame kernel + reprojection kernel + tail) or "mono".
+    # "split" (frame kernel + reprojection kernel with the tail) or "mono".
     temporal_fusion: str = "split"
     path_backend: str = "auto"
     # Treat the previous history as empty (single-frame render).

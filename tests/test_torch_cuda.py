@@ -732,6 +732,113 @@ def test_split_frame_reprojects_in_one_launch_without_a_sync(dev):
     assert got[0][1].max().item() > 0
 
 
+def _tail_operands(dev, rows, W, seed):
+    """K1's planes that the split frame's tail reads, on the card: the
+    estimates, albedo (a sixth of it zero, where the composite's sqrt is
+    masked) and energies."""
+    rng = np.random.default_rng(seed)
+    f = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+    alb = np.where(rng.random((rows, W, 3)) < 1 / 6, 0.0, rng.uniform(0.0, 1.0, (rows, W, 3)))
+    return {"add_d": f(rng.uniform(0.0, 2.0, (rows, W, 3))), "add_s": f(rng.uniform(0.0, 2.0, (rows, W, 3))),
+            "alb": f(alb), "ene": f(rng.uniform(0.0, 1.5, (rows, W, 2)))}
+
+
+def _ulps(a, b):
+    """How many f32 steps apart a and b lie, element by element (equal
+    values, ±0 among them, lie 0 apart)."""
+    key = lambda t: (lambda i: torch.where(i < 0, -(i & 0x7FFFFFFF), i))(t.view(torch.int32).long())
+    return torch.where(a == b, 0, (key(a) - key(b)).abs())
+
+
+# K2 with its tail: image rows (row0, rows) of 360×640 with a history halo,
+# and whether the camera stands still (vv = 0: the clamp's limit is T).
+TAIL_CASES = {"frame": (0, 360, 0, False), "tile": (64, 64, 8, False), "still": (0, 360, 0, True)}
+
+
+@pytest.mark.parametrize("case", list(TAIL_CASES))
+def test_reproject_tail_kernel_matches_plain_bitwise(dev, case):
+    """One launch of K2 with its tail (both sets' query heads and tap sums,
+    count floor, velocity clamp, accumulate, the ACES composite) against the
+    plain route on the card: `reproject_frame_plain`, `accumulate` for each
+    set, `composite_from`. The new history and the image are bitwise, on a
+    moving camera whose clamp engages and on a still one; in tile mode
+    counted as a tile launch."""
+    from kylespathtracer_tpu_torch.core import gmath
+    from kylespathtracer_tpu_torch.render.composite import composite_from
+
+    H, W = 360, 640
+    row0, rows, halo, still = TAIL_CASES[case]
+    prev, hl, sl, ho, pd, ps, fov = _reproject_case(dev, H, W, row0, rows, halo, 2)
+    loc = prev.loc.clone() if still else prev.loc + torch.tensor([0.02, -0.01, 0.015], device=dev)
+    cfg = RenderConfig(width=W, height=H, pipeline="fused", fov=fov, reproject_window=8 if halo else 4)
+    out = {"oid": ho, **_tail_operands(dev, rows, W, 3)}
+    tile = dict(image_height=H, row_base=row0, hist_halo=halo) if halo else {}
+    before = (rk.LAUNCHES, rk.TILE_LAUNCHES, rk.TAIL_LAUNCHES)
+    image, d, s = rk.reproject_tail(prev, loc, hl, sl, out, pd, ps, cfg, **tile)
+    torch.cuda.synchronize()
+    assert (rk.LAUNCHES, rk.TILE_LAUNCHES, rk.TAIL_LAUNCHES) == (before[0] + 1, before[1] + bool(halo),
+                                                                 before[2] + 1)
+    (rgb_d, cnt_d), (rgb_s, cnt_s) = rk.reproject_frame_plain(prev, hl, sl, ho, pd, ps, fov, cfg.reproject_window,
+                                                              H, row0, halo)
+    vv = gmath.length(loc - prev.loc)
+    wd = passes.accumulate(rgb_d, cnt_d, out["add_d"], vv, ho, cfg)
+    ws = passes.accumulate(rgb_s, cnt_s, out["add_s"], vv, ho, cfg)
+    want = composite_from(out["alb"], out["ene"], wd, ws, cfg)
+    for got, ref in ((d, wd), (s, ws)):
+        assert torch.equal(got.rgb, ref.rgb) and torch.equal(got.cnt, ref.cnt)
+        assert got.oid is ho
+    assert image.shape == (rows, W, 3) and torch.isfinite(image).all()
+    assert torch.equal(image, want), f"image: {_ulps(image, want).max().item()} ulps at most"
+    # Moving, the clamp cuts counts under T; still, its limit is T itself,
+    # so it cuts exactly the counts past T, which only border taps' weights
+    # (beyond [0, 1]) carry there.
+    floor = passes.count_floor(cnt_d)
+    _, clamped = passes._temporal_clamp(rgb_d, floor, vv, cfg)
+    cut = clamped < floor
+    if still:
+        assert vv.item() == 0 and cut.any() and torch.equal(cut, floor > cfg.temporal)
+    else:
+        assert vv.item() > 0 and (cut & (floor <= cfg.temporal)).any()
+    assert cnt_d.mean().item() > 0.5, "no history carried; vacuous"
+
+
+def test_split_frame_runs_its_tail_in_k2_without_a_sync(dev):
+    """A split temporal frame launches K2 once, with its tail, and from K1's
+    outputs to the image and the new history (the anchors, then K2) nothing
+    waits on the device: no host copy, no synchronize. That route is the
+    frame's: the same image and history as render_frame's."""
+    from kylespathtracer_tpu_torch.render.camera import ray_dirs
+
+    scene = default_scene(device=dev)
+    cfg = RenderConfig(width=160, height=96, pipeline="fused")
+    cam = Camera.create(loc=(3.0, 2.0, -3.0), orient=(0.0, 0.7), device=dev)
+    hist = pipeline.init_history(cfg, cam)
+    step = lambda c: Camera(loc=c.loc + torch.tensor([2e-3, 0.0, -1e-3], device=dev),
+                            orient=c.orient + torch.tensor([0.0, 1e-3], device=dev))
+    for i in range(2):
+        cam = step(cam)
+        before = (rk.LAUNCHES, rk.TAIL_LAUNCHES)
+        _, hist = pipeline.render_frame(scene, cam, hist, i, cfg)
+        torch.cuda.synchronize()
+        assert (rk.LAUNCHES, rk.TAIL_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    cam = step(cam)
+    rd = ray_dirs(cam, cfg.width, cfg.height, cfg.fov)
+    out = fk.frame_forward(scene, cam, 2, cfg)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        hl, sl = pipeline._anchors(scene, cam, rd, out)
+        image, d, s = rk.reproject_tail(hist.camera, cam.loc, hl, sl, out, hist.diffuse, hist.specular, cfg)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    img_f, hist_f = pipeline.render_frame(scene, cam, hist, 2, cfg)
+    torch.cuda.synchronize()
+    assert torch.equal(image, img_f)
+    for a, b in ((d, hist_f.diffuse), (s, hist_f.specular)):
+        assert torch.equal(a.rgb, b.rgb) and torch.equal(a.cnt, b.cnt) and torch.equal(a.oid, b.oid)
+    assert d.cnt.max().item() > 2, "history not carried"
+
+
 def test_mono_tile_kernel_matches_plain(dev):
     """K8's tile mode against its plain version (frame_hist.check_agreement),
     and bitwise the full-frame kernel's rows on the same history."""

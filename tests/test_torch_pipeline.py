@@ -195,3 +195,73 @@ def test_driver_unported_options_raise(tmp_path, capsys):
     out = capsys.readouterr().out
     assert "resumed from checkpoint step 1" in out and "frame 2" in out and "frame 1 " not in out
     assert img.shape == (cfg.height, cfg.width, 3) and torch.isfinite(img).all()
+
+
+# The split frame on the CPU: image rows (row0, rows) with a history halo,
+# and whether the camera only turns (vv = 0: the clamp's limit is T).
+SPLIT_CASES = {"frame": (0, H, 0, False), "tile": (8, 16, 8, False), "still": (0, H, 0, True)}
+
+
+@pytest.mark.parametrize("case", list(SPLIT_CASES))
+def test_split_frame_on_cpu_runs_the_plain_tail_after_k1(case):
+    """On CPU tensors the split frame counts no K2 launch, with or without
+    its tail, and its image and history are exactly K1's plain frame, the
+    anchors, `reproject_window`, `accumulate` for each set and
+    `composite_from`, as the frame was composed before K2 took the tail:
+    the full frame through render_frame on a camera that moved (the
+    velocity clamp cuts counts), the sharded renderer's middle tile on its
+    history window, and a camera that only turns (the clamp's limit is T)."""
+    from kylespathtracer_tpu_torch.core import gmath
+    from kylespathtracer_tpu_torch.parallel.shard import tile_window
+    from kylespathtracer_tpu_torch.render.camera import Camera as TCamera
+    from kylespathtracer_tpu_torch.render.camera import ray_dirs as t_ray_dirs
+    from kylespathtracer_tpu_torch.render.camera import ray_dirs_window
+    from kylespathtracer_tpu_torch.render.composite import composite_from
+    from kylespathtracer_tpu_torch.render.passes import _temporal_clamp as t_clamp
+    from kylespathtracer_tpu_torch.render.passes import accumulate
+    from kylespathtracer_tpu_torch.render.passes import count_floor as t_floor
+
+    row0, rows, halo, still = SPLIT_CASES[case]
+    scene_t, cfg_t = to_torch_scene(default_scene()), to_torch_config(CFG)
+    cams = _pan(2)
+    hist = to_torch_history(_populated_history(default_scene(), cams[0]))
+    cam = to_torch_camera(cams[1])
+    # Moving, the camera stands ~0.017 from where the history was rendered:
+    # the clamp's limit is T - 4, under most carried counts.
+    step = torch.zeros(3) if still else torch.tensor([0.01, -0.01, 0.01])
+    cam = TCamera(loc=hist.camera.loc + step, orient=cam.orient)
+    before = (rk.LAUNCHES, rk.TILE_LAUNCHES, rk.TAIL_LAUNCHES)
+    if halo:
+        rd = ray_dirs_window(cam, W, H, row0, rows, cfg_t.fov)
+        hist = tile_window(hist, row0, rows, halo)
+        img, new = pipeline.split_temporal_frame(scene_t, cam, hist, 1, cfg_t, rd, row_base=row0, rows=rows,
+                                                 hist_halo=halo)
+        out = fk.frame_forward(scene_t, cam, 1, cfg_t, row0, rows)
+        tile = dict(image_height=H, row_base=row0, hist_halo=halo)
+    else:
+        rd = t_ray_dirs(cam, W, H, cfg_t.fov)
+        img, new = pipeline.render_frame(scene_t, cam, hist, 1, cfg_t)
+        out = fk.frame_forward(scene_t, cam, 1, cfg_t)
+        tile = {}
+    assert (rk.LAUNCHES, rk.TILE_LAUNCHES, rk.TAIL_LAUNCHES) == before
+
+    hl, sl = pipeline._anchors(scene_t, cam, rd, out)
+    (rgb_d, cnt_d), (rgb_s, cnt_s) = rk.reproject_window(hist.camera, hl, sl, out["oid"], hist.diffuse,
+                                                         hist.specular, cfg_t.fov, window=cfg_t.reproject_window,
+                                                         **tile)
+    vv = gmath.length(cam.loc - hist.camera.loc)
+    d = accumulate(rgb_d, cnt_d, out["add_d"], vv, out["oid"], cfg_t)
+    s = accumulate(rgb_s, cnt_s, out["add_s"], vv, out["oid"], cfg_t)
+    assert img.shape == (rows, W, 3)
+    assert torch.equal(img, composite_from(out["alb"], out["ene"], d, s, cfg_t))
+    for a, b in ((new.diffuse, d), (new.specular, s)):
+        assert torch.equal(a.rgb, b.rgb) and torch.equal(a.cnt, b.cnt) and torch.equal(a.oid, b.oid)
+    assert new.diffuse.cnt.max().item() > 2, "history not carried"
+    # Not vacuous: moving, the clamp cuts counts under T; still, exactly
+    # those past T.
+    floor = t_floor(cnt_d)
+    cut = t_clamp(rgb_d, floor, vv, cfg_t)[1] < floor
+    if still:
+        assert vv.item() == 0 and torch.equal(cut, floor > cfg_t.temporal)
+    else:
+        assert vv.item() > 0 and (cut & (floor <= cfg_t.temporal)).any()

@@ -155,3 +155,48 @@ def test_cpu_tensors_take_the_plain_version():
         rgb_p, cnt_p = rk.reproject_window_plain(ho, dyrel, dxrel, w4, prev, 4)
         assert torch.equal(rgb, rgb_p) and torch.equal(cnt, cnt_p)
     assert got[0][1].max() > 0, "no history carried; the test is vacuous"
+
+
+def _window_case(H, W, row0, rows, halo, seed):
+    """`reproject_window`'s arguments on the CPU: anchors at random depths
+    along the rays of a camera that moved from the previous one, object IDs
+    mostly one object's, and histories of rows + 2·halo rows from image row
+    row0 - halo."""
+    from kylespathtracer_tpu_torch.render.camera import Camera as TCamera
+    from kylespathtracer_tpu_torch.render.camera import ray_dirs_window
+    from kylespathtracer_tpu_torch.render.passes import Channel as TChannel
+
+    rng = np.random.default_rng(seed)
+    f = lambda a: torch.from_numpy(np.asarray(a, np.float32))
+    prev = TCamera.create(loc=(3.0, 2.0, -3.0), orient=(0.01, 0.69), device="cpu")
+    cam = TCamera.create(loc=(3.008, 1.996, -3.006), orient=(0.0, 0.7), device="cpu")
+    depth = f(rng.uniform(2.0, 8.0, (rows, W, 2)))
+    rd = ray_dirs_window(cam, W, H, row0, rows, 1.5)
+    hl, sl = cam.loc + rd * depth[..., :1], cam.loc + rd * depth[..., 1:]
+    ids = lambda n: torch.from_numpy(rng.choice(np.array([1, 2], np.int32), (n, W), p=[0.9, 0.1]))
+    ho = ids(rows)
+
+    def channel():
+        n = rows + 2 * halo
+        return TChannel(rgb=f(rng.uniform(0.0, 2.0, (n, W, 3))), cnt=f(rng.integers(8, 17, (n, W))), oid=ids(n))
+
+    return prev, hl, sl, ho, channel(), channel()
+
+
+WINDOW_TILES = {"frame": (32, 48, 0, 32, 0), "tile": (48, 40, 16, 16, 8)}
+
+
+@pytest.mark.parametrize("case", list(WINDOW_TILES))
+def test_reproject_window_without_a_tail_returns_the_tap_sums(case):
+    """`reproject_window` keeps its four outputs: for each channel set the
+    query head and the tap sum, nothing accumulated, full frame and tile."""
+    Hi, Wi, row0, rows, halo = WINDOW_TILES[case]
+    prev, hl, sl, ho, pd, ps = _window_case(Hi, Wi, row0, rows, halo, 6)
+    tile = dict(image_height=Hi, row_base=row0, hist_halo=halo) if halo else {}
+    got = rk.reproject_window(prev, hl, sl, ho, pd, ps, 1.5, window=8, **tile)
+    want = rk.reproject_frame_plain(prev, hl, sl, ho, pd, ps, 1.5, 8, Hi, row0, halo)
+    assert len(got) == 2
+    for (rgb, cnt), (rgb_p, cnt_p) in zip(got, want):
+        assert rgb.shape == (rows, Wi, 3) and cnt.shape == (rows, Wi)
+        assert torch.equal(rgb, rgb_p) and torch.equal(cnt, cnt_p)
+    assert got[0][1].max().item() > 0, "no history carried; the test is vacuous"

@@ -1,6 +1,6 @@
 """PyTorch port, the program's profiler spans (utils/metrics.py:span): each
 frame of render_frame is one `frame` span holding the split temporal
-frame's five stages in order (render/pipeline.py:STAGES), each optimizer
+frame's stages in order (render/pipeline.py:STAGES), each optimizer
 step of `fit` one `fit.step` span holding `fit.value_and_grad` (a
 `fit.view` a view) and then `fit.update` (diff/inverse.py:FIT_STAGES);
 with no profiler active a span never reaches `record_function`, and the
