@@ -1,14 +1,15 @@
-"""GPU smoke run of the PyTorch port (kylespathtracer_tpu_torch).
+"""GPU smoke run of the PyTorch port (kylespathtracer_tpu_torch): it holds
+the kernels and the paths through them to their references; the benchmark
+times them.
 
-Builds the CUDA kernels from `kylespathtracer_tpu_torch/csrc`, checks each
+Builds the CUDA kernels from `kylespathtracer_tpu_torch/csrc`, holds each
 kernel against its plain PyTorch version on the card, and drives the port's
 paths through the kernels, each with the launch counts set to 0 just before
 it and read just after:
 
 - the fused temporal frame (`app.driver.render_animation` at 1920×1080,
-  K1 + K2 with its tail; phases 2-7: K2 alone and with its tail bitwise
-  its plain route at 1080p, card vs CPU, CUDA-event times, a torch.profiler
-  split of the frame's device time by pipeline stage);
+  K1 + K2 with its tail; phases 2-5: K1 against its plain version, K2 alone
+  and with its tail bitwise its plain route at 1080p, card vs CPU);
 - the generic training step (`diff.inverse.train_step` at 1920×1080, K1 +
   the backward kernel K5; phase 10);
 - inverse rendering (`diff.inverse.run_recovery`, the JAX package's
@@ -18,9 +19,7 @@ it and read just after:
 - the primary-visibility raycast (`ops.geometry_kernel.geometry_pass` at
   1920×1080, K3; phase 13: two raycasts, from bench.py's view and from one
   aimed at the rounded box, each held bitwise to its plain version, the
-  first also against the G-buffer module; K3 timed alone and with its
-  wrapper on both, beside its plain version and the plain G-buffer module,
-  its bound counted from the box code that each view's rays run);
+  first also against the G-buffer module);
 - the multi-bounce path tracer (`render.wavefront.render_pathtraced` and
   the `pathtrace` CLI at 1920×1080, 4 spp, depth 6, K7; phase 16), after
   K7 is held against its plain version (phase 14) and against the port's
@@ -41,9 +40,7 @@ it and read just after:
   recovery view in 2, held against the unsharded `train_step` (phase 22);
   and 3 gloo ranks sharing this card through `multihost.initialize_from_env`
   (`render_frame_tiled` with its halo exchange, `train_step_tiled` with its
-  all-reduce), held against the in-process tiles, with the halo exchange's
-  and the frame's time per rank and end to end (phase 23). Three ranks on
-  one card share it: their times are no scaling figure. The `kernels`
+  all-reduce), held against the in-process tiles (phase 23). The `kernels`
   line's launches of the four tile and row modes are phase 23's, counted
   on each rank and summed over the ranks;
 - the op-mix probe (`bench_ceiling.sweep`, the entry point of
@@ -51,48 +48,38 @@ it and read just after:
   its sweep held bitwise to its plain version at 64×1920, infinities and
   NaN in place (both sides round each IEEE operation on its own), then the
   sweep at 1080×1920 with each variant's output held bitwise to its plain
-  version there too, and its fma probe of one round per chain on the
-  probe's planes (half its steps finite) and on +inf planes (phase 24).
-  K9's `ms` in the `kernels` line is one `mix` call with its wrapper, as
-  every entry's is; the sweep's launch slope is logged. Every entry's
-  `bound_measured_ms` is its operations at the sweep's best frame_mix
-  rate (or its bytes at the memory rate, the larger): a reference for the
-  frame kernels' own mix, not a ceiling. Each kernel's time is logged over
-  `bound_ms` (67 Top/s), the rate without FMA and the frame_mix rates;
+  version there too (phase 24);
 - the sphere trace (scene/sdf.py, plain torch as the JAX march is XLA
   code): `sdf.march` and `sdf.norcurv` on the card against the CPU at
   256×128, and the march G-buffer (`gbuffer.geometry_pass` with
   intersect_mode="march") at 1920×1080 from two views against K3's, oid
   equal on > 99.5% of the pixels and the 99th percentile of |Δt| on equal
-  hits that do not graze under 1e-2, with its time, steps and host syncs
-  for each `sdf.CHECK_EVERY` (phase 25); the sphere-traced pass frame
-  (`render_animation`, 2 frames at 1920×1080) and `render --march` (phase
-  26); the pass pipeline's gradient at 1920×1080 (`inverse.value_and_grad`
-  through the intersectors' implicit-function backward) against K1 + K5
-  (KPT_FUSED_LOSS=0) and K6 on the same loss, 2e-3·max per table, with its
-  forward and backward times, peak memory and its device time by autograd
-  node; the march's gradient against finite differences; three `fit`
-  steps with a default (pass) config and the pass route's tiled step in 2
-  tiles (phase 27). These paths launch no kernel; phases 25 and 27 count
-  the witnesses' launches;
+  hits that do not graze under 1e-2 (phase 25); the sphere-traced pass
+  frame (`render_animation`, 2 frames at 1920×1080) and `render --march`
+  (phase 26); the pass pipeline's gradient at 1920×1080
+  (`inverse.value_and_grad` through the intersectors' implicit-function
+  backward) against K1 + K5 (KPT_FUSED_LOSS=0) and K6 on the same loss,
+  2e-3·max per table; the march's gradient against finite differences;
+  three `fit` steps with a default (pass) config and the pass route's tiled
+  step in 2 tiles (phase 27). These paths launch no kernel; phases 25 and
+  27 count the witnesses' launches;
 - checkpoint and resume (utils/checkpoint.py): `render_animation` at
   1920×1080 (split frame, K1 + K2) checkpointed at frame 3 and resumed,
-  bitwise the uninterrupted 8 frames, with the checkpoint's size and its
-  save and restore times, and `render --checkpoint-every 3 --resume`
-  through the CLI (phase 28); `run_recovery` (RECOVERY recipe, K6) killed
-  after 2 β phases and resumed by `cli invert --ckpt-dir D --resume` in a
-  subprocess, held to the RECOVERY bounds and to the sidecar's trace, the
-  state's round trip on the card bitwise, a torn pair falling back to
-  phase 1 (phase 29); the tiled step (`train_step_tiled`, K1 + K5)
-  checkpointed after step 1 and resumed in fresh objects (phase 22);
+  bitwise the uninterrupted 8 frames, and `render --checkpoint-every 3
+  --resume` through the CLI (phase 28); `run_recovery` (RECOVERY recipe,
+  K6) killed after 2 β phases and resumed by `cli invert --ckpt-dir D
+  --resume` in a subprocess, held to the RECOVERY bounds and to the
+  sidecar's trace, the state's round trip on the card bitwise, a torn pair
+  falling back to phase 1 (phase 29); the tiled step (`train_step_tiled`,
+  K1 + K5) checkpointed after step 1 and resumed in fresh objects (phase
+  22);
 - the fly-cam (app/fly.py): 18 frames of key bytes through `parse_keys`
   and `fly_step` at 1920×1080 (K1 + K2), bitwise the same input frames
   through `playback_cameras` and `render_animation`, the controller on the
-  card against the CPU's, the fly step's and `frame_to_ansi`'s times, and
-  `cli fly` without a terminal (phase 30); `cli info`, the native library
-  (its build, its march against `sdf.march`, its PNGs against zlib's),
-  `metrics.profiler_trace` of a frame holding K1, `Timer` and `time_fn`
-  against CUDA events (phase 31);
+  card against the CPU's, and `cli fly` without a terminal (phase 30);
+  `cli info`, the native library (its march against `sdf.march`, its PNGs
+  against zlib's), `metrics.profiler_trace` of a frame holding K1, `Timer`
+  and `time_fn` against CUDA events (phase 31);
 - the benches as a user runs them (phase 32): `python -m
   kylespathtracer_tpu_torch.bench`, `.bench_configs` and `.bench_profile`,
   each a subprocess with `--out` in a new temporary path: every bench.py
@@ -100,8 +87,8 @@ it and read just after:
   kernels one step of each measurement launches (K1 + K2, K6, K1 + K5,
   K3, K7), every configuration of BASELINE.json within its JAX bar (config 5
   with the sharded witness on 8 gloo ranks sharing the card), the profile's
-  device time per frame within 1.05 × the bench's slope, the card named in
-  every record, and the smoke's own wall time at the end.
+  device time per frame within 1.05 × the bench's slope, and the card named
+  in every record.
 
 Gradient tables are held to max|Δ| <= 1e-4·max|ref| of their plain
 versions: K5 and K6 at 256×128 with every pixel (phases 8-9), K6 (mean) at
@@ -111,22 +98,18 @@ without the ill-conditioned pixels (rays that graze a surface, sampling
 decisions on a rounding boundary: frame_kernel.ill_conditioned), with the
 comparison over every pixel logged beside; so is K5 on random cotangents at
 1920×1080 with every table (phase 12; tools/gradient_witness.py shows the
-pixels behind the unmasked distance). Phase 12 then times K5, K6 and the
-generic step, and K5 and K6 at the recovery view's shape (192×128, spheres
-and alb_const), each beside its bound and the forward-mode kernels' time.
-K1, K8, K7, K4 and K3 are timed alone (CUDA events around their launch) and
-with their wrappers (phases 6, 18, 16, 19 and 13), K1 also at the recovery view,
-beside the registers, stack and spill of their build (phase 1); phase 16
-also prints K7's census (ops/path_kernel.census: per bounce the live lanes
-and the warps that run the rounded box's candidates). Any failed
-check raises, so the script exits non-zero; it needs one CUDA device and
-fails without one.
+pixels behind the unmasked distance). Phase 1 logs the registers, stack and
+spill of each kernel's build. Any failed check raises, so the script exits
+non-zero; it needs one CUDA device and fails without one. Times come from
+the benchmark (kpt_bench/), and a kernel's time alone from
+`python -m kylespathtracer_tpu_torch.ops.adjoint_variants`.
 
     python3 chip_smoke.py
 
 (`python3 chip_smoke.py --rank-worker DIR` is one rank of phase 23, which
-starts it.) The second-to-last line of stdout is a JSON object describing every kernel
-of the path; the last line is `{"ok": true, "device": {...}}`.
+starts it.) The second-to-last line of stdout is a JSON object naming every
+kernel of the path with its source, launches and largest error against its
+plain version; the last line is `{"ok": true, "device": {...}}`.
 """
 
 from __future__ import annotations
@@ -137,12 +120,10 @@ import io
 import json
 import os
 import re
-import statistics
 import struct
 import subprocess
 import sys
 import tempfile
-import threading
 import time
 import zlib
 
@@ -153,7 +134,6 @@ W, H = 1920, 1080
 CAM_LOC = (3.0, 2.0, -3.0)
 CAM_ORIENT = (0.0, 0.7)
 PAN = 1e-3  # yaw per frame: the slow pan of bench.py (~0.3 px/frame at 1080p)
-T_START = time.perf_counter()
 
 
 def log(msg: str) -> None:
@@ -175,63 +155,6 @@ def frame_agreement(out: dict, ref: dict, what: str) -> dict:
         + f" (worst {worst} {planes[worst]:.3g})")
     return stats
 
-
-# The forward-mode K5 and K6 that the reverse-mode adjoint replaced, at
-# 1920×1080 with every table (NVIDIA H100 80GB HBM3, 700 W; PERF.md §6).
-FORWARD_MODE_MS = {"K5": (224.7239, 227.5123), "K6": (227.3582, 227.3737)}
-
-# Peaks of one H100 SXM (NVIDIA's data sheet, at the 700 W limit): f32
-# outside the tensor cores, and HBM3.
-F32_FLOPS = 67e12
-HBM_BYTES = 3.35e12
-
-
-def bound(flops: float, nbytes: float, rate: float = F32_FLOPS) -> tuple[float, str]:
-    """The least time (ms) the card could take: the larger of the operations
-    over `rate` (default the f32 peak) and the bytes over the memory rate,
-    and which it is."""
-    t_ops, t_mem = flops / rate * 1e3, nbytes / HBM_BYTES * 1e3
-    return (t_ops, "operations") if t_ops >= t_mem else (t_mem, "bytes")
-
-
-def frame_ops(scene, config, oid) -> float:
-    """f32 operations of the fused frame (csrc/frame_core.cuh) on this
-    frame's data, counted from the source: raygen, the primary trace
-    (`trace_ops`), normal and material per pixel, and the shade
-    (`shade_ops`)."""
-    from kylespathtracer_tpu_torch.ops import frame_kernel as fk
-
-    return oid.numel() * (65 + trace_ops(scene)) + shade_ops(scene, config, oid, fk.smp_of(config))
-
-
-def shade_ops(scene, config, oid, smp: int) -> float:
-    """f32 operations of the shade (csrc/shade_core.cuh) on this frame's
-    data: per shaded pixel (a hit other than the light) and sample, the
-    direct light with its visibility test (`occlusion_ops`), the two plane
-    strategies per plane, and four roulettes, each a march to its plane and
-    a light test."""
-    from kylespathtracer_tpu_torch.ops import frame_kernel as fk
-
-    nP, nS, nB = fk._counts(scene)
-    trace, occl = trace_ops(scene), occlusion_ops(scene)
-    shaded = int(((oid > 0) & (oid != scene.light_id)).sum().item())
-    if config.biased:
-        direct = 60 + (trace + 30 * nS if config.soft_shadows > 0 else occl)
-        sample = direct + 150 * nP + 4 * (2 * nP + 2 * occl + 65)
-    else:
-        sample = 40 + occl + (occl + 10) / smp
-    return shaded * smp * sample
-
-
-# K2's per-pixel work (csrc/reproject_kernel.cu): per channel set the
-# previous-camera projection (~60) and the four taps (~10 each).
-K2_OPS = 2 * (60 + 4 * 10)
-
-# K2's tail, per pixel beyond K2_OPS: per channel set the count floor, clamp
-# and accumulate (~10); the composite's modulation (~10 a channel) and the
-# ACES fit's two matrices (~30), rational (~7 a channel) and sRGB curve with
-# its pow (~25 a channel).
-TAIL_OPS = 2 * 10 + 3 * 10 + 30 + 3 * 7 + 3 * 25
 
 # The camera's move between the previous history and K2's tail in phases 3
 # and 21: |v| ~ 0.017, so the velocity clamp's limit is T - 4, under many of
@@ -275,68 +198,6 @@ def hold_tail(got, want, label: str) -> float:
     return max(gaps.values())
 
 
-def tail_io_bytes(args, got) -> int:
-    """The bytes K2 with its tail moves: the anchors, object IDs, both
-    histories and K1's four planes in, the new history and the image out."""
-    _, loc, hl, sl, out, prev_d, prev_s, _ = args
-    io = (hl, sl, out["oid"], *(t for ch in (prev_d, prev_s) for t in (ch.rgb, ch.cnt, ch.oid)),
-          *(out[k] for k in ("add_d", "add_s", "alb", "ene")), got[0], *(t for ch in got[1:] for t in (ch.rgb, ch.cnt)))
-    return sum(t.numel() * t.element_size() for t in io)
-
-# K8's per-pixel work beyond K1's frame (csrc/frame_hist.cu): the anchors
-# (~30), and per channel set the previous-camera projection (~45), the four
-# taps (~10 each) and the count floor, clamp and accumulate (~15).
-HIST_OPS = 30 + 2 * (45 + 4 * 10 + 15)
-
-
-def occlusion_ops(scene) -> int:
-    """f32 operations of one occlusion test toward the light
-    (csrc/shade_core.cuh:light_visible): 20 + 12 per plane + 20 per sphere
-    + 160 per rounded box."""
-    from kylespathtracer_tpu_torch.ops import frame_kernel as fk
-
-    nP, nS, nB = fk._counts(scene)
-    return 20 + 12 * nP + 20 * nS + 160 * nB
-
-
-def trace_ops(scene, inside_hits: bool = False) -> int:
-    """f32 operations of one nearest-hit trace (csrc/shade_core.cuh): 12 per
-    plane, 20 per sphere (23 with the far root of the path kernel's
-    inside-hit trace), 584 per rounded box (6 faces × 8, 12 edges × 26, 8
-    corners × 28)."""
-    from kylespathtracer_tpu_torch.ops import frame_kernel as fk
-
-    nP, nS, nB = fk._counts(scene)
-    return 12 * nP + (23 if inside_hits else 20) * nS + 584 * nB
-
-
-def geometry_ops(scene, work: dict) -> int:
-    """K3 (csrc/geometry_kernel.cu) on this image's data, from its plain
-    tally of the box code (`geometry_kernel.box_work_plain`): per pixel the
-    raygen (~25), the normal with the hit point (~40), the planes and
-    spheres of the trace and the bounding-sphere test (~14 per box); per ray
-    that test passes, the slab test of every box (~64 each); per (ray, box)
-    that the slab test passes, the box's 584."""
-    from kylespathtracer_tpu_torch.ops import frame_kernel as fk
-
-    nP, nS, nB = fk._counts(scene)
-    return (work["pixels"] * (65 + 12 * nP + 20 * nS + 14 * nB) + work["near"] * 64 * nB
-            + work["boxes"] * 584)
-
-
-def path_ops(scene, pixel_samples: int, tally: dict) -> int:
-    """K7 (csrc/path_kernel.cu) on this run's data, from the plain version's
-    tally of the work (path_kernel.path_block): per pixel and sample the
-    raygen (~25); per traced segment the inside-hit trace; per segment that
-    hits, the vertex: the occlusion test toward the light (counted at
-    every vertex, though NEE skips the light itself), the normal (~25), the
-    material (~20), three R2 pairs (~78 integer operations), the light
-    sample (~60), the NEE pdf (~15), the BSDF evaluation (~20) and sample
-    (~50), and the path bookkeeping (~50)."""
-    return (pixel_samples * 25 + tally["traced"] * trace_ops(scene, inside_hits=True)
-            + tally["hits"] * (occlusion_ops(scene) + 318))
-
-
 def ptxas_lines(report: str, source: str) -> str:
     """The registers/stack/spill lines of `source` in a verbose build report."""
     part = report.split(f"--- {source}\n", 1)[1].split("\n--- ", 1)[0]
@@ -353,61 +214,6 @@ def png_pixels(path) -> tuple[int, int, int]:
     if data[37:41] != b"IDAT":
         raise AssertionError(f"{path}: no IDAT chunk after IHDR")
     return w, h, len(zlib.decompress(data[41:41 + n]))
-
-
-def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
-    """Median milliseconds of fn() over `reps` runs, timed with CUDA events."""
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(reps):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
-def stage_split(fn, stages, frames: int) -> dict:
-    """Run fn() `frames` times under torch.profiler → per-frame device ms:
-    in all ("device_ms"), per pipeline stage span ("stages": each kernel is
-    charged to the innermost stage span around the op that launched it; the
-    two CUDA kernels by name, since ctypes launches have no op), the ten
-    largest kernels by name ("top"), and launches per frame."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(frames):
-            fn()
-        torch.cuda.synchronize()
-    events = prof.events()
-    by_stage = dict.fromkeys(stages, 0.0)
-    by_stage["outside the stages"] = 0.0
-    by_name, total, launches = {}, 0.0, 0
-    for e in events:
-        if e.device_type == DeviceType.CUDA and e.name not in stages:
-            us = e.time_range.elapsed_us()
-            total += us
-            launches += 1
-            by_name[e.name[:60]] = by_name.get(e.name[:60], 0.0) + us
-            if "kpt::frame_kernel" in e.name:
-                by_stage["frame.k1"] += us
-            elif "kpt::reproject" in e.name:
-                by_stage["frame.reproject"] += us
-        elif e.device_type == DeviceType.CPU and e.kernels:
-            p = e
-            while p is not None and p.name not in stages:
-                p = p.cpu_parent
-            key = p.name if p is not None else "outside the stages"
-            by_stage[key] += sum(k.duration for k in e.kernels if "kpt::" not in k.name)
-    per = 1e3 * frames
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
-    return {"device_ms": total / per, "launches": launches / frames,
-            "stages": {k: v / per for k, v in by_stage.items()},
-            "top": [(k, v / per) for k, v in top]}
 
 
 def table_check(got, ref, what: str) -> float:
@@ -705,7 +511,7 @@ def rank_phase(backend: str, hist0, tiled, params, new_params, loss, target, car
     in-process tiles `tiled` and `new_params` → the ranks' reports."""
     per_rank = "a card per rank" if backend == "nccl" else f"{TILES} ranks share it"
     log(f"phase 23: {TILES} {backend} ranks ({per_rank}) through multihost.initialize_from_env: "
-        "render_frame_tiled (split, mono; 2 frames held, 7 timed), the halo exchange, train_step_tiled")
+        "render_frame_tiled (split, mono; 2 frames) with its halo exchange, train_step_tiled")
     host = lambda d: {k: v.cpu() for k, v in d.items()}
     with tempfile.TemporaryDirectory() as tmp:
         torch.save({"hist": host(history_tensors(hist0)),
@@ -741,11 +547,7 @@ def rank_phase(backend: str, hist0, tiled, params, new_params, loss, target, car
         reports.append(json.loads(lines[-1][5:]))
     for rep in reports:
         log(f"  rank {rep['rank']} on {rep['device']} ({rep['info']}): split launches {rep['split']['launches']}, "
-            f"mono launches {rep['mono']['launches']}, train launches {rep['train']['launches']}; frame ms on this "
-            f"rank / until every rank is done: split {rep['split']['frame_ms_rank']:.4f} / "
-            f"{rep['split']['frame_ms_all']:.4f}, mono {rep['mono']['frame_ms_rank']:.4f} / "
-            f"{rep['mono']['frame_ms_all']:.4f}; halo exchange {rep['exchange_ms']:.4f} ms; train step "
-            f"{rep['train']['step_ms_rank']:.4f} / {rep['train']['step_ms_all']:.4f} ms [{card}; {per_rank}]")
+            f"mono launches {rep['mono']['launches']}, train launches {rep['train']['launches']} [{card}; {per_rank}]")
         if rep["split"]["launches"] != {"frame": 2, "frame rows": 2, "reproject": 2, "reproject tile": 2,
                                         "frame_hist": 0, "frame_hist tile": 0} or \
                 rep["mono"]["launches"]["frame_hist tile"] != 2 or \
@@ -779,10 +581,9 @@ def nccl_main() -> int:
     log(f"phase 0: {count} cards, {card} | torch {torch.__version__} cuda {torch.version.cuda}")
     if count < TILES:
         sys.exit(f"chip_smoke --nccl: needs {TILES} cards, found {count}")
-    t0 = time.perf_counter()
     path = _build.build()
     _build.load()
-    log(f"phase 1: built {path.name} in {time.perf_counter() - t0:.1f} s")
+    log(f"phase 1: built {path.name}")
     dev = torch.device("cuda", 0)
     scene = default_scene(device=dev)
     hist0 = seeded_history(scene, dev)
@@ -803,9 +604,8 @@ def rank_worker(tmp: str, backend: str) -> int:
     (gloo: the ranks share card 0; NCCL: a card per rank), renders phase
     21's two frames of the split and the mono frame with render_frame_tiled
     and takes phase 22's 1080p step with train_step_tiled; rank 0 gathers
-    the rows and measures their distance from the in-process tiles. Then
-    times frames, the halo exchange and the step. Prints one line,
-    RANK <json>."""
+    the rows and measures their distance from the in-process tiles. Prints
+    one line, RANK <json>."""
     import warnings
 
     import torch.distributed as dist
@@ -830,18 +630,6 @@ def rank_worker(tmp: str, backend: str) -> int:
     rows = H // mesh.size
     report = {"rank": mesh.rank, "size": mesh.size, "rows": rows, "device": str(dev), "info": multihost.process_info()}
 
-    def timed(fn):
-        """fn() between barriers → (its result, ms on this rank, ms until
-        every rank is done)."""
-        dist.barrier()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        dist.barrier()
-        return out, (t1 - t0) * 1e3, (time.perf_counter() - t0) * 1e3
-
     for fusion in ("split", "mono"):
         cfg = RenderConfig(width=W, height=H, pipeline="fused", temporal_fusion=fusion)
         hist = mesh_mod.shard_image_pytree(history_from(data["hist"], dev), mesh, H)
@@ -857,14 +645,8 @@ def rank_worker(tmp: str, backend: str) -> int:
         full = mesh_mod.gather_rows((img, hist), mesh, rows)
         if mesh.rank == 0:
             r["gaps"] = frame_gaps(full, (data[fusion][0].to(dev), history_from(data[fusion][1], dev)))
-        times = [timed(lambda i=i: shard.render_frame_tiled(scene, tile_camera(i, dev), hist, i, cfg, mesh))[1:]
-                 for i in range(3, 10)]
-        r["frame_ms_rank"] = statistics.median(t[0] for t in times)
-        r["frame_ms_all"] = statistics.median(t[1] for t in times)
         report[fusion] = r
 
-    report["exchange_ms"] = statistics.median(timed(lambda: shard.exchange_halo(hist, mesh, shard.BLOCK_ROWS))[1]
-                                              for _ in range(10))
     cam = Camera.create(loc=CAM_LOC, orient=CAM_ORIENT, device=dev)
     cfg_f = RenderConfig(width=W, height=H, pipeline="fused")
     params = {k: v.to(dev) for k, v in data["params"].items()}
@@ -879,47 +661,13 @@ def rank_worker(tmp: str, backend: str) -> int:
         report["train"]["update_gap"] = {
             k: (new[k] - data["new_params"][k].to(dev)).abs().max().item()
             / data["new_params"][k].abs().max().item() for k in new}
-    steps = [timed(lambda: shard.train_step_tiled(params, opt.init(params), opt, scene, cam, target, 3, cfg_f,
-                                                  mesh))[1:] for _ in range(3)]
-    report["train"]["step_ms_rank"] = statistics.median(t[0] for t in steps)
-    report["train"]["step_ms_all"] = statistics.median(t[1] for t in steps)
     print("RANK " + json.dumps(report), flush=True)
     dist.destroy_process_group()
     return 0
 
 
-# Phases 25-27 (the sphere trace and the gradients through the intersectors):
-# the values of sdf.CHECK_EVERY timed on the 1080p march G-buffer, and the
-# scene tables whose gradients phase 27 holds.
-CHECK_SWEEP = (1, 4, 8, 16, 32)
+# Phase 27: the scene tables whose gradients it holds.
 GRAD_KEYS = ("spheres", "planes", "alb_const", "light_color")
-
-
-def backward_split(fn) -> dict:
-    """fn() once under torch.profiler → its device ms, launches, and the ten
-    largest shares of device ms by the outermost autograd node whose
-    evaluation launched the kernel ("forward" outside any)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    by_node, total, launches = {}, 0.0, 0
-    tag = "autograd::engine::evaluate_function: "
-    for e in prof.events():
-        if not e.kernels:
-            continue
-        node, p = "forward", e
-        while p is not None:
-            if p.name.startswith(tag):
-                node = p.name[len(tag):]
-            p = p.cpu_parent
-        us = sum(k.duration for k in e.kernels)
-        by_node[node] = by_node.get(node, 0.0) + us
-        total += us
-        launches += len(e.kernels)
-    top = sorted(by_node.items(), key=lambda kv: -kv[1])[:10]
-    return {"device_ms": total / 1e3, "launches": launches, "top": [(k, v / 1e3) for k, v in top]}
 
 
 def counted_modules() -> dict:
@@ -1009,10 +757,8 @@ def march_phases(dev, card: str) -> dict:
         torch.cuda.synchronize()
         witnesses["geometry"] += geo_k.LAUNCHES
         zero_counts()
-        t0 = time.perf_counter()
         gm = gbuffer.geometry_pass(scene, cam, cfg_m)
         torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
         counts, steps, syncs = kernel_counts(), sdf.STEPS, sdf.SYNCS
         # The march stops within eps of a surface, which a ray at angle θ to
         # its normal reaches eps/|cos θ| later: the bar's tangent grazers
@@ -1024,31 +770,14 @@ def march_phases(dev, card: str) -> dict:
         p99 = torch.quantile(dt[both & ~graze], 0.99).item()
         p99_all = torch.quantile(dt[both], 0.99).item()
         share = eq.float().mean().item()
-        ms = cuda_ms(lambda: gbuffer.geometry_pass(scene, cam, cfg_m), reps=3)
         log(f"  view ({key}) march G-buffer vs K3: oid equal on {share:.6f}, p99 |dt| on equal hits {p99:.3g} "
             f"without the {(both & graze).float().mean().item():.4f} of pixels that graze ({p99_all:.3g} with them), "
-            f"box {torch.isin(gm.obj_id, scene.box_ids).float().mean().item():.4f}; {ms:.4f} ms ({wall:.4f} first "
-            f"call), {steps} steps, {syncs} syncs (CHECK_EVERY {sdf.CHECK_EVERY}); launches {counts} [{card}]")
+            f"box {torch.isin(gm.obj_id, scene.box_ids).float().mean().item():.4f}; {steps} steps, {syncs} syncs "
+            f"(CHECK_EVERY {sdf.CHECK_EVERY}); launches {counts} [{card}]")
         if any(counts.values()):
             failed.append(f"the march G-buffer launched kernels: {counts}")
         if not (share > 0.995 and p99 < 1e-2):
             failed.append(f"view ({key}): the march G-buffer parts from K3's (oid {share}, p99 {p99})")
-    # sdf.CHECK_EVERY in turns (the sweep, then the sweep reversed), 5 calls
-    # each on each view.
-    chosen = sdf.CHECK_EVERY
-    sweep = {}
-    try:
-        for n in CHECK_SWEEP + CHECK_SWEEP[::-1]:
-            sdf.CHECK_EVERY = n
-            for key, cam in (("a", cam_a), ("b", cam_b)):
-                zero_counts()
-                ms = cuda_ms(lambda: gbuffer.geometry_pass(scene, cam, cfg_m), reps=5)
-                sweep.setdefault((n, key), []).append((ms, sdf.STEPS / 6, sdf.SYNCS / 6))
-    finally:
-        sdf.CHECK_EVERY = chosen
-    for (n, key), runs in sweep.items():
-        log(f"  CHECK_EVERY {n}, view ({key}): ms a G-buffer in the two turns {[round(r[0], 4) for r in runs]}; "
-            f"{runs[0][1]:.1f} steps, {runs[0][2]:.1f} syncs a call [{card}]")
     check_holds(failed, "phase 25")
 
     # Phase 26: the sphere-traced pass frame at full width, and the CLI.
@@ -1059,18 +788,12 @@ def march_phases(dev, card: str) -> dict:
     stacked = Camera(loc=torch.stack([c.loc for c in cams]), orient=torch.stack([c.orient for c in cams]))
     cfg_pm = RenderConfig(width=W, height=H, pipeline="pass", intersect_mode="march")
     zero_counts()
-    t0 = time.perf_counter()
     image, hist = driver.render_animation(scene, cfg_pm, num_frames=2, cameras=stacked)
     torch.cuda.synchronize()
-    wall = (time.perf_counter() - t0) * 1e3 / 2
     counts, steps, syncs = kernel_counts(), sdf.STEPS, sdf.SYNCS
-    frame_ms = cuda_ms(lambda: pipeline.render_frame(scene, cams[1], hist, 2, cfg_pm), reps=2, warmup=0)
-    analytic_ms = cuda_ms(lambda: pipeline.render_frame(scene, cams[1], hist, 2, dataclasses.replace(
-        cfg_pm, intersect_mode="analytic")), reps=2)
-    log(f"  {wall:.4f} ms a frame over the 2 (first calls included), {frame_ms:.4f} ms a frame after; the analytic "
-        f"pass frame (shade_backend='xla') {analytic_ms:.4f} ms; {steps} march steps, {syncs} syncs in the 2 "
-        f"frames; launches {counts}; image range [{image.min().item():.4f}, {image.max().item():.4f}], mean "
-        f"diffuse count {hist.diffuse.cnt.mean().item():.4f} [{card}]")
+    log(f"  {steps} march steps, {syncs} syncs in the 2 frames; launches {counts}; image range "
+        f"[{image.min().item():.4f}, {image.max().item():.4f}], mean diffuse count "
+        f"{hist.diffuse.cnt.mean().item():.4f} [{card}]")
     if any(counts.values()):
         failed.append(f"the march pass frames launched kernels: {counts}")
     if image.shape != (H, W, 3) or not (torch.isfinite(image).all() and image.min() >= 0 and image.max() <= 1):
@@ -1115,29 +838,13 @@ def march_phases(dev, card: str) -> dict:
     del img_p, img_f, k1
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    base_gib = torch.cuda.memory_allocated() / 2**30
     zero_counts()
     p = {k: v.detach().requires_grad_() for k, v in params.items()}
-    times = []
-    for _ in range(2):  # the first call's times include the CUDA modules' first loads
-        t0 = time.perf_counter()
-        loss = inverse.loss_fn(p, scene, cam_a, target_p, 3, cfg_g)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        grads = dict(zip(p, torch.autograd.grad(loss, list(p.values()))))
-        torch.cuda.synchronize()
-        times.append(((t1 - t0) * 1e3, (time.perf_counter() - t1) * 1e3))
-    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    loss = inverse.loss_fn(p, scene, cam_a, target_p, 3, cfg_g)
+    grads = dict(zip(p, torch.autograd.grad(loss, list(p.values()))))
+    torch.cuda.synchronize()
     counts = kernel_counts()
-    log(f"  pass route: forward {times[1][0]:.4f} ms, backward {times[1][1]:.4f} ms (first call {times[0][0]:.4f} "
-        f"and {times[0][1]:.4f}), peak {peak_gib:.4f} GiB of device memory ({base_gib:.4f} before); launches "
-        f"{counts} [{card}]")
-    split = backward_split(lambda: torch.autograd.grad(inverse.loss_fn(p, scene, cam_a, target_p, 3, cfg_g),
-                                                       list(p.values())))
-    log(f"  pass route under torch.profiler: device {split['device_ms']:.4f} ms in {split['launches']} launches; by "
-        "autograd node (outermost; 'forward' outside the backward): "
-        + ", ".join(f"{k} {v:.4f}" for k, v in split["top"]))
+    log(f"  pass route (loss_fn and autograd): launches {counts}")
     if any(counts.values()):
         failed.append(f"the pass gradient launched kernels: {counts}")
     loss_p, grads_p = inverse.value_and_grad(params, scene, cam_a, target_p, 3, cfg_g)
@@ -1149,12 +856,10 @@ def march_phases(dev, card: str) -> dict:
         for route, flag in (("K1 + K5", "0"), ("K6", "1")):
             os.environ["KPT_FUSED_LOSS"] = flag
             zero_counts()
-            t0 = time.perf_counter()
             routes[route] = inverse.value_and_grad(params, scene, cam_a, target_f, 3, cfg_f)
             torch.cuda.synchronize()
             counts = kernel_counts()
-            log(f"  {route} (KPT_FUSED_LOSS={flag}): {(time.perf_counter() - t0) * 1e3:.4f} ms, loss "
-                f"{routes[route][0].item():.7g}, launches {counts} [{card}]")
+            log(f"  {route} (KPT_FUSED_LOSS={flag}): loss {routes[route][0].item():.7g}, launches {counts}")
             want = {"frame": 1, "backward": 1, "loss": 0} if flag == "0" else {"frame": 0, "backward": 0, "loss": 1}
             if {k: counts[k] for k in want} != want:
                 failed.append(f"{route} did not run through its kernels: {counts}")
@@ -1199,14 +904,12 @@ def march_phases(dev, card: str) -> dict:
         target_r = inverse.render_once(truth, views[0], c_def, 0)
     inverse.fit(start, target_r, views[0], c_def, steps=1)
     zero_counts()
-    t0 = time.perf_counter()
     fitted, losses = inverse.fit(start, target_r, views[0], c_def, steps=3)
     torch.cuda.synchronize()
-    step_ms = (time.perf_counter() - t0) * 1e3 / 3
     counts = kernel_counts()
     moved = (fitted.spheres - start.spheres).abs().max().item()
-    log(f"  fit, 3 steps at 192x128 with a default config: losses {losses}, {step_ms:.4f} ms a step, spheres moved "
-        f"by up to {moved:.4g}; launches {counts} [{card}]")
+    log(f"  fit, 3 steps at 192x128 with a default config: losses {losses}, spheres moved by up to {moved:.4g}; "
+        f"launches {counts}")
     if any(counts.values()) or not (np.isfinite(losses).all() and moved > 0):
         failed.append(f"fit with the pass pipeline: losses {losses}, moved {moved}, launches {counts}")
 
@@ -1259,16 +962,6 @@ def png_rgb(path) -> np.ndarray:
     return rows[:, 1:].reshape(h, w, 3)
 
 
-def host_ms(fn, reps: int) -> float:
-    """Median host milliseconds of fn() over `reps` runs (host code)."""
-    times = []
-    for _ in range(reps):
-        t0 = time.perf_counter()
-        fn()
-        times.append((time.perf_counter() - t0) * 1e3)
-    return statistics.median(times)
-
-
 def histories_equal(a, b) -> list:
     """The planes where two histories differ bitwise."""
     return [f"{name}.{k}" for name in ("diffuse", "specular") for k in ("rgb", "cnt", "oid")
@@ -1282,7 +975,7 @@ def cli_run(args: list, **kw) -> subprocess.CompletedProcess:
                           text=True, cwd=os.path.dirname(os.path.abspath(__file__)), **kw)
 
 
-def app_phases(dev, card: str, rec_ref: dict, rec_wall: float) -> dict:
+def app_phases(dev, card: str, rec_ref: dict) -> dict:
     """Phases 28-31: checkpoint and resume of render_animation and of
     run_recovery (the `invert` CLI), the fly-cam, and the rest of the app
     (`info`, the native library, the profiler trace and the timers), on the
@@ -1303,7 +996,7 @@ def app_phases(dev, card: str, rec_ref: dict, rec_wall: float) -> dict:
     from kylespathtracer_tpu_torch.scene import sdf
     from kylespathtracer_tpu_torch.scene.scene import default_scene
     from kylespathtracer_tpu_torch.utils import checkpoint as ckpt_mod
-    from kylespathtracer_tpu_torch.utils import image_io, metrics, native, preview
+    from kylespathtracer_tpu_torch.utils import image_io, metrics, native
     from kylespathtracer_tpu_torch.utils.config import RenderConfig
 
     scene = default_scene(device=dev)
@@ -1324,15 +1017,6 @@ def app_phases(dev, card: str, rec_ref: dict, rec_wall: float) -> dict:
             img, hist = driver.render_animation(scene, cfg, num_frames=8, checkpoint_dir=tmp, resume=True)
         torch.cuda.synchronize()
         launches = {"frame": fk.LAUNCHES, "reproject": rk.LAUNCHES}
-        mb = os.path.getsize(f"{tmp}/step_3") / 1e6
-        like = {"history": pipeline.init_history(cfg, Camera.create(device=dev))}
-
-        def restore():
-            ckpt_mod.restore(tmp, step=100, like=like)
-            torch.cuda.synchronize()
-
-        save_ms = host_ms(lambda: ckpt_mod.save(tmp, 100, {"history": hist}), reps=5)
-        restore_ms = host_ms(restore, reps=5)
     for k in counts:
         counts[k] += launches.get(k, 0)
     gaps = histories_equal(hist, ref_hist)
@@ -1340,8 +1024,6 @@ def app_phases(dev, card: str, rec_ref: dict, rec_wall: float) -> dict:
     log(f"  checkpoints {saved}; {said.getvalue().strip()!r}; launches of the resumed run {launches}; image "
         f"bitwise the uninterrupted run's: {torch.equal(img, ref_img)} (max |d| {diff:.3g}); history planes that "
         f"differ: {gaps}")
-    log(f"  checkpoint of the {W}x{H} history: {mb:.3f} MB, save {save_ms:.3f} ms, restore onto the card "
-        f"{restore_ms:.3f} ms (medians of 5, host clock) [{card}]")
     if saved != [3] or "resumed from checkpoint step 3" not in said.getvalue():
         failed.append(f"checkpoints {saved}, not [3], or the run did not resume from step 3")
     if launches != {"frame": 4, "reproject": 4}:
@@ -1378,10 +1060,8 @@ def app_phases(dev, card: str, rec_ref: dict, rec_wall: float) -> dict:
 
     with tempfile.TemporaryDirectory() as ck:
         fk.LAUNCHES = lk.LAUNCHES = 0
-        t0 = time.perf_counter()
         part = inverse.run_recovery(**RECOVERY, ckpt_dir=ck, max_phases=2, device=dev)
         torch.cuda.synchronize()
-        wall_part = time.perf_counter() - t0
         part_launches = {"frame": fk.LAUNCHES, "loss": lk.LAUNCHES}
         # The state's round trip on the card: the file's tree against its
         # restore onto the card, and that against a save and restore of it.
@@ -1404,21 +1084,10 @@ def app_phases(dev, card: str, rec_ref: dict, rec_wall: float) -> dict:
             torn_loss = lk.LAUNCHES
         meta1 = json.load(open(f"{ck}/meta_1.json"))
         meta2 = json.load(open(f"{ck}/meta_2.json"))
-        t0 = time.perf_counter()
         proc = cli_run(["invert", "--ckpt-dir", ck, "--resume", "--log-every", "1"], timeout=900)
-        wall_resume = time.perf_counter() - t0
-    # What a process pays before its first step: python, torch and the
-    # package's import, the card's context and the kernels' load.
-    t0 = time.perf_counter()
-    subprocess.run([sys.executable, "-c", "import torch; from kylespathtracer_tpu_torch.diff import inverse; "
-                    "from kylespathtracer_tpu_torch.ops import _build; _build.load(); "
-                    "torch.zeros(1, device='cuda'); torch.cuda.synchronize()"],
-                   check=True, cwd=os.path.dirname(os.path.abspath(__file__)), timeout=300)
-    wall_start = time.perf_counter() - t0
     counts["frame"] += part_launches["frame"]
     counts["loss"] += part_launches["loss"] + torn_loss
-    log(f"  2 phases, {sum(phase_steps[:2])} steps: {wall_part:.3f} s, {wall_part / sum(phase_steps[:2]) * 1e3:.3f} "
-        f"ms per step (targets included) [{card}]; launches {part_launches}; trace {part['phases']}")
+    log(f"  2 phases, {sum(phase_steps[:2])} steps: launches {part_launches}; trace {part['phases']}")
     log(f"  restore(save(state)) of the parameters and the Adam state (moments, step), on the card: entries that "
         f"differ {gaps}")
     log(f"  torn pair (meta_2.json deleted): completed {fell['completed_phases']}, K6 launches {torn_loss} "
@@ -1429,12 +1098,6 @@ def app_phases(dev, card: str, rec_ref: dict, rec_wall: float) -> dict:
     else:
         res = json.loads(proc.stdout.strip().splitlines()[-1])
         log("  cli invert --resume: " + " | ".join(proc.stdout.strip().splitlines()[:-1]))
-        steps_resumed = sum(phase_steps[2:])
-        log(f"  resumed 2 phases, {steps_resumed} steps: {wall_resume:.3f} s in the subprocess, of it "
-            f"{wall_start:.3f} s a process's start (import, the card's context, the kernels' load: timed alone); "
-            f"{(wall_resume - wall_start) / steps_resumed * 1e3:.3f} ms per step without it (targets and restore "
-            f"included); phase 11 straight: {rec_wall:.3f} s, {rec_wall / rec_ref['steps'] * 1e3:.3f} ms per "
-            f"step [{card}]")
         log(f"  resumed: loss {res['loss_initial']:.6g} -> {res['loss_final']:.6g}; " + ", ".join(
             f"{k} {res[k]:.6g} (phase 11 straight {rec_ref[k]:.6g}, gap {res[k] - rec_ref[k]:.3g})"
             for k in ("err_position", "err_radius", "err_albedo")))
@@ -1482,10 +1145,10 @@ def app_phases(dev, card: str, rec_ref: dict, rec_wall: float) -> dict:
             states.append(st)
             script.append((move, look))
             looking.append(down)
-        return states, images, script, looking, hist
+        return states, images, script, looking
 
     fk.LAUNCHES = rk.LAUNCHES = 0
-    states, images, script, looking, fly_hist = fly_loop(dev, render=True)
+    states, images, script, looking = fly_loop(dev, render=True)
     torch.cuda.synchronize()
     fly_launches = {"frame": fk.LAUNCHES, "reproject": rk.LAUNCHES}
     # fly's pre-arm of was_down on a look frame is, in playback, the button
@@ -1526,27 +1189,6 @@ def app_phases(dev, card: str, rec_ref: dict, rec_wall: float) -> dict:
         failed.append(f"the controller on the card parts from the CPU's by {worst}")
     if not (images[-1].shape == (H, W, 3) and torch.isfinite(images[-1]).all()):
         failed.append("the fly image is not finite or of the wrong shape")
-    inp_w = InputFrame.create(move=(0.0, 0.0, 1.0), device=dev)
-    cfg_s = RenderConfig(width=480, height=270, pipeline="fused")
-    step_s = fly.fly_step(cfg_s)
-    hist_s = pipeline.init_history(cfg_s, state0.camera)
-    for _ in range(5):
-        hist_s = step_s(scene, states[-1], inp_w, hist_s, T)[2]
-    turns = {"large": [], "small": []}
-    for size in ("large", "small", "small", "large"):  # in turns
-        if size == "large":
-            turns[size].append(cuda_ms(lambda: step(scene, states[-1], inp_w, fly_hist, T), reps=20, warmup=3))
-        else:
-            turns[size].append(cuda_ms(lambda: step_s(scene, states[-1], inp_w, hist_s, T), reps=20, warmup=3))
-    fly_ms, small_ms = (" / ".join(f"{v:.4f}" for v in turns[k]) for k in ("large", "small"))
-    img_s = step_s(scene, states[-1], inp_w, hist_s, T)[1]
-    copy_ms = host_ms(lambda: img_s.cpu().numpy(), reps=20)
-    host_s, host_l = img_s.cpu().numpy(), images[-1].cpu().numpy()
-    ansi_ms = host_ms(lambda: preview.frame_to_ansi(host_s, 100, 48), reps=20)
-    ansi_l_ms = host_ms(lambda: preview.frame_to_ansi(host_l, 100, 48), reps=5)
-    log(f"  fly step (controller tick + split frame), in turns: {W}x{H} {fly_ms} ms, 480x270 {small_ms} ms (CUDA "
-        f"events, medians of 20) [{card}]; frame_to_ansi at 100x48 cells: {ansi_ms:.3f} ms of a 480x270 image (its copy "
-        f"to the host {copy_ms:.3f} ms), {ansi_l_ms:.3f} ms of a {W}x{H} one (host clock)")
     proc = cli_run(["fly"], stdin=subprocess.DEVNULL, timeout=300)
     log(f"  cli fly, stdin not a tty: exit {proc.returncode}, stderr {proc.stderr.strip()[-200:]!r}")
     if proc.returncode != 0 or "stdin is not a tty" not in proc.stderr:
@@ -1566,9 +1208,7 @@ def app_phases(dev, card: str, rec_ref: dict, rec_wall: float) -> dict:
     if not native.available():
         log(f"  native library not built: {native.build_error()}")
     else:
-        build = native.BUILD_LOG
-        log(f"  native library built from native/ in {build.get('seconds', 0.0):.3f} s; make said: "
-            f"{build.get('output', '').strip()!r}")
+        log(f"  native library built from native/; make said: {native.BUILD_LOG.get('output', '').strip()!r}")
         rng = np.random.default_rng(3)
         n = 2000
         ro = np.stack([rng.uniform(-5, 9.5, n), rng.uniform(0.2, 9.5, n), rng.uniform(-9.5, 5, n)],
@@ -1584,12 +1224,11 @@ def app_phases(dev, card: str, rec_ref: dict, rec_wall: float) -> dict:
         if not (same > 0.995 and p99 < 5e-3):
             failed.append(f"the native march parts from the port's: ids {same}, p99 {p99}")
         with tempfile.TemporaryDirectory() as tmp:
-            native_ms = host_ms(lambda: image_io.save_png(f"{tmp}/native.png", images[-1]), reps=3)
+            image_io.save_png(f"{tmp}/native.png", images[-1])
             with mock.patch.object(native, "available", lambda: False):
-                zlib_ms = host_ms(lambda: image_io.save_png(f"{tmp}/zlib.png", images[-1]), reps=3)
+                image_io.save_png(f"{tmp}/zlib.png", images[-1])
             a, b = png_rgb(f"{tmp}/native.png"), png_rgb(f"{tmp}/zlib.png")
-        log(f"  save_png of a {W}x{H} frame: native encoder {native_ms:.3f} ms, Python zlib {zlib_ms:.3f} ms "
-            f"(host clock); pixels equal: {np.array_equal(a, b)}")
+        log(f"  save_png of a {W}x{H} frame, native encoder vs Python zlib: pixels equal {np.array_equal(a, b)}")
         if not (np.array_equal(a, b) and np.array_equal(a, image_io._to_u8(images[-1]))):
             failed.append("the native and zlib PNGs decode to different pixels")
     cam = Camera.create(loc=CAM_LOC, orient=CAM_ORIENT, device=dev)
@@ -1610,11 +1249,10 @@ def app_phases(dev, card: str, rec_ref: dict, rec_wall: float) -> dict:
     with metrics.Timer() as timer:
         frame()
     per_call = metrics.time_fn(frame, iters=20, warmup=3) * 1e3
-    events_ms = cuda_ms(frame, reps=20, warmup=3)
-    log(f"  one split frame: Timer {timer.elapsed * 1e3:.4f} ms, time_fn {per_call:.4f} ms a call over 20, CUDA "
-        f"events {events_ms:.4f} ms (median of 20) [{card}]")
+    events_ms = metrics.cuda_ms(frame, reps=20, warmup=3)
     if not 0.5 < per_call / events_ms < 2.0 or timer.elapsed * 1e3 < 0.5 * events_ms:
-        failed.append("Timer or time_fn parts from the CUDA events")
+        failed.append(f"Timer ({timer.elapsed * 1e3} ms) or time_fn ({per_call} ms a call) parts from the CUDA "
+                      f"events ({events_ms} ms)")
     check_holds(failed, "phase 31")
     return counts
 
@@ -1630,10 +1268,9 @@ BENCH_LAUNCHES = {"fwd_fused": {"frame_forward": 1, "reproject_window": 1},
                   "raycast": {"geometry_pass": 1}, "wavefront": {"pathtrace": 1}}
 
 
-def bench_run(module: str, args: list, timeout: float) -> tuple[subprocess.CompletedProcess, float]:
+def bench_run(module: str, args: list, timeout: float) -> subprocess.CompletedProcess:
     """`python -m kylespathtracer_tpu_torch.<module> ARGS` from the repo root
-    → (the finished process, its wall seconds); raises unless it exits 0."""
-    t0 = time.perf_counter()
+    → the finished process; raises unless it exits 0."""
     try:
         proc = subprocess.run([sys.executable, "-m", f"kylespathtracer_tpu_torch.{module}", *args],
                               capture_output=True, text=True, timeout=timeout,
@@ -1641,36 +1278,33 @@ def bench_run(module: str, args: list, timeout: float) -> tuple[subprocess.Compl
     except subprocess.TimeoutExpired as e:
         raise AssertionError(f"phase 32: {module} did not end within {timeout} s:\n{e.stdout}\n{e.stderr}") \
             from None
-    wall = time.perf_counter() - t0
     if proc.returncode != 0:
         raise AssertionError(f"phase 32: {module} exited {proc.returncode}:\n{proc.stdout[-4000:]}\n"
                              f"{proc.stderr[-6000:]}")
-    return proc, wall
+    return proc
 
 
 def json_lines(text: str) -> list:
     return [json.loads(ln) for ln in text.splitlines() if ln.startswith("{")]
 
 
-def bench_phase(card: str) -> dict:
+def bench_phase(card: str) -> None:
     """Phase 32: bench, bench_configs and bench_profile as a user runs them,
     each a subprocess writing into a new --out path under a temporary
     directory; holds every bench.py metric name (less scaling_*) on its own
     line, the launches of each measurement's step, every configuration's
     bar, the profile's device time within the bench's slope × 1.05, and the
-    card named in every record → bench's metrics by name."""
+    card named in every record."""
     failed = []
     log("phase 32: python -m kylespathtracer_tpu_torch.bench, .bench_configs and .bench_profile, each with --out "
         "in a new temporary path")
     with tempfile.TemporaryDirectory() as tmp:
-        proc, wall = bench_run("bench", ["--out", f"{tmp}/bench.jsonl"], 300)
+        proc = bench_run("bench", ["--out", f"{tmp}/bench.jsonl"], 300)
         lines = json_lines(proc.stderr)
         headline = json.loads(proc.stdout.strip().splitlines()[-1])
         recorded = open(f"{tmp}/bench.jsonl").read().splitlines()
         metrics = {r["metric"]: r for r in lines}
-        log(f"  bench in {wall:.1f} s; headline {json.dumps(headline)}")
-        for r in lines:
-            log(f"  {json.dumps(r)}")
+        log(f"  bench: headline {headline.get('metric')}; metrics {sorted(metrics)}")
         if headline.get("metric") != "primary_rays_per_s_fwd_1080p" or not headline.get("value", 0) > 0:
             failed.append(f"bench's last stdout line is not the headline: {headline}")
         missing = [m for m in BENCH_METRICS + tuple(f"{t}_timing_detail" for t in BENCH_LAUNCHES) if m not in metrics]
@@ -1685,13 +1319,12 @@ def bench_phase(card: str) -> dict:
         if [json.loads(ln) for ln in recorded] != lines + [headline]:
             failed.append("bench's --out record differs from its output")
 
-        proc, wall = bench_run("bench_configs", ["--out", f"{tmp}/configs"], 600)
+        bench_run("bench_configs", ["--out", f"{tmp}/configs"], 600)
         configs = json.load(open(f"{tmp}/configs/configs.json"))
         recovery = json.load(open(f"{tmp}/configs/recovery.json"))
-        log(f"  bench_configs in {wall:.1f} s: all_passed {configs['all_passed']} [{configs['device']}]")
+        log(f"  bench_configs: all_passed {configs['all_passed']} [{configs['device']}]")
         for r in configs["configs"]:
-            shown = {k: v for k, v in r.items() if k not in ("recovery", "timing", "spec", "traceback")}
-            log(f"  {json.dumps(shown)}")
+            log(f"  {json.dumps({k: r[k] for k in ('name', 'passed', 'errors') if k in r})}")
             if not r.get("passed") or r.get("device") != card:
                 failed.append(f"configuration {r['name']} did not pass or does not name the card")
         log(f"  recovery.json: errors {[recovery[k] for k in ('err_position', 'err_radius', 'err_albedo')]}, "
@@ -1699,15 +1332,10 @@ def bench_phase(card: str) -> dict:
         if not configs["all_passed"] or configs["device"] != card:
             failed.append("bench_configs: not all passed, or the record does not name the card")
 
-        proc, wall = bench_run("bench_profile", ["--out", f"{tmp}/profile"], 300)
+        bench_run("bench_profile", ["--out", f"{tmp}/profile"], 300)
         prof = json.load(open(f"{tmp}/profile/profile.json"))
-        trace_mb = os.path.getsize(f"{tmp}/profile/trace.json") / 1e6
-        log(f"  bench_profile in {wall:.1f} s: device {prof['device_per_frame_ms']:.4f} ms per frame, span "
-            f"{prof['span_per_frame_ms']:.4f} ms, busy {prof['busy_share']:.4f}, idle {prof['idle_share']:.4f}, "
-            f"{prof['device_events']} device events; its slope {prof['fwd_frame_ms_1080p']:.4f} ms "
-            f"({prof['slope_over_device']:.3f}x the device time); trace {trace_mb:.1f} MB [{prof['device']}]")
-        for e in prof["top_device_events"]:
-            log(f"    {e['per_frame_ms']:.4f} ms per frame, {e['count']} launches: {e['name'][:120]}")
+        log(f"  bench_profile: {prof['device_events']} device events, device time within the slope "
+            f"{prof['device_within_slope']} [{prof['device']}]")
         fwd_ms = metrics.get("fwd_frame_ms_1080p", {}).get("value", 0.0)
         if not (prof["device_within_slope"] and prof["device_per_frame_ms"] <= fwd_ms * 1.05):
             failed.append(f"the profile's device time {prof['device_per_frame_ms']} ms exceeds 1.05x the slope "
@@ -1715,7 +1343,6 @@ def bench_phase(card: str) -> dict:
         if prof["device"] != card:
             failed.append("the profile does not name the card")
     check_holds(failed, "phase 32")
-    return metrics
 
 
 def free_port() -> int:
@@ -1735,7 +1362,7 @@ def main() -> int:
     from kylespathtracer_tpu_torch.core import gmath
     from kylespathtracer_tpu_torch.diff import inverse
     from kylespathtracer_tpu_torch.ops import _build
-    from kylespathtracer_tpu_torch.ops.adjoint_variants import BOX_AIMED, burst_ms
+    from kylespathtracer_tpu_torch.ops.adjoint_variants import BOX_AIMED
     from kylespathtracer_tpu_torch.ops import ceiling_kernel as ck
     from kylespathtracer_tpu_torch.ops import frame_grad as fg
     from kylespathtracer_tpu_torch.ops import frame_hist as fh
@@ -1759,18 +1386,13 @@ def main() -> int:
     name = torch.cuda.get_device_name(0)
     log(f"phase 0: card {card} | torch {torch.__version__} cuda {torch.version.cuda} | {name}")
 
-    # Phase 1: build the kernels from the sources in the checkout, and K7's
-    # census build beside them.
-    t0 = time.perf_counter()
-    census_build = threading.Thread(target=_build.build, kwargs=pk.CENSUS_BUILD)
-    census_build.start()
+    # Phase 1: build the kernels from the sources in the checkout.
     report = io.StringIO()
     with contextlib.redirect_stdout(report):
         path = _build.build(verbose=True)
-    census_build.join()
     log(report.getvalue())
     _build.load()
-    log(f"phase 1: built {path.name} in {time.perf_counter() - t0:.1f} s")
+    log(f"phase 1: built {path.name}")
     ptxas = {label: ptxas_lines(report.getvalue(), source) for label, source in (
         ("K1", "frame_kernel.cu"), ("K2", "reproject_kernel.cu"), ("K3", "geometry_kernel.cu"),
         ("K7", "path_kernel.cu"), ("K8", "frame_hist.cu"),
@@ -1930,62 +1552,6 @@ def main() -> int:
 
     card_vs_cpu(RenderConfig(width=256, height=128, pipeline="fused"))
 
-    # Phase 6: times, CUDA events, medians after warm-up.
-    log(f"phase 6: times on {card}")
-    split_state = {"hist": history, "i": 8}
-
-    def temporal_frame():
-        i = split_state["i"]
-        _, split_state["hist"] = pipeline.render_frame(scene, camera(i), split_state["hist"], i, cfg)
-        split_state["i"] = i + 1
-
-    frame_ms = cuda_ms(temporal_frame, reps=20, warmup=3)
-    k1_ms = cuda_ms(lambda: fk.frame_forward(scene, camera(), 3, cfg), reps=20, warmup=2)
-    k1_alone_ms = cuda_ms(fk.frame_launch(scene, camera(), 3, cfg)[0], reps=20, warmup=2)
-    truth, start, views = inverse.recovery_scenes(10, 5, device=dev)
-    f0 = inverse.SEED_BASE
-    c_rec = RenderConfig(width=192, height=128, soft_shadows=0.05, pipeline="fused")
-    k1_rec_ms = cuda_ms(lambda: fk.frame_forward(start, views[0], f0, c_rec), reps=50, warmup=5)
-    k1_rec_alone_ms = cuda_ms(fk.frame_launch(start, views[0], f0, c_rec)[0], reps=50, warmup=5)
-    k1_plain_ms = cuda_ms(lambda: fk.frame_forward_plain(scene, camera(), 3, cfg), reps=3, warmup=1)
-    k2_ms = cuda_ms(lambda: rk.reproject_window(*k2_args, window=K), reps=50, warmup=3)
-    k2_plain_ms = cuda_ms(lambda: rk.reproject_frame_plain(*k2_args, K, H), reps=20, warmup=2)
-    tail_ms = cuda_ms(lambda: rk.reproject_tail(*tail_args), reps=50, warmup=3)
-    tail_plain_ms = cuda_ms(lambda: tail_plain(*tail_args), reps=20, warmup=2)
-    log(f"  temporal frame {W}x{H}: {frame_ms:.4f} ms, {W * H / frame_ms / 1e3:.2f} "
-        f"primary Mrays/s [{card}]")
-    log(f"  K1 frame kernel {W}x{H}: {k1_ms:.4f} ms with its wrapper, {k1_alone_ms:.4f} ms alone; plain on the "
-        f"card {k1_plain_ms:.4f} ms; at the 192x128 recovery view {k1_rec_ms:.4f} ms with its wrapper, "
-        f"{k1_rec_alone_ms:.4f} ms alone [{card}]; {ptxas['K1']}")
-    log(f"  K2 reprojection {W}x{H} (both sets, query heads included): {k2_ms:.4f} ms; plain on the card "
-        f"{k2_plain_ms:.4f} ms; with its tail (the main path's launch) {tail_ms:.4f} ms, plain on the card "
-        f"{tail_plain_ms:.4f} ms [{card}]")
-
-    # Phase 7: where the time goes, from a profiler trace of 10 frames.
-    log("phase 7: torch.profiler trace of 10 temporal frames")
-    split = stage_split(temporal_frame, pipeline.STAGES, frames=10)
-    busy = split["device_ms"] / frame_ms
-    log(f"  device time per frame {split['device_ms']:.4f} ms in {split['launches']:.1f} "
-        f"launches; busy {busy:.4f} of the {frame_ms:.4f} ms frame (phase 6) [{card}]")
-    log("  device ms per frame by stage: " + ", ".join(
-        f"{k} {v:.4f}" for k, v in split["stages"].items())
-        + f" (sum {sum(split['stages'].values()):.4f}; a sum above the device "
-        "time means a kernel was charged twice)")
-    log(f"  frame.k1 {split['stages']['frame.k1']:.4f} ms of device time against K1 alone {k1_alone_ms:.4f} ms, "
-        f"{k1_ms:.4f} ms with its wrapper (phase 6) [{card}]")
-    log("  device ms per frame by kernel: " + ", ".join(
-        f"{k} {v:.4f}" for k, v in split["top"]))
-    if split["device_ms"] <= 0.0:
-        log("  the profiler recorded no device time; phase 6's CUDA events stand alone")
-    n = 10000
-    t0 = time.perf_counter()
-    for _ in range(n):
-        with torch.profiler.record_function("span"):
-            pass
-    log(f"  one profiler span with no profiler active: "
-        f"{(time.perf_counter() - t0) / n * 1e6:.3f} us of host time "
-        f"({len(pipeline.STAGES)} per frame)")
-
     # Phase 8: K5 against its plain version, both on the card.
     log("phase 8: backward kernel (K5) vs plain, on the card, 256x128")
     GW, GH = 256, 128
@@ -2062,6 +1628,8 @@ def main() -> int:
     # spheres give many grazing silhouette pixels: logged with all pixels,
     # held with the ill-conditioned ones given the plain image as target,
     # which zeroes their residual.
+    truth, start, views = inverse.recovery_scenes(10, 5, device=dev)
+    f0 = inverse.SEED_BASE
     rec_needs = fg.needs_for(("spheres", "alb_const"))
     for beta in (0.05, 0.003):
         c = RenderConfig(width=192, height=128, soft_shadows=beta, pipeline="fused")
@@ -2113,14 +1681,11 @@ def main() -> int:
     # Phase 11: inverse rendering, the RECOVERY recipe (bench_configs.py:454-464).
     log("phase 11: run_recovery, 10 spheres, 800 steps, 192x128, 5 views, 4 beta phases")
     fk.LAUNCHES = fg.LAUNCHES = lk.LAUNCHES = 0
-    t0 = time.perf_counter()
     res = inverse.run_recovery(num_spheres=10, steps=800, width=192, height=128, views=5,
                                betas=(0.05, 0.02, 0.008, 0.003), log_every=1)
     torch.cuda.synchronize()
-    wall = rec_wall = time.perf_counter() - t0
     rec_launches = {"frame": fk.LAUNCHES, "backward": fg.LAUNCHES, "loss": lk.LAUNCHES}
-    log(f"  {res['steps']} steps in {wall:.3f} s, {wall / res['steps'] * 1e3:.3f} ms per step "
-        f"(targets included) [{card}]; launches {rec_launches}")
+    log(f"  {res['steps']} steps; launches {rec_launches}")
     log(f"  loss {res['loss_initial']:.6g} -> {res['loss_final']:.6g}; err_position "
         f"{res['err_position']:.6g}, err_radius {res['err_radius']:.6g}, err_albedo "
         f"{res['err_albedo']:.6g}")
@@ -2130,9 +1695,9 @@ def main() -> int:
             and res["err_albedo"] < 0.01 and res["loss_final"] < res["loss_initial"]):
         raise AssertionError(f"recovery missed its bounds: {res}")
 
-    # Phase 12: the gradient kernels at 1920x1080, all tables: against their
-    # plain versions, then their times.
-    log(f"phase 12: gradient kernels at {W}x{H} vs plain, then CUDA-event times [{card}]")
+    # Phase 12: the gradient kernels at 1920x1080, all tables, against their
+    # plain versions.
+    log(f"phase 12: gradient kernels at {W}x{H} vs plain [{card}]")
     # K5 as train_step drives it (phase 10): the cotangent its loss gives
     # the frame planes, the spheres and light_color seeded.
     planes = {k: v.requires_grad_() for k, v in fk.frame_forward(scene, camera(), 3, cfg).items()
@@ -2149,64 +1714,19 @@ def main() -> int:
     k5_err = max(k5_err, k5_masked(scene, camera(), cfg, g_all, bad1080,
                                    f"K5 {W}x{H} random cotangents, 13 planes, every table"))
     k6_err = max(k6_err, k6_check(scene, camera(), 3, cfg, None, "mean", f"K6 {W}x{H} mean, all pixels"))
-    k5_ms = cuda_ms(lambda: fg.frame_backward(scene, camera(), 3, g_all, cfg), reps=10)
-    k6_ms = cuda_ms(lambda: lk.render_loss_and_grad(scene, camera(), 3, cfg, loss="mean"), reps=10)
-
-    mats = ("s0", "s1", "alb_const", "alb_scale", "emission", "en_const", "en_scale")
-
-    def generic_step():
-        """bench.py's generic fwd+bwd: the image mean's gradient in every
-        scene table, through the differentiable frame (K1, then K5)."""
-        leaves = {k: t.detach().clone().requires_grad_()
-                  for k, t in zip(fg.GRAD_NAMES[:11], fg._inputs(scene, camera()))}
-        sc = dataclasses.replace(
-            scene, materials=dataclasses.replace(scene.materials, **{k: leaves[k] for k in mats}),
-            **{k: leaves[k] for k in ("planes", "spheres", "boxes", "light_color")})
-        img = inverse.render_once(sc, camera(), cfg_f, 3)
-        torch.autograd.grad(img.mean(), list(leaves.values()))
-
-    gen_ms = cuda_ms(generic_step, reps=3)
-    torch.cuda.reset_peak_memory_stats()
-    k5_plain_ms = cuda_ms(lambda: fg.frame_backward_plain(scene, camera(), 3, g_all, cfg), reps=1)
-    k6_plain_ms = cuda_ms(lambda: lk.render_loss_and_grad_plain(scene, camera(), 3, cfg, loss="mean"),
-                          reps=1)
-    plain_gib = torch.cuda.max_memory_allocated() / 2**30
-    small = cases["default_hard"][1]
-    g_small = {k: randn((GH, GW) + tuple(v.shape[2:])) for k, v in g_all.items()}
-    k5_ms_s = cuda_ms(lambda: fg.frame_backward(scene, camera(), 3, g_small, small), reps=5)
-    k5_plain_ms_s = cuda_ms(lambda: fg.frame_backward_plain(scene, camera(), 3, g_small, small), reps=3)
-    k6_ms_s = cuda_ms(lambda: lk.render_loss_and_grad(scene, camera(), 3, small, loss="mean"), reps=5)
-    k6_plain_ms_s = cuda_ms(
-        lambda: lk.render_loss_and_grad_plain(scene, camera(), 3, small, loss="mean"), reps=3)
-    log(f"  K5 backward, 13 cotangent planes, all {len(fg.seed_indices(scene, fg.needs_for(None), dev))} "
-        f"table entries: {k5_ms:.4f} ms; plain {k5_plain_ms:.4f} ms [{card}]")
-    log(f"  K6 loss='mean', all tables: {k6_ms:.4f} ms; plain {k6_plain_ms:.4f} ms; "
-        f"fwd_bwd_rays_per_s_1080p {W * H / k6_ms * 1e3:.1f} [{card}]")
-    log(f"  generic fwd+bwd (K1 + K5 through autograd, scene tables): {gen_ms:.4f} ms; "
-        f"fwd_bwd_generic_rays_per_s_1080p {W * H / gen_ms * 1e3:.1f} [{card}]")
-    log(f"  plain versions at {W}x{H}: peak {plain_gib:.2f} GiB of device memory")
-    log(f"  at {GW}x{GH}: K5 {k5_ms_s:.4f} ms, plain {k5_plain_ms_s:.4f} ms; K6 {k6_ms_s:.4f} ms, "
-        f"plain {k6_plain_ms_s:.4f} ms [{card}]")
-    # The recovery view's shape, as run_recovery hands it to K6: one view of
-    # the perturbed start, spheres and alb_const seeded, the first beta.
+    # The recovery view's target, as run_recovery hands it to K6 (phase 22's
+    # tiled step at that view).
+    c_rec = RenderConfig(width=192, height=128, soft_shadows=0.05, pipeline="fused")
     target_rec = inverse.render_once(truth, views[0], c_rec, f0)
-    oid_rec = fk.frame_forward(start, views[0], f0, c_rec)["oid"]
-    g_rec = {k: randn(tuple(oid_rec.shape) + tuple(v.shape[2:])) for k, v in g_all.items()}
-    k5_ms_r = cuda_ms(lambda: fg.frame_backward(start, views[0], f0, g_rec, c_rec, rec_needs), reps=20, warmup=3)
-    k6_ms_r = cuda_ms(lambda: lk.render_loss_and_grad(start, views[0], f0, c_rec, target_rec, "mse", rec_needs),
-                      reps=20, warmup=3)
 
     # Phase 13: the raycast (K3) at 1920x1080 from two views, (a) bench.py's
     # (CAM_ORIENT; the box is the nearest hit nowhere) and (b) one aimed at
     # the rounded box (BOX_AIMED), each held bitwise to its plain version
     # (check_agreement's stats logged beside), (a) also against the G-buffer
-    # module at check_agreement's bars; the box code K3 runs on each view
-    # (its plain tally, for its bound); then on each view K3 alone (CUDA
-    # events around its launch) and with its wrapper, its plain version and
-    # the plain G-buffer module that the pass frame runs (logged only).
+    # module at check_agreement's bars.
     log(f"phase 13: geometry pass (K3), the raycast at {W}x{H} on the card, views (a) orient {CAM_ORIENT} and "
         f"(b) orient {BOX_AIMED}")
-    raycast_launches, k3_err, k3_times, k3_box_work = 0, 0.0, {}, {}
+    raycast_launches, k3_err = 0, 0.0
     for key, cam_v in (("a", camera()), ("b", Camera.create(loc=CAM_LOC, orient=BOX_AIMED, device=dev))):
         geo_k.LAUNCHES = 0
         geo = geo_k.geometry_pass(scene, cam_v, 0, cfg)
@@ -2219,11 +1739,9 @@ def main() -> int:
         stats = geo_k.check_agreement(geo, geo_plain, f"K3 vs plain {W}x{H} view ({key})")
         err = max((geo[k] - geo_plain[k]).abs().max().item() for k in ("depth", "curv", "normal"))
         k3_err = max(k3_err, err)
-        k3_box_work[key] = geo_k.box_work_plain(scene, cam_v, cfg)
         log(f"  view ({key}) K3 vs plain: {stats}; largest |diff| {err}; hit share "
             f"{(geo['oid'] > 0).float().mean().item():.4f}, box share "
-            f"{torch.isin(geo['oid'], scene.box_ids).float().mean().item():.4f}; box code (plain tally) "
-            f"{k3_box_work[key]}")
+            f"{torch.isin(geo['oid'], scene.box_ids).float().mean().item():.4f}")
         unequal = [k for k in geo if not torch.equal(geo[k], geo_plain[k])]
         if unequal:
             raise AssertionError(f"K3 vs plain {W}x{H} view ({key}): not bitwise on {unequal}")
@@ -2233,17 +1751,6 @@ def main() -> int:
                 geo, {"depth": gbuf.depth, "curv": gbuf.curv, "normal": gbuf.normal, "oid": gbuf.obj_id},
                 f"K3 vs gbuffer.geometry_pass {W}x{H}")
             log(f"  view (a) K3 vs gbuffer.geometry_pass: {gb_stats}")
-        launch = geo_k.geometry_launch(scene, cam_v, 0, cfg)[0]
-        k3_times[key] = (cuda_ms(launch, reps=50, warmup=3),
-                         cuda_ms(lambda: geo_k.geometry_pass(scene, cam_v, 0, cfg), reps=50, warmup=3),
-                         cuda_ms(lambda: geo_k.geometry_pass_plain(scene, cam_v, 0, cfg), reps=3),
-                         cuda_ms(lambda: gbuffer.geometry_pass(scene, cam_v, cfg), reps=3), burst_ms(launch))
-        alone, wrapped, plain, gbuf_ms, burst = k3_times[key]
-        log(f"  view ({key}) K3 {W}x{H}: alone {alone:.4f} ms ({burst:.4f} a launch, 50 back to back), with its "
-            f"wrapper {wrapped:.4f} ms, plain {plain:.4f} ms, gbuffer.geometry_pass {gbuf_ms:.4f} ms; "
-            f"raycast_rays_per_s_1080p alone {W * H / alone * 1e3:.1f}, back to back {W * H / burst * 1e3:.1f}, "
-            f"with its wrapper {W * H / wrapped * 1e3:.1f} [{card}]")
-    k3_alone_ms, k3_ms, k3_plain_ms = k3_times["a"][:3]
 
     # Phase 14: K7 against its plain version on the card.
     log("phase 14: path kernel (K7) vs plain, on the card")
@@ -2296,23 +1803,11 @@ def main() -> int:
         raise AssertionError(f"the pathtrace CLI did not run through K7 at depth 6, 4 spp: {cli_launches}, {rec}")
     if (pw, ph, idat) != (W, H, H * (1 + W * 3)):
         raise AssertionError(f"the pathtrace CLI's PNG is {pw}x{ph} with {idat} IDAT bytes")
-    k7_ms = cuda_ms(lambda: pk.pathtrace(scene, camera(), cfg_pt, 0), reps=5)
-    k7_alone_ms = cuda_ms(pk.path_launch(scene, camera(), cfg_pt, 0)[0], reps=5)
-    k7_plain_ms = cuda_ms(lambda: pk.pathtrace_plain(scene, camera(), cfg_pt, 0), reps=1)
-    tally = {}
-    ref_pt = pk.pathtrace_plain(scene, camera(), cfg_pt, 0, tally=tally)
+    ref_pt = pk.pathtrace_plain(scene, camera(), cfg_pt, 0)
     img_pt = pk.pathtrace(scene, camera(), cfg_pt, 0)
     stats = pk.check_agreement(img_pt, ref_pt, f"K7 vs plain {W}x{H}")
     log(f"  K7 vs plain, {W}x{H} 4 spp depth 6: {stats}; bitwise {torch.equal(img_pt, ref_pt)}")
     k7_err = max(k7_err, stats["max"])
-    segments = W * H * cfg_pt.spp * cfg_pt.max_depth
-    log(f"  K7 {W}x{H} 4 spp depth 6: {k7_ms:.4f} ms with its wrapper, {k7_alone_ms:.4f} ms alone, plain "
-        f"{k7_plain_ms:.4f} ms; wavefront_segments_per_s_1080p {segments / k7_ms * 1e3:.1f} [{card}]; "
-        f"{ptxas['K7']}")
-    log(f"  path work on this data: {tally['traced']} segments traced ({tally['traced'] / segments:.4f} "
-        f"of W·H·spp·depth = {segments}), {tally['hits']} vertices shaded")
-    for line in pk.census_report(pk.census(scene, camera(), cfg_pt, 0), cfg_pt.max_depth):
-        log(f"  K7 census, {line}")
 
     # Phase 17: K8 against its plain version at 1920x1080.
     log(f"phase 17: mono temporal kernel (K8) vs plain, {W}x{H}, on the card")
@@ -2372,27 +1867,6 @@ def main() -> int:
         raise AssertionError(f"mono history did not accumulate: mean diffuse count {mean_cnt_m}")
     log("  3 pan frames at 256x128, mono, card vs CPU plain path")
     card_vs_cpu(RenderConfig(width=256, height=128, pipeline="fused", temporal_fusion="mono"))
-    state_m = {"hist": hist_m, "i": 8}
-
-    def mono_frame():
-        i = state_m["i"]
-        _, state_m["hist"] = pipeline.render_frame(scene, camera(i), state_m["hist"], i, cfg_m)
-        state_m["i"] = i + 1
-
-    # The two frames in turns (split, mono, mono, split), 20 frames each.
-    turns = [(name, cuda_ms(fn, reps=20, warmup=3)) for name, fn in (
-        ("split", temporal_frame), ("mono", mono_frame), ("mono", mono_frame), ("split", temporal_frame))]
-    mono_ms = statistics.median(t for name, t in turns if name == "mono")
-    k8_ms = cuda_ms(lambda: fh.frame_hist(scene, camera(1), camera(0), hd, hs, 1, cfg_m), reps=20, warmup=2)
-    k8_alone_ms = cuda_ms(fh.frame_hist_launch(scene, camera(1), camera(0), hd, hs, 1, cfg_m)[0], reps=20, warmup=2)
-    k8_plain_ms = cuda_ms(lambda: fh.frame_hist_plain(scene, camera(1), camera(0), hd, hs, 1, cfg_m), reps=3)
-    log(f"  temporal frame {W}x{H} in turns, ms: " + ", ".join(f"{name} {t:.4f}" for name, t in turns)
-        + f" (split {frame_ms:.4f} ms in phase 6) [{card}]")
-    log(f"  K8 {W}x{H}: {k8_ms:.4f} ms with its wrapper, {k8_alone_ms:.4f} ms alone; plain on the card "
-        f"{k8_plain_ms:.4f} ms [{card}]; {ptxas['K8']}")
-    split_m = stage_split(mono_frame, pipeline.STAGES, frames=10)
-    log(f"  mono frame, torch.profiler: device {split_m['device_ms']:.4f} ms in {split_m['launches']:.1f} "
-        "launches per frame; by kernel: " + ", ".join(f"{k} {v:.4f}" for k, v in split_m["top"]))
 
     # Phase 19: K4 against its plain version at 1920x1080, on the G-buffer.
     log(f"phase 19: shade kernel (K4) vs plain, {W}x{H}, on gbuffer.geometry_pass of the default scene")
@@ -2418,11 +1892,6 @@ def main() -> int:
         log(f"  K4 vs mis.dual_mis (shade_backend='xla'), within the bar: {stats}")
     except AssertionError as e:
         log(f"  K4 vs mis.dual_mis, beyond the bar (logged, not held): {e}")
-    k4_ms = cuda_ms(lambda: sk.dual_mis(scene, gbuf_p, camera(), seed_p, cfg_p), reps=20, warmup=2)
-    k4_alone_ms = cuda_ms(sk.dual_mis_launch(scene, gbuf_p, camera(), seed_p, cfg_p)[0], reps=20, warmup=2)
-    k4_plain_ms = cuda_ms(lambda: sk.dual_mis_plain(scene, gbuf_p, camera(), seed_p, cfg_p), reps=3)
-    log(f"  K4 {W}x{H}: {k4_ms:.4f} ms with its wrapper, {k4_alone_ms:.4f} ms alone; plain on the card "
-        f"{k4_plain_ms:.4f} ms [{card}]; {ptxas['K4']}")
 
     # Phase 20: the pass pipeline and the render CLI at full width.
     log(f"phase 20: pass path, render_animation 4 frames at {W}x{H} (pipeline='pass', shade_backend='pallas')")
@@ -2437,15 +1906,6 @@ def main() -> int:
     if image_p.shape != (H, W, 3) or not (torch.isfinite(image_p).all() and image_p.min() >= 0
                                          and image_p.max() <= 1):
         raise AssertionError("pass path image not finite in [0, 1] or of the wrong shape")
-    pass_state = {"hist": hist_p, "i": 4}
-
-    def pass_frame():
-        i = pass_state["i"]
-        _, pass_state["hist"] = pipeline.render_frame(scene, camera(i), pass_state["hist"], i, cfg_p)
-        pass_state["i"] = i + 1
-
-    pass_ms = cuda_ms(pass_frame, reps=5, warmup=1)
-    log(f"  pass-pipeline frame (pallas) {W}x{H}: {pass_ms:.4f} ms [{card}]")
     with tempfile.TemporaryDirectory() as tmp:
         fk.LAUNCHES = rk.LAUNCHES = 0
         said = io.StringIO()
@@ -2501,7 +1961,7 @@ def main() -> int:
         raise AssertionError(f"the tiled frames did not run through the tile modes: {tile_launches}")
 
     # Each tile mode against its plain version on the middle tile (both
-    # halos real), frame 1's inputs; then their times.
+    # halos real), frame 1's inputs.
     r0, cam1 = rows_t, tile_camera(1, dev)
     win = shard.tile_window(hist0, r0, rows_t, halo_t)
     k1r = fk.frame_forward(scene, cam1, 1, cfg, r0, rows_t)
@@ -2548,41 +2008,6 @@ def main() -> int:
         f"{k8t_ref['d_cnt'].mean().item():.4f}")
     if k8t_ref["d_cnt"].mean().item() <= 2.0 or cnt_kt.mean().item() <= 1.0:
         raise AssertionError("the tile checks carried almost no history; they are vacuous")
-    k1r_ms = cuda_ms(lambda: fk.frame_forward(scene, cam1, 1, cfg, r0, rows_t), reps=20, warmup=2)
-    k1r_alone_ms = cuda_ms(fk.frame_launch(scene, cam1, 1, cfg, r0, rows_t)[0], reps=20, warmup=2)
-    k1r_plain_ms = cuda_ms(lambda: fk.frame_forward_plain(scene, cam1, 1, cfg, r0, rows_t), reps=3)
-    k2t_ms = cuda_ms(lambda: rk.reproject_window(*k2t_args, window=K, image_height=H, row_base=r0,
-                                                 hist_halo=halo_t), reps=50, warmup=3)
-    k2t_plain_ms = cuda_ms(lambda: rk.reproject_frame_plain(*k2t_args, K, H, r0, halo_t), reps=20, warmup=2)
-    tail_t_ms = cuda_ms(lambda: rk.reproject_tail(*tail_t_args, **tail_t_kw), reps=50, warmup=3)
-    tail_t_plain_ms = cuda_ms(lambda: tail_plain(*tail_t_args, **tail_t_kw), reps=20, warmup=2)
-    k8t_ms = cuda_ms(lambda: fh.frame_hist(*k8t_args, **tile_kw), reps=20, warmup=2)
-    k8t_alone_ms = cuda_ms(fh.frame_hist_launch(*k8t_args, **tile_kw)[0], reps=20, warmup=2)
-    k8t_plain_ms = cuda_ms(lambda: fh.frame_hist_plain(*k8t_args, **tile_kw), reps=3)
-    log(f"  one tile of {rows_t}x{W}: K1 row mode {k1r_ms:.4f} ms with its wrapper, {k1r_alone_ms:.4f} alone, "
-        f"plain {k1r_plain_ms:.4f}; K2 tile mode (both sets) {k2t_ms:.4f}, plain {k2t_plain_ms:.4f}; with its tail "
-        f"{tail_t_ms:.4f}, plain {tail_t_plain_ms:.4f}; K8 tile mode "
-        f"{k8t_ms:.4f} with its wrapper, {k8t_alone_ms:.4f} alone, plain {k8t_plain_ms:.4f} [{card}]")
-    tile_state = {f: (3, tiled[f][1]) for f in tiled}
-
-    def tiles_frame(fusion):
-        cfg_x = RenderConfig(width=W, height=H, pipeline="fused", temporal_fusion=fusion)
-
-        def run():
-            i, h = tile_state[fusion]
-            tile_state[fusion] = (i + 1, render_tiles(scene, cfg_x, h, i, dev)[1])
-        return run
-
-    turns_t = [(name, cuda_ms(fn, reps=10, warmup=2)) for name, fn in (
-        ("unsharded split", temporal_frame), ("3 tiles split", tiles_frame("split")),
-        ("3 tiles mono", tiles_frame("mono")), ("unsharded mono", mono_frame))]
-    log(f"  {W}x{H} frame in turns, ms: " + ", ".join(f"{n} {t:.4f}" for n, t in turns_t)
-        + f" (the tiles one after another in this process) [{card}]")
-    for fusion in ("split", "mono"):
-        sp = stage_split(tiles_frame(fusion), pipeline.STAGES, frames=5)
-        log(f"  3 tiles {fusion}, torch.profiler: device {sp['device_ms']:.4f} ms in {sp['launches']:.1f} launches "
-            "per frame; by stage: " + ", ".join(f"{k} {v:.4f}" for k, v in sp["stages"].items())
-            + "; by kernel: " + ", ".join(f"{k} {v:.4f}" for k, v in sp["top"]))
 
     # Phase 22: the tiled training step in this process, the tiles' losses
     # and gradients summed as train_step_tiled's all-reduce sums them.
@@ -2627,10 +2052,6 @@ def main() -> int:
     k5r_err = table_check(*k5_rows(keep_planes(g_t, bad_t)),
                           f"K5 row mode, rows [{r0}, {r0 + rows_t}), random cotangents, every table, "
                           f"{int(bad_t.sum())} ill-conditioned pixels masked")
-    k5r_ms = cuda_ms(lambda: fg.frame_backward(scene, camera(), 3, g_t, cfg, None, r0, rows_t), reps=10)
-    k5r_plain_ms = cuda_ms(lambda: fg.frame_backward_plain(scene, camera(), 3, g_t, cfg, None, r0, rows_t), reps=1)
-    log(f"  one tile of {rows_t}x{W}: K5 row mode, 13 planes, every table {k5r_ms:.4f} ms, plain "
-        f"{k5r_plain_ms:.4f} [{card}]")
 
     # Phase 23: the same frames and step on 3 ranks of one gloo group
     # sharing this card (NCCL refuses two ranks on one card).
@@ -2674,31 +2095,6 @@ def main() -> int:
     del k9_outs
     log(f"  the sweep's {len(k9_sweep)} outputs at {ck.W}x{ck.H} bitwise their plain versions (max |diff| over the "
         f"finite elements {k9_err})")
-    for r in k9_sweep:
-        variant = (r["template"], r["iters"], r["chains"], r["live_planes"])
-        log(f"  K9 {variant}: {r['teraops']:.4f} Top/s, {r['ms']:.4f} ms a launch; totals {r['timing']['totals_ms']} "
-            f"ms over K {r['timing']['ks']}, linear {r['timing']['linear_ok']}; {k9_resources[variant]} [{card}]")
-    probe, probe_inf = (bench_ceiling.sweep(dev, (ck.INF_PROBE,), planes)[0][0]
-                        for planes in ((x_f, y_f), bench_ceiling.infinite_planes(dev)))
-    nominal = bench_ceiling.no_fma_rate()
-    mix_best = max((r for r in k9_sweep if r["template"] == "frame_mix"), key=lambda r: r["value"])
-    fma_best = max(r["value"] for r in k9_sweep if r["template"] == "fma")
-    log(f"  fma probe {ck.INF_PROBE}: half its steps finite {probe['teraops']:.4f} Top/s ({probe['ms']:.4f} ms), "
-        f"every step on +inf {probe_inf['teraops']:.4f} ({probe_inf['ms']:.4f} ms); the sweep's fma at "
-        f"{fma_best / 1e12:.4f} Top/s [{card}]")
-    log(f"  launches {k9_launches}; best fma {fma_best / 1e12:.4f} Top/s, best frame_mix {mix_best['teraops']:.4f} "
-        f"({mix_best['template']}, iters {mix_best['iters']}, chains {mix_best['chains']}, live "
-        f"{mix_best['live_planes']}), {mix_best['value'] / fma_best:.4f} of fma; rate without FMA "
-        f"{nominal / 1e12:.4f} Top/s: fma {fma_best / nominal:.4f}, frame_mix {mix_best['value'] / nominal:.4f} "
-        f"of it [{card}]")
-    # K9's entry in the kernels line: one `mix` call with its wrapper, timed
-    # as every other entry is; the sweep's launch slope is logged beside it.
-    mix_variant = (mix_best["template"], mix_best["iters"], mix_best["chains"], mix_best["live_planes"])
-    k9_ms = cuda_ms(lambda: ck.mix(x_f, y_f, *mix_variant), reps=20, warmup=2)
-    k9_plain_ms = cuda_ms(lambda: ck.mix_plain(x_f, y_f, *mix_variant), reps=3)
-    k9_work = (bench_ceiling.ops_of(mix_variant, x_f.numel()), 3 * x_f.numel() * 4)
-    log(f"  K9 {mix_variant}: one mix() call with its wrapper {k9_ms:.4f} ms, the sweep's launch slope "
-        f"{mix_best['ms']:.4f} ms, plain {k9_plain_ms:.4f} ms [{card}]")
 
     # Phases 25-27: the sphere trace and the gradients through the
     # intersectors, with K3, K1 + K5 and K6 as witnesses.
@@ -2707,104 +2103,16 @@ def main() -> int:
 
     # Phases 28-31: checkpoint and resume, the invert CLI, the fly-cam, info,
     # the native library and the metrics helpers.
-    app_counts = app_phases(dev, card, res, rec_wall)
+    app_counts = app_phases(dev, card, res)
     log(f"  launches in phases 28-30: {app_counts}; phase 22's resume: {resume_launches}")
 
     # Phase 32: the three benches as a user runs them.
     torch.cuda.empty_cache()
     bench_phase(card)
 
-    # Bounds, from this run's inputs (frame_ops, bound): each kernel's work
-    # as (operations, bytes).
-    ops1 = frame_ops(scene, cfg, ref["oid"])
-    tab_bytes = sum(t.numel() * t.element_size() for t in fk.pack_tables(scene, camera()))
-    k1_work = (ops1, tab_bytes + W * H * (13 * 4 + 4))
-    k2_io = (hl, sl, ref["oid"], *(t for ch in (hist, hist_s) for t in (ch.rgb, ch.cnt, ch.oid)),
-             *(t for pair in k2_out for t in pair))
-    k2_work = (W * H * K2_OPS, sum(t.numel() * t.element_size() for t in k2_io))
-    tail_work = (W * H * (K2_OPS + TAIL_OPS), tail_io_bytes(tail_args, tail_out))
-    # The gradient of a scalar costs at most ~3 times its forward's operations
-    # (reverse mode); K6 adds the composite and the loss (~120 per pixel).
-    k5_work = (3 * ops1, tab_bytes + sum(v.numel() * 4 for v in g_all.values()))
-    k6_work = (3 * (ops1 + 120 * W * H), tab_bytes)
-    ops_rec = frame_ops(start, c_rec, oid_rec)
-    rec_bytes = sum(t.numel() * t.element_size() for t in fk.pack_tables(start, views[0]))
-    k5_bound_r = bound(3 * ops_rec, rec_bytes + sum(v.numel() * 4 for v in g_rec.values()))
-    k6_bound_r = bound(3 * (ops_rec + 120 * oid_rec.numel()), rec_bytes + target_rec.numel() * 4)
-    for label, ms, work, ms_r, bnd_r in (("K5", k5_ms, k5_work, k5_ms_r, k5_bound_r),
-                                         ("K6", k6_ms, k6_work, k6_ms_r, k6_bound_r)):
-        lo, hi = FORWARD_MODE_MS[label]
-        bnd = bound(*work)
-        log(f"  {label} reverse-mode adjoint: {W}x{H} all tables {ms:.4f} ms, {ms / bnd[0]:.1f}x its bound "
-            f"{bnd[0]:.4f} ms ({bnd[1]}), {lo / ms:.1f}-{hi / ms:.1f}x faster than the forward-mode kernel's "
-            f"{lo}-{hi} ms; 192x128 recovery view {ms_r:.4f} ms, {ms_r / bnd_r[0]:.1f}x its bound "
-            f"{bnd_r[0]:.5f} ms ({bnd_r[1]}) [{card}]")
-    ops3 = geometry_ops(scene, k3_box_work["a"])
-    k3_work = (ops3, tab_bytes + W * H * (5 * 4 + 4))
-    ops7 = path_ops(scene, W * H * cfg_pt.spp, tally)
-    k7_work = (ops7, tab_bytes + sum(t.numel() * t.element_size() for t in pk._tables(scene)) + W * H * 3 * 4)
-    ops8 = frame_ops(scene, cfg_m, k8_ref["oid"]) + W * H * HIST_OPS
-    hist_bytes = sum(t.numel() * t.element_size() for ch in (hd, hs) for t in (ch.rgb, ch.cnt, ch.oid))
-    out_bytes = sum(t.numel() * t.element_size() for t in k8.values())
-    k8_work = (ops8, tab_bytes + 5 * 4 + hist_bytes + out_bytes)
-    ops4 = shade_ops(scene, cfg_p, gbuf_p.obj_id, 1) + W * H * 6
-    k4_io = (gbuf_p.normal, gbuf_p.obj_id, gbuf_p.depth, gbuf_p.ray_dir, seed_p, *k4)
-    k4_work = (ops4, tab_bytes + sum(t.numel() * t.element_size() for t in k4_io))
-    # The tile launches (phases 21-22): their share of the frame's work, on
-    # the middle tile's data.
-    k1r_work = (frame_ops(scene, cfg, k1r_ref["oid"]), tab_bytes + rows_t * W * (13 * 4 + 4))
-    k2t_io = (hl_t, sl_t, k1r_ref["oid"], *(t for ch in (win.diffuse, win.specular) for t in (ch.rgb, ch.cnt, ch.oid)),
-              *(t for pair in k2t_out for t in pair))
-    k2t_work = (rows_t * W * K2_OPS, sum(t.numel() * t.element_size() for t in k2t_io))
-    tail_t_work = (rows_t * W * (K2_OPS + TAIL_OPS), tail_io_bytes(tail_t_args, tail_t_out))
-    ops8t = frame_ops(scene, cfg_m, k8t_ref["oid"]) + rows_t * W * HIST_OPS
-    win_bytes = sum(t.numel() * t.element_size() for ch in (win.diffuse, win.specular)
-                    for t in (ch.rgb, ch.cnt, ch.oid))
-    k8t_work = (ops8t, tab_bytes + 5 * 4 + win_bytes + sum(t.numel() * t.element_size() for t in k8t.values()))
-    k5r_work = (3 * frame_ops(scene, cfg, k1m["oid"]), tab_bytes + sum(v.numel() * 4 for v in g_t.values()))
-    (k1r_bound, k2t_bound, k8t_bound, k5r_bound) = (bound(*w) for w in (k1r_work, k2t_work, k8t_work, k5r_work))
-    log(f"  bounds of one {rows_t}-row tile: K1 row mode {k1r_bound[0]:.4f} ms ({k1r_bound[1]}), K2 tile mode "
-        f"{k2t_bound[0]:.4f} ms ({k2t_bound[1]}), K8 tile mode {k8t_bound[0]:.4f} ms ({k8t_bound[1]}), K5 row mode "
-        f"{k5r_bound[0]:.4f} ms ({k5r_bound[1]})")
-    (k1_bound, k2_bound, k3_bound, k5_bound, k6_bound, k7_bound, k8_bound, k4_bound) = (
-        bound(*w) for w in (k1_work, k2_work, k3_work, k5_work, k6_work, k7_work, k8_work, k4_work))
-    k3_bound_b = bound(geometry_ops(scene, k3_box_work["b"]), k3_work[1])
-    log(f"  bounds at {W}x{H}: K8 {k8_bound[0]:.4f} ms ({k8_bound[1]}, {ops8 / 1e9:.3f} GFLOP, "
-        f"{(hist_bytes + out_bytes) / (W * H):.1f} B/pixel), K4 {k4_bound[0]:.4f} ms ({k4_bound[1]}, "
-        f"{ops4 / 1e9:.3f} GFLOP)")
-    log(f"  bounds at {W}x{H}: K1 {k1_bound[0]:.4f} ms ({k1_bound[1]}, {ops1 / 1e9:.3f} GFLOP), "
-        f"K2 {k2_bound[0]:.4f} ms ({k2_bound[1]}), with its tail {bound(*tail_work)[0]:.4f} ms "
-        f"({tail_work[1] / (W * H):.1f} B/pixel), K5 {k5_bound[0]:.4f} ms ({k5_bound[1]}), "
-        f"K6 {k6_bound[0]:.4f} ms ({k6_bound[1]}), K3 view (a) {k3_bound[0]:.4f} ms ({k3_bound[1]}, "
-        f"{ops3 / 1e9:.3f} GFLOP, {(W * H * 24) / 1e6:.1f} MB out; view (b) {k3_bound_b[0]:.4f} ms, "
-        f"{k3_bound_b[1]}, {geometry_ops(scene, k3_box_work['b']) / 1e9:.3f} GFLOP), K7 {k7_bound[0]:.4f} ms "
-        f"({k7_bound[1]}, {ops7 / 1e9:.3f} GFLOP on this data's segments)")
-
-    # Each entry's bound_ms: the operations over the data sheet's f32 peak
-    # with FMA (67 Top/s) or the bytes over the memory rate, the larger.
-    # Logged beside it: the operations at the rate without FMA (-fmad=false:
-    # K3-K9; an f32 lane retires one operation a clock), and the time at the
-    # best frame_mix rate of phase 24 (bound_measured_ms) and at frame_mix
-    # with 64 live planes (K1's and K8's 95-96 registers). The frame_mix
-    # rates are references for the frame kernels' own mix, not ceilings: the
-    # fma probe retires f32 operations faster, and K1's contracted pairs
-    # count two operations each. PERF.md §7 had K1, K8, K7 and K4 alone at
-    # 3.4x, 4.1x, 2.5x and 3.7x their bounds without FMA.
-    mix_rate = mix_best["value"]
-    mix_95 = next(r["value"] for r in k9_sweep if (r["template"], r["live_planes"]) == ("frame_mix", 64))
-
-    def entry(name, source, replaces, launches, err, ms, plain_ms, work, alone_ms=None):
-        bnd, no_fma, measured, at95 = (bound(*work, r) for r in (F32_FLOPS, nominal, mix_rate, mix_95))
-        t = ms if alone_ms is None else alone_ms
-        log(f"  {name}: {t:.4f} ms{'' if alone_ms is None else ' alone'} = {t / bnd[0]:.2f}x its bound_ms "
-            f"{bnd[0]:.4f} ({bnd[1]}, {F32_FLOPS / 1e12:.2f} Top/s), {t / no_fma[0]:.2f}x {no_fma[0]:.4f} at "
-            f"{nominal / 1e12:.2f} (no FMA), {t / measured[0]:.2f}x {measured[0]:.4f} at {mix_rate / 1e12:.2f} "
-            f"(best frame_mix, a reference), {t / at95[0]:.2f}x {at95[0]:.4f} at {mix_95 / 1e12:.2f} "
-            f"(frame_mix at 95 registers); {work[0] / 1e9:.3f} G operations, {work[1] / 1e6:.3f} MB [{card}]")
+    def entry(name, source, replaces, launches, err):
         return {"name": name, "route": "cuda", "source": f"kylespathtracer_tpu_torch/csrc/{source}",
-                "replaces": replaces, "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": bnd[0], "bound_by": bnd[1], "bound_measured_ms": measured[0], "library_ms": None,
-                **({} if alone_ms is None else {"alone_ms": alone_ms})}
+                "replaces": replaces, "launches": launches, "max_abs_err": err}
 
     # K2's two routes: the main path's split frames (phases 4, 28-30; the
     # sharded tiles of phase 23) run it with its tail; the tap sums alone
@@ -2812,41 +2120,35 @@ def main() -> int:
     jax_ops = "kylespathtracer_tpu/ops/"
     kernels = [
         entry("frame_forward", "frame_kernel.cu", jax_ops + "frame_kernel.py:381",
-              launches["frame"] + app_counts["frame"] + resume_launches["frame"], k1_stats["max_abs"], k1_ms,
-              k1_plain_ms, k1_work, alone_ms=k1_alone_ms),
-        entry("reproject_window", "reproject_kernel.cu", jax_ops + "reproject_kernel.py:290", k2_launches, k2_err,
-              k2_ms, k2_plain_ms, k2_work),
+              launches["frame"] + app_counts["frame"] + resume_launches["frame"], k1_stats["max_abs"]),
+        entry("reproject_window", "reproject_kernel.cu", jax_ops + "reproject_kernel.py:290", k2_launches, k2_err),
         entry("reproject_tail", "reproject_kernel.cu", jax_ops + "reproject_kernel.py:290",
-              launches["reproject tail"] + app_counts["reproject"], tail_err, tail_ms, tail_plain_ms, tail_work),
+              launches["reproject tail"] + app_counts["reproject"], tail_err),
         entry("frame_backward", "frame_grad.cu", jax_ops + "frame_grad.py:189",
-              train_launches["backward"] + resume_launches["backward"], k5_err, k5_ms, k5_plain_ms, k5_work),
+              train_launches["backward"] + resume_launches["backward"], k5_err),
         entry("render_loss_and_grad", "loss_kernel.cu", jax_ops + "loss_kernel.py:216",
-              rec_launches["loss"] + app_counts["loss"], k6_err, k6_ms, k6_plain_ms, k6_work),
-        entry("geometry_pass", "geometry_kernel.cu", jax_ops + "frame_kernel.py:494", raycast_launches,
-              k3_err, k3_ms, k3_plain_ms, k3_work, alone_ms=k3_alone_ms),
-        entry("pathtrace", "path_kernel.cu", jax_ops + "path_kernel.py:469", path_launches,
-              k7_err, k7_ms, k7_plain_ms, k7_work, alone_ms=k7_alone_ms),
+              rec_launches["loss"] + app_counts["loss"], k6_err),
+        entry("geometry_pass", "geometry_kernel.cu", jax_ops + "frame_kernel.py:494", raycast_launches, k3_err),
+        entry("pathtrace", "path_kernel.cu", jax_ops + "path_kernel.py:469", path_launches, k7_err),
         entry("frame_hist", "frame_hist.cu", jax_ops + "frame_hist.py:344", mono_launches["frame_hist"],
-              k8_stats["max_abs"], k8_ms, k8_plain_ms, k8_work, alone_ms=k8_alone_ms),
+              k8_stats["max_abs"]),
         entry("dual_mis", "shade_kernel.cu", jax_ops + "shade_kernel.py:836", pass_launches["dual_mis"],
-              k4_stats["max_abs"], k4_ms, k4_plain_ms, k4_work, alone_ms=k4_alone_ms),
+              k4_stats["max_abs"]),
         entry("frame_forward (rows)", "frame_kernel.cu", jax_ops + "frame_kernel.py:299",
-              rank_launches["frame rows"], k1r_stats["max_abs"], k1r_ms, k1r_plain_ms, k1r_work),
+              rank_launches["frame rows"], k1r_stats["max_abs"]),
         entry("reproject_window (tile)", "reproject_kernel.cu", jax_ops + "reproject_kernel.py:211",
-              k2t_launches, k2t_err, k2t_ms, k2t_plain_ms, k2t_work),
+              k2t_launches, k2t_err),
         entry("reproject_tail (tile)", "reproject_kernel.cu", jax_ops + "reproject_kernel.py:211",
-              rank_launches["reproject tile"], tail_t_err, tail_t_ms, tail_t_plain_ms, tail_t_work),
+              rank_launches["reproject tile"], tail_t_err),
         entry("frame_hist (tile)", "frame_hist.cu", jax_ops + "frame_hist.py:241", rank_launches["frame_hist tile"],
-              k8t_stats["max_abs"], k8t_ms, k8t_plain_ms, k8t_work),
+              k8t_stats["max_abs"]),
         entry("frame_backward (rows)", "frame_grad.cu", jax_ops + "frame_grad.py:117", rank_launches["backward rows"],
-              k5r_err, k5r_ms, k5r_plain_ms, k5r_work),
-        entry("mix_ceiling", "ceiling_kernel.cu", "bench_ceiling.py:194", k9_launches, k9_err, k9_ms,
-              k9_plain_ms, k9_work),
+              k5r_err),
+        entry("mix_ceiling", "ceiling_kernel.cu", "bench_ceiling.py:194", k9_launches, k9_err),
     ]
     idle = [k["name"] for k in kernels if k["launches"] < 1]
     if idle:
         raise AssertionError(f"kernels never launched on their paths: {idle}")
-    log(f"chip_smoke: {time.perf_counter() - T_START:.1f} s wall")
     log(card_line())
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -24,36 +24,6 @@
 
 namespace kpt {
 
-// The scene tables and the camera as the tensors hold them, in the order
-// of the flat tables `make_tables` reads (ops/frame_kernel.py:table_parts).
-constexpr int F_PARTS = 15, I_PARTS = 4;
-struct TableParts {
-  const float* f[F_PARTS];
-  const int* i[I_PARTS];
-  int nf[F_PARTS], ni[I_PARTS];
-};
-
-// Gather the parts into the flat tables in shared memory. Every thread of
-// the block calls it.
-__device__ inline Tables load_table_parts(float* smem, const TableParts& tp, const FrameParams& P) {
-  float* sf = smem;
-  int* si = reinterpret_cast<int*>(smem + table_floats(P.nP, P.nS, P.nB, P.nK));
-  int o = 0;
-#pragma unroll
-  for (int k = 0; k < F_PARTS; ++k) {
-    for (int j = threadIdx.x; j < tp.nf[k]; j += blockDim.x) sf[o + j] = tp.f[k][j];
-    o += tp.nf[k];
-  }
-  o = 0;
-#pragma unroll
-  for (int k = 0; k < I_PARTS; ++k) {
-    for (int j = threadIdx.x; j < tp.ni[k]; j += blockDim.x) si[o + j] = tp.i[k][j];
-    o += tp.ni[k];
-  }
-  __syncthreads();
-  return make_tables(sf, si, P.nP, P.nS, P.nB, P.nK);
-}
-
 // The block: 128 threads on a 16×8 tile of pixels.
 constexpr int BLOCK = 128, TILE_W = 16, TILE_H = 8;
 

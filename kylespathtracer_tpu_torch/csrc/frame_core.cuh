@@ -1,6 +1,7 @@
 // The fused frame's per-pixel body of the gradient kernels K5
 // (frame_grad.cu) and K6 (loss_kernel.cu), whose reverse sweep is
-// frame_adjoint.cuh; K1 and K8 run frame_body.cuh's form of it.
+// frame_adjoint.cuh; K1 and K8 run frame_body.cuh's form of it. Also the
+// scene-table loader of every frame-table kernel (`load_table_parts`).
 //
 // Per pixel: raygen, nearest analytic hit, closed-form normal and
 // curvature, dual-MIS shade (or the unbiased estimators), emission and
@@ -22,28 +23,55 @@ struct FrameParams {
   int gloss;
 };
 
-// Bytes of shared memory `load_tables` uses: the two tables and, for the
-// gradient kernels, the block's gradient sum of every f32 entry.
+// Bytes of shared memory `load_table_parts` uses: the two tables and, for
+// the gradient kernels, the block's gradient sum of every f32 entry.
 __host__ __device__ inline size_t table_smem(int nP, int nS, int nB, int nK, bool grad) {
   const int nf = table_floats(nP, nS, nB, nK);
   return sizeof(float) * nf * (grad ? 2 : 1) + sizeof(int) * table_ints(nP, nS, nB);
 }
 
-// Copy the tables into shared memory; with `grad`, also zero the block's
-// gradient sums and point *grad at them. Every thread of the block calls it.
-__device__ inline Tables load_tables(float* smem, const float* ftab, const int* itab, const FrameParams& P,
-                                     float** grad = nullptr) {
+// The scene tables and the camera as the tensors hold them, in the order
+// of the flat tables `make_tables` reads (ops/frame_kernel.py:table_parts).
+constexpr int F_PARTS = 15, I_PARTS = 4;
+struct TableParts {
+  const float* f[F_PARTS];
+  const int* i[I_PARTS];
+  int nf[F_PARTS], ni[I_PARTS];
+};
+
+// The address of entry j of the flat table that parts p[0..N) of sizes
+// n[0..N) make end to end: the last part that starts at or before j (an
+// empty part gives way to the next). A select chain, not a loop per part,
+// so the loader's loads do not wait on each other.
+template <int N, typename T>
+__device__ __forceinline__ const T* part_entry(const T* const (&p)[N], const int (&n)[N], int j) {
+  const T* at = p[0] + j;
+#pragma unroll
+  for (int k = 1; k < N; ++k) {
+    j -= n[k - 1];
+    if (j >= 0) at = p[k] + j;
+  }
+  return at;
+}
+
+// Gather the parts into the flat tables in shared memory; with `grad`, also
+// zero the block's gradient sums and point *grad at them. Every thread of
+// the block calls it; 1-D and 2-D blocks stride by the flat thread id. The
+// loads take the read-only cache (`__ldg`): with a loop per part and plain
+// loads, K6 took 0.8% longer a step on the H100 (PERF.md §6).
+__device__ inline Tables load_table_parts(float* smem, const TableParts& tp, const FrameParams& P,
+                                          float** grad = nullptr) {
   const int nf = table_floats(P.nP, P.nS, P.nB, P.nK);
   const int ni = table_ints(P.nP, P.nS, P.nB);
   float* sf = smem;
   int* si = reinterpret_cast<int*>(smem + nf);
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
   const int nthreads = blockDim.x * blockDim.y;
-  for (int i = tid; i < nf; i += nthreads) sf[i] = ftab[i];
-  for (int i = tid; i < ni; i += nthreads) si[i] = itab[i];
+  for (int j = tid; j < nf; j += nthreads) sf[j] = __ldg(part_entry(tp.f, tp.nf, j));
+  for (int j = tid; j < ni; j += nthreads) si[j] = __ldg(part_entry(tp.i, tp.ni, j));
   if (grad) {
     float* sg = reinterpret_cast<float*>(si + ni);
-    for (int i = tid; i < nf; i += nthreads) sg[i] = 0.0f;
+    for (int j = tid; j < nf; j += nthreads) sg[j] = 0.0f;
     *grad = sg;
   }
   __syncthreads();

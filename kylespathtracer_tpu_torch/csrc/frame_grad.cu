@@ -5,7 +5,7 @@
 // jax.vjp of it to the cotangent planes, accumulate the scene-table
 // gradients). Given cotangent planes g_k for the frame's float outputs,
 // it returns Σ_pixels Σ_k g_k · ∂out_k/∂θ for every requested entry θ of
-// the flat f32 scene table (ops/frame_kernel.py:pack_tables order).
+// the flat f32 scene table (ops/frame_kernel.py:table_parts order).
 //
 // What bounds it on an H100: arithmetic. The only device-memory traffic is
 // the cotangent planes, read once (≤ 13 f32 per pixel), and a few hundred
@@ -32,14 +32,12 @@
 
 namespace kpt {
 
-__global__ void __launch_bounds__(128, 5) frame_grad_kernel(const float* __restrict__ ftab,
-                                                            const int* __restrict__ itab,
-                                                            const int* __restrict__ seeds, int n_seeds,
+__global__ void __launch_bounds__(128, 5) frame_grad_kernel(TableParts tp, const int* __restrict__ seeds, int n_seeds,
                                                             FrameParams P, const float* __restrict__ g, int present,
                                                             float* __restrict__ out_g) {
   extern __shared__ float smem[];
   float* sg;
-  const Tables T = load_tables(smem, ftab, itab, P, &sg);
+  const Tables T = load_table_parts(smem, tp, P, &sg);
   Grad G(sg);
   const int x = blockIdx.x * blockDim.x + threadIdx.x;
   const int r = blockIdx.y * blockDim.y + threadIdx.y;
@@ -62,8 +60,8 @@ __global__ void __launch_bounds__(128, 5) frame_grad_kernel(const float* __restr
 // rows [row_base, row_base+rows), in output order (bit k of `present`: plane
 // k). out_g[n_seeds] must be zeroed; seeds[i] is the flat-table entry whose
 // gradient lands in out_g[i].
-extern "C" int kpt_frame_backward(const float* ftab, const int* itab, const int* seeds, int n_seeds, int nP,
-                                  int nS, int nB, int nK, int width, int height, float fov, int frame, int row_base,
+extern "C" int kpt_frame_backward(const kpt::TableParts* tp, const int* seeds, int n_seeds, int nP, int nS,
+                                  int nB, int nK, int width, int height, float fov, int frame, int row_base,
                                   int rows, int smp, int decorrelate, int biased, float soft_beta, int gloss,
                                   const float* g, int present, float* out_g, void* stream) {
   if (nP > kpt::MAX_PLANES) return (int)cudaErrorInvalidValue;
@@ -72,7 +70,7 @@ extern "C" int kpt_frame_backward(const float* ftab, const int* itab, const int*
                      smp, decorrelate, biased, soft_beta, gloss};
   const size_t shmem = kpt::table_smem(nP, nS, nB, nK, true);
   const dim3 grid((width + 15) / 16, (rows + 7) / 8);
-  kpt::frame_grad_kernel<<<grid, dim3(16, 8), shmem, (cudaStream_t)stream>>>(ftab, itab, seeds, n_seeds, P, g,
-                                                                              present, out_g);
+  kpt::frame_grad_kernel<<<grid, dim3(16, 8), shmem, (cudaStream_t)stream>>>(*tp, seeds, n_seeds, P, g, present,
+                                                                              out_g);
   return (int)cudaGetLastError();
 }

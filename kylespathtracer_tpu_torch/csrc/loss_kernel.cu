@@ -5,7 +5,7 @@
 // ACES and sRGB, then MSE against a target or the plain sum, and jax.vjp of
 // that scalar with cotangent 1). One launch returns the summed per-pixel
 // loss and its gradient for every requested entry of the flat f32 scene
-// table (ops/frame_kernel.py:pack_tables order); the wrapper divides both
+// table (ops/frame_kernel.py:table_parts order); the wrapper divides both
 // by H·W·3.
 //
 // What bounds it on an H100: arithmetic, as for K5 (frame_grad.cu). Device
@@ -58,13 +58,13 @@ __device__ void composite_pixel(const S v[13], float brightness, S img[3]) {
   }
 }
 
-__global__ void __launch_bounds__(128, 5) loss_grad_kernel(const float* __restrict__ ftab, const int* __restrict__ itab,
-                                                           const int* __restrict__ seeds, int n_seeds, FrameParams P,
-                                                           float brightness, int mse, const float* __restrict__ target,
+__global__ void __launch_bounds__(128, 5) loss_grad_kernel(TableParts tp, const int* __restrict__ seeds, int n_seeds,
+                                                           FrameParams P, float brightness, int mse,
+                                                           const float* __restrict__ target,
                                                            float* __restrict__ out_loss, float* __restrict__ out_g) {
   extern __shared__ float smem[];
   float* sg;
-  const Tables T = load_tables(smem, ftab, itab, P, &sg);
+  const Tables T = load_table_parts(smem, tp, P, &sg);
   Grad G(sg);
   const int x = blockIdx.x * blockDim.x + threadIdx.x;
   const int r = blockIdx.y * blockDim.y + threadIdx.y;
@@ -107,8 +107,8 @@ __global__ void __launch_bounds__(128, 5) loss_grad_kernel(const float* __restri
 // target: [3][height][width] planes (read when mse != 0). out_loss[1] and
 // out_g[n_seeds] must be zeroed; both hold sums over the pixels, out_g[i]
 // the gradient of flat-table entry seeds[i].
-extern "C" int kpt_loss_grad(const float* ftab, const int* itab, const int* seeds, int n_seeds, int nP, int nS,
-                             int nB, int nK, int width, int height, float fov, int frame, int smp, int decorrelate,
+extern "C" int kpt_loss_grad(const kpt::TableParts* tp, const int* seeds, int n_seeds, int nP, int nS, int nB,
+                             int nK, int width, int height, float fov, int frame, int smp, int decorrelate,
                              int biased, float soft_beta, int gloss, float brightness, int mse, const float* target,
                              float* out_loss, float* out_g, void* stream) {
   if (nP > kpt::MAX_PLANES) return (int)cudaErrorInvalidValue;
@@ -116,8 +116,7 @@ extern "C" int kpt_loss_grad(const float* ftab, const int* itab, const int* seed
                      smp, decorrelate, biased, soft_beta, gloss};
   const size_t shmem = kpt::table_smem(nP, nS, nB, nK, true);
   const dim3 grid((width + 15) / 16, (height + 7) / 8);
-  kpt::loss_grad_kernel<<<grid, dim3(16, 8), shmem, (cudaStream_t)stream>>>(ftab, itab, seeds, n_seeds, P,
-                                                                             brightness, mse, target, out_loss,
-                                                                             out_g);
+  kpt::loss_grad_kernel<<<grid, dim3(16, 8), shmem, (cudaStream_t)stream>>>(*tp, seeds, n_seeds, P, brightness, mse,
+                                                                             target, out_loss, out_g);
   return (int)cudaGetLastError();
 }

@@ -68,8 +68,8 @@ __device__ __forceinline__ V3T<S> reflect(V3T<S> i, V3T<S> n) {
   return {i.x - d * n.x, i.y - d * n.y, i.z - d * n.z};
 }
 
-// The scene tables: offsets into the flat f32 table `f`, in the order
-// ops/frame_kernel.py:pack_tables writes them, and the i32 ID tables.
+// The scene tables: offsets into the flat f32 table `f`, in the order of
+// ops/frame_kernel.py:_table_tensors, and the i32 ID tables.
 struct Tables {
   int nP, nS, nB, nK;
   const float* f;

@@ -54,8 +54,8 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 
 
-# The structs that K1, K3, K4, K7 and K8 take by pointer, packed by the
-# wrappers: csrc/frame_body.cuh:TableParts (15 f32 and 4 i32 pointers, then
+# The structs that K1 and K3-K8 take by pointer, packed by the
+# wrappers: csrc/frame_core.cuh:TableParts (15 f32 and 4 i32 pointers, then
 # their 15 and 4 lengths), csrc/frame_kernel.cu:FrameOut (K1's 7 output
 # planes), csrc/geometry_kernel.cu:GeoOut (K3's depth, curv, normal, oid)
 # and csrc/shade_kernel.cu:ShadeIO (K4's G-buffer in and estimator pair
@@ -82,18 +82,18 @@ _SIGNATURES = {
     "kpt_reproject_frame": (
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _F, _I, _I, _I, _I, _I, _I, _P, _P,
     ),
-    # ftab, itab, seeds, n_seeds, nP, nS, nB, nK, width, height, fov, frame,
+    # parts, seeds, n_seeds, nP, nS, nB, nK, width, height, fov, frame,
     # row_base, rows, smp, decorrelate, biased, soft_beta, gloss, g, present,
     # out_g, stream
     "kpt_frame_backward": (
-        _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I,
+        _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I,
         _I, _I, _I, _F, _I, _P, _I, _P, _P,
     ),
-    # ftab, itab, seeds, n_seeds, nP, nS, nB, nK, width, height, fov, frame,
+    # parts, seeds, n_seeds, nP, nS, nB, nK, width, height, fov, frame,
     # smp, decorrelate, biased, soft_beta, gloss, brightness, mse, target,
     # out_loss, out_g, stream
     "kpt_loss_grad": (
-        _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I,
+        _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I,
         _I, _I, _I, _F, _I, _F, _I, _P, _P, _P, _P,
     ),
     # parts, nP, nS, nB, nK, width, height, fov, out, stream

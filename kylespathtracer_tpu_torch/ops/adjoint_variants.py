@@ -123,7 +123,6 @@ import json
 import os
 import re
 import shutil
-import statistics
 import subprocess
 import sys
 import time
@@ -149,7 +148,7 @@ from kylespathtracer_tpu_torch.render.camera import Camera
 from kylespathtracer_tpu_torch.render.passes import Channel
 from kylespathtracer_tpu_torch.scene.scene import default_scene
 from kylespathtracer_tpu_torch.utils.config import RenderConfig
-from kylespathtracer_tpu_torch.utils.metrics import card_line
+from kylespathtracer_tpu_torch.utils.metrics import card_line, cuda_ms
 
 ROOT = Path(__file__).resolve().parents[2]
 ADJ, SHADE, BODY, HIST, PATH, GEO = ("frame_adjoint.cuh", "shade_core.cuh", "frame_body.cuh", "frame_hist.cu",
@@ -246,21 +245,6 @@ GROUPS = {
                  ("frame_kernel.cu", "reproject_kernel.cu", "frame_grad.cu", "loss_kernel.cu", "path_kernel.cu",
                   "frame_hist.cu", "shade_kernel.cu", "ceiling_kernel.cu")),
 }
-
-
-def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
-    """Median milliseconds of fn() over `reps` runs, timed with CUDA events."""
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(reps):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
 
 
 def burst_ms(fn, n: int = 50) -> float:

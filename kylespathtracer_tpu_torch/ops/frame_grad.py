@@ -25,6 +25,8 @@ gradient is the tile's partial sum, which the trainer sums over the ranks.
 
 from __future__ import annotations
 
+import itertools
+
 import torch
 
 from kylespathtracer_tpu_torch.ops import _build
@@ -43,9 +45,9 @@ ROW_LAUNCHES = 0
 DIFF_IDX = (0, 2, 4, 6, 7, 9, 10, 12, 13, 14, 15, 16, 17, 18)
 DIFF_NAMES = ("planes", "spheres", "boxes", "light_color", "light", "s0", "s1",
               "alb_const", "alb_scale", "emission", "en_const", "en_scale", "loc", "orient")
-# The f32 tables of frame_kernel.pack_tables, in its order, by small
-# operand index (11 is mat_freq, which has no gradient).
-_PACK_IDX = (0, 2, 4, 6, 7, 9, 10, 11, 12, 13, 14, 15, 16, 17, 18)
+# The f32 table part (frame_kernel._table_tensors order) behind each
+# DIFF_IDX table: every part but mat_freq's (7), which has no gradient.
+_DIFF_PARTS = (0, 1, 2, 3, 4, 5, 6, 8, 9, 10, 11, 12, 13, 14)
 
 # The differentiable scene and camera tensors, by the names
 # `assemble_grads` gives their gradients, and the DIFF_IDX positions each
@@ -73,23 +75,15 @@ def needs_for(names) -> tuple:
     return tuple(i in pos for i in range(len(DIFF_IDX)))
 
 
-def _table_shapes(scene: Scene) -> dict:
-    """(rows, cols) of each f32 table in pack_tables, by small operand index."""
-    P, S, B = fk._counts(scene)
-    K = int(scene.materials.s0.shape[0])
-    return {0: (P, 4), 2: (S, 4), 4: (B, 7), 6: (1, 3), 7: (1, 4), 9: (K, 1),
-            10: (K, 1), 11: (K, 1), 12: (K, 3), 13: (K, 3), 14: (K, 3),
-            15: (K, 2), 16: (K, 2), 17: (1, 3), 18: (1, 2)}
-
-
 def _layout(scene: Scene) -> list:
-    """(offset, rows, cols) of each DIFF_IDX table in the flat f32 table."""
-    shapes = _table_shapes(scene)
-    offsets, off = {}, 0
-    for k in _PACK_IDX:
-        offsets[k] = off
-        off += shapes[k][0] * shapes[k][1]
-    return [(offsets[k], *shapes[k]) for k in DIFF_IDX]
+    """(offset, rows, cols) of each DIFF_IDX table in the flat f32 table
+    that the kernels gather from `frame_kernel.table_parts`: the offsets
+    are running sums of `part_sizes`, and a table's row is its size for one
+    plane, sphere, box and material."""
+    sizes = fk.part_sizes(*fk._counts(scene), int(scene.materials.s0.shape[0]))[0]
+    cols = fk.part_sizes(1, 1, 1, 1)[0]
+    offsets = (0, *itertools.accumulate(sizes))
+    return [(offsets[p], sizes[p] // cols[p], cols[p]) for p in _DIFF_PARTS]
 
 
 def seed_indices(scene: Scene, needs, device) -> torch.Tensor:
@@ -230,9 +224,9 @@ def frame_backward(scene: Scene, camera, frame, g: dict, config, needs=None,
         if planes.shape[1:] != (H, W) or planes.device != device:
             raise ValueError(f"cotangent planes must be [{H}, {W}] on {device}, "
                              f"got {tuple(planes.shape[1:])} on {planes.device}")
-        ftab, itab = fk.pack_tables(scene, camera)
+        parts = fk.table_parts(scene, camera)
         err = _build.load().kpt_frame_backward(
-            ftab.data_ptr(), itab.data_ptr(), seeds.data_ptr(), seeds.numel(),
+            fk.table_parts_struct(*parts), seeds.data_ptr(), seeds.numel(),
             *counts, fk._wrap32(int(frame)), int(row_base), H, *shading, planes.data_ptr(),
             present, out_g.data_ptr(), torch.cuda.current_stream(device).cuda_stream,
         )

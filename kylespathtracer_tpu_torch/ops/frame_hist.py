@@ -252,8 +252,8 @@ def frame_hist_launch(scene, camera, prev_camera, history_d: Channel, history_s:
                       rows: int | None = None, hist_halo: int = 0):
     """`frame_hist`'s CUDA route in two steps → (launch, out): the arguments
     are checked and the result dict allocated here; launch() launches K8
-    once into it and counts it. chip_smoke.py and ops/adjoint_variants.py
-    time launch() alone beside frame_hist."""
+    once into it and counts it. ops/adjoint_variants.py times launch()
+    alone beside frame_hist."""
     fk.check_planes_for_biased(scene, config)
     device = scene.device
     if device.type != "cuda":

@@ -353,15 +353,6 @@ def _table_tensors(scene: Scene, camera):
              scene.light_id.reshape(1)))
 
 
-def pack_tables(scene: Scene, camera):
-    """The scene tables and camera in the kernels' two flat buffers (f32,
-    i32), in `_table_tensors`' order."""
-    f, i = _table_tensors(scene, camera)
-    f = torch.cat([t.reshape(-1).to(torch.float32) for t in f])
-    i = torch.cat([t.reshape(-1).to(torch.int32) for t in i])
-    return f.contiguous(), i.contiguous()
-
-
 def part_sizes(nP: int, nS: int, nB: int, nK: int):
     """Entries of each of `_table_tensors`' tensors for nP planes, nS
     spheres, nB boxes and nK materials (the offsets of `make_tables` in
@@ -371,9 +362,8 @@ def part_sizes(nP: int, nS: int, nB: int, nK: int):
 
 
 def table_parts(scene: Scene, camera):
-    """The tensors that K1, K4, K7 and K8 gather into their shared-memory
-    tables in place of `pack_tables`' two buffers
-    (csrc/frame_body.cuh:TableParts) →
+    """The tensors that every frame-table kernel (K1 and K3-K8) gathers
+    into its shared-memory tables (csrc/frame_core.cuh:TableParts) →
     (f32 tensors, i32 tensors), each contiguous, in `_table_tensors`' order.
     Raises unless every tensor has its dtype, the scene's device and the
     size `part_sizes` gives it."""
@@ -389,7 +379,7 @@ def table_parts(scene: Scene, camera):
 
 
 def table_parts_struct(f, i) -> bytes:
-    """`table_parts`' tensors packed as csrc/frame_body.cuh:TableParts
+    """`table_parts`' tensors packed as csrc/frame_core.cuh:TableParts
     (pointers, then lengths), for a kernel entry point's `parts`."""
     return _build.TABLE_PARTS.pack(*(t.data_ptr() for t in f), *(t.data_ptr() for t in i),
                                    *(t.numel() for t in f), *(t.numel() for t in i))
@@ -497,8 +487,8 @@ def frame_launch(scene: Scene, camera, frame, config, row_base: int = 0,
                  rows: int | None = None):
     """`frame_forward`'s CUDA route in two steps → (launch, out): the
     arguments are checked and the frame dict allocated here; launch()
-    launches K1 once into it and counts it. chip_smoke.py and
-    ops/adjoint_variants.py time launch() alone beside frame_forward."""
+    launches K1 once into it and counts it. ops/adjoint_variants.py times
+    launch() alone beside frame_forward."""
     check_planes_for_biased(scene, config)
     device = scene.device
     if device.type != "cuda":

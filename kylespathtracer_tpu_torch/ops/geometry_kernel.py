@@ -76,8 +76,8 @@ def geometry_launch(scene: Scene, camera, frame, config):
     """`geometry_pass`'s CUDA route in two steps → (launch, out): the
     arguments are checked, the scene's table tensors gathered and the dict
     allocated here; launch() launches K3 once into it and counts it.
-    chip_smoke.py and ops/adjoint_variants.py time launch() alone beside
-    geometry_pass. `frame` is not read."""
+    ops/adjoint_variants.py times launch() alone beside geometry_pass.
+    `frame` is not read."""
     del frame
     device = scene.device
     if device.type != "cuda":

@@ -119,9 +119,9 @@ def render_loss_and_grad(scene: Scene, camera, frame, config, target=None,
     tgt = target.to(torch.float32).permute(2, 0, 1).contiguous() if mse else out_loss
     if tgt.device != device:
         raise ValueError(f"target on {tgt.device}, scene on {device}")
-    ftab, itab = fk.pack_tables(scene, camera)
+    parts = fk.table_parts(scene, camera)
     err = _build.load().kpt_loss_grad(
-        ftab.data_ptr(), itab.data_ptr(), seeds.data_ptr(), seeds.numel(),
+        fk.table_parts_struct(*parts), seeds.data_ptr(), seeds.numel(),
         *counts, fk._wrap32(int(frame)), *shading, float(config.brightness),
         int(mse), tgt.data_ptr(), out_loss.data_ptr(), out_g.data_ptr(),
         torch.cuda.current_stream(device).cuda_stream,

@@ -300,8 +300,8 @@ def path_launch(scene: Scene, camera, config, frame=0, lib=None):
     are checked and the image allocated here; launch() launches K7 once
     into it and counts it. The kernel gathers the scene's tables from the
     scene's own tensors (`frame_kernel.table_parts`) and the BSDF kinds and
-    iors from `_tables`; nothing is packed. chip_smoke.py and
-    ops/adjoint_variants.py time launch() alone beside `pathtrace`. `lib`:
+    iors from `_tables`; nothing is packed. ops/adjoint_variants.py times
+    launch() alone beside `pathtrace`. `lib`:
     another build of the kernel (`census`), whose launches are not counted."""
     device = scene.device
     if device.type != "cuda":

@@ -621,8 +621,8 @@ def dual_mis_launch(scene, gb, camera, seed, config):
     arguments are checked and the outputs allocated here; launch()
     launches K4 once into them and counts it. The kernel gathers the
     scene's tables from the scene's own tensors
-    (`frame_kernel.table_parts`); nothing is packed. chip_smoke.py and
-    ops/adjoint_variants.py time launch() alone beside `dual_mis`."""
+    (`frame_kernel.table_parts`); nothing is packed.
+    ops/adjoint_variants.py times launch() alone beside `dual_mis`."""
     from kylespathtracer_tpu_torch.ops import _build
     from kylespathtracer_tpu_torch.ops import frame_kernel as fk
 

@@ -35,9 +35,8 @@ _BIG = 1e9
 # The march looks at its rays every CHECK_EVERY steps: it stops once every
 # ray is done and otherwise carries on with the rays still live. A done ray
 # is frozen, so t and the object ID do not depend on it; each look costs one
-# host sync. chip_smoke.py phase 25 times 1, 4, 8, 16 and 32 on the 1080p
-# G-buffer; on an H100, over two runs of two views in two turns, 8 had the
-# least median (145 ms a G-buffer; 16: 155, 4: 159, 32: 172, 1: 204), though
+# host sync. Timed at 1, 4, 8, 16 and 32 on the 1080p G-buffer on an H100,
+# over two runs of two views in two turns, 8 had the least median (145 ms a G-buffer; 16: 155, 4: 159, 32: 172, 1: 204), though
 # 4-32 lie within the runs' noise.
 CHECK_EVERY = 8
 # Steps taken (summed over the rays' compacted batches, one per loop

@@ -4,8 +4,8 @@ Port of kylespathtracer_tpu/utils/metrics.py: every step emits a JSONL
 record (`MetricsLogger`), a block can be traced with torch.profiler
 (`profiler_trace`) and every span of the port goes through `span` (the
 frame and its stages, render/pipeline.py:STAGES; the optimizer step,
-diff/inverse.py:FIT_STAGES), and `Timer` and `time_fn` time device work
-behind a synchronize. `slope_fit` is the arithmetic of the benches' slope
+diff/inverse.py:FIT_STAGES), `Timer` and `time_fn` time device work
+behind a synchronize and `cuda_ms` with CUDA events. `slope_fit` is the arithmetic of the benches' slope
 timings (bench.py, bench_ceiling.py) and `card_line` names the card beside
 every measurement.
 """
@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import statistics
 import subprocess
 import sys
 import time
@@ -45,6 +46,21 @@ def card_line() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
+    """Median milliseconds of fn() over `reps` runs, timed with CUDA events."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
 
 
 def slope_fit(ks, totals, slack: float = 0.0) -> tuple[float, list, bool]:

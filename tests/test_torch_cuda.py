@@ -604,30 +604,53 @@ def test_pass_pipeline_on_card_runs_the_shade_kernel(dev):
 
 
 def test_path_and_shade_wrappers_pack_no_tables(dev):
-    """K7's and K4's wrappers hand the kernels the scene's own tensors
-    (frame_kernel.table_parts): one call of each launches its kernel and
-    no concatenation."""
+    """The wrappers of K7, K4, K5 and K6 hand the kernels the scene's own
+    tensors (frame_kernel.table_parts): one call of each launches its
+    kernel and concatenates none of those tensors; K7's and K4's
+    concatenate nothing at all (K5's and K6's join their seed list, and
+    K5's its cotangent planes)."""
     from torch.autograd import DeviceType
+    from torch.overrides import TorchFunctionMode
     from torch.profiler import ProfilerActivity, profile
+
+    class Joins(TorchFunctionMode):
+        """The tensor lists handed to torch.cat and torch.stack."""
+
+        def __init__(self):
+            super().__init__()
+            self.lists = []
+
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            if func in (torch.cat, torch.concat, torch.stack):
+                self.lists.append(list(args[0]))
+            return func(*args, **(kwargs or {}))
 
     scene = default_scene(device=dev)
     cam = Camera.create(loc=(3.0, 2.0, -3.0), orient=(0.0, 0.7), device=dev)
-    cfg_p = RenderConfig(width=64, height=32, pipeline="pass", shade_backend="pallas")
+    cfg = RenderConfig(width=64, height=32)
+    cfg_p = dataclasses.replace(cfg, pipeline="pass", shade_backend="pallas")
     gb = gbuffer.geometry_pass(scene, cam, cfg_p)
     _, seed = passes._shade_common(scene, cfg_p, gb, cam, 3)
-    calls = {"path_kernel": lambda: pk.pathtrace(scene, cam, RenderConfig(width=64, height=32, spp=1), 0),
-             "shade_kernel": lambda: sk.dual_mis(scene, gb, cam, seed, cfg_p)}
+    cot = {"add_d": torch.ones((32, 64, 3), device=dev)}
+    calls = {"path_kernel": lambda: pk.pathtrace(scene, cam, dataclasses.replace(cfg, spp=1), 0),
+             "shade_kernel": lambda: sk.dual_mis(scene, gb, cam, seed, cfg_p),
+             "frame_grad_kernel": lambda: fg.frame_backward(scene, cam, 3, cot, cfg),
+             "loss_grad_kernel": lambda: lk.render_loss_and_grad(scene, cam, 3, cfg, loss="mean")}
+    tables = {t.data_ptr() for ts in fk.table_parts(scene, cam) for t in ts}
     for kernel, call in calls.items():
         call()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             time.sleep(PROFILER_MARGIN_S)
-            call()
+            with Joins() as joins:
+                call()
             torch.cuda.synchronize()
             time.sleep(PROFILER_MARGIN_S)
         names = [(e.device_type, e.name) for e in prof.events()]
         assert any(t == DeviceType.CUDA and kernel in n for t, n in names), f"{kernel} did not launch"
-        assert not any("cat" in n for t, n in names if t == DeviceType.CPU), f"{kernel}'s wrapper packs tables"
+        assert not any(t.data_ptr() in tables for ts in joins.lists for t in ts), f"{kernel}'s wrapper packs tables"
+        if kernel in ("path_kernel", "shade_kernel"):
+            assert not any("cat" in n for t, n in names if t == DeviceType.CPU), f"{kernel}'s wrapper packs tables"
 
 
 def _two_step(dev, kernel):
@@ -656,8 +679,8 @@ def _two_step(dev, kernel):
     return launch, out, inputs
 
 
-# The two-step routes that chip_smoke.py and ops/adjoint_variants.py time by
-# their launch alone: launch() keeps alive every tensor whose address it
+# The two-step routes that ops/adjoint_variants.py times by their launch
+# alone: launch() keeps alive every tensor whose address it
 # hands the kernel, so with the caller's references dropped none is freed,
 # and tensors allocated next (which the caching allocator would give the
 # freed blocks) keep what was written into them.

@@ -111,10 +111,11 @@ def test_cpu_tensors_take_the_plain_version():
         assert (a[k] == b[k]).all(), k
 
 
-def test_pack_tables_layout():
-    """The flat kernel tables hold every scene table in the documented order."""
+def test_table_parts_layout():
+    """The flat tables the kernels gather from `table_parts` hold every
+    scene table in the documented order."""
     scene, cam = to_torch_scene(default_scene()), to_torch_camera(CAM)
-    f, i = fk.pack_tables(scene, cam)
+    f, i = (torch.cat([t.reshape(-1) for t in ts]) for ts in fk.table_parts(scene, cam))
     P, S, B, K = 4, 1, 1, 8
     assert f.numel() == P * 4 + S * 4 + B * 7 + 3 + 4 + K * 16 + 5
     assert i.numel() == P + S + B + 1

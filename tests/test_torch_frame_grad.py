@@ -195,18 +195,18 @@ def test_frame_backward_computes_only_the_tables_asked_for(case):
 
 @pytest.mark.parametrize("case", list(CASES))
 def test_seed_indices_address_the_packed_tables(case):
-    """The kernels' tangent seeds index the flat table of pack_tables: the
-    seeded entries, in order, are the DIFF_IDX operands' values."""
+    """The kernels' tangent seeds index the flat f32 table that they gather
+    from `table_parts`: the seeded entries, in order, are the DIFF_IDX
+    operands' values."""
     scene, cam, _, _, _ = _port(case)
-    ftab, _ = fk.pack_tables(scene, cam)
+    flat = torch.cat([t.reshape(-1) for t in fk.table_parts(scene, cam)[0]])
     seeds = fg.seed_indices(scene, fg.needs_for(None), "cpu")
     ops = fk.small_operands(scene, cam, FRAME)
     counts = dict(zip((0, 2, 4), fk._counts(scene)))
     want = torch.cat([ops[k][:counts.get(k, ops[k].shape[0])].reshape(-1)
                       for k in fg.DIFF_IDX])
-    assert torch.equal(ftab[seeds.long()], want)
-    flat = torch.arange(seeds.numel(), dtype=torch.float32)
-    tables = fg.unpack_grads(scene, fg.needs_for(None), flat)
+    assert torch.equal(flat[seeds.long()], want)
+    tables = fg.unpack_grads(scene, fg.needs_for(None), torch.arange(seeds.numel(), dtype=torch.float32))
     assert [tuple(t.shape) for t in tables] == [tuple(ops[k].shape) for k in fg.DIFF_IDX]
 
 

@@ -25,7 +25,6 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
-from chip_smoke import card_line, cuda_ms  # noqa: E402
 from kylespathtracer_tpu_torch.ops import _build  # noqa: E402
 from kylespathtracer_tpu_torch.ops import geometry_kernel as gk  # noqa: E402
 from kylespathtracer_tpu_torch.ops import path_kernel as pk  # noqa: E402
@@ -33,6 +32,7 @@ from kylespathtracer_tpu_torch.render.camera import Camera  # noqa: E402
 from kylespathtracer_tpu_torch.scene.scene import default_scene, sphere_scene  # noqa: E402
 from kylespathtracer_tpu_torch.scene.types import BSDF  # noqa: E402
 from kylespathtracer_tpu_torch.utils.config import RenderConfig  # noqa: E402
+from kylespathtracer_tpu_torch.utils.metrics import card_line, cuda_ms  # noqa: E402
 
 SOURCES = ("geometry_kernel.cu", "path_kernel.cu")
 
