@@ -162,24 +162,25 @@ def frame_agreement(out: dict, ref: dict, what: str) -> dict:
 TAIL_MOVE = (0.01, -0.01, 0.01)
 
 
-def tail_plain(prev_cam, loc, hl, sl, out, prev_d, prev_s, config, image_height=None, row_base=0, hist_halo=0):
-    """K2 with its tail as the plain route, on the tensors' device:
-    `reproject_frame_plain`, `accumulate` for each set against the camera's
-    speed, `composite_from` → (image, diffuse, specular), as
-    `reproject_tail` returns them."""
+def tail_plain(scene, cam, prev_cam, out, prev_d, prev_s, config, image_height=None, row_base=0, hist_halo=0):
+    """K2 with its tail as the plain route, on the tensors' device: the rays
+    and anchors (`reprojection_anchors`), `reproject_frame_plain`,
+    `accumulate` for each set against the camera's speed, `composite_from` →
+    (image, diffuse, specular), as `reproject_tail` returns them."""
     from kylespathtracer_tpu_torch.core import gmath
     from kylespathtracer_tpu_torch.ops import reproject_kernel as rk
+    from kylespathtracer_tpu_torch.render import passes
     from kylespathtracer_tpu_torch.render.composite import composite_from
-    from kylespathtracer_tpu_torch.render.passes import accumulate
 
     ho = out["oid"]
     H = ho.shape[0] if image_height is None else image_height
     K = min(config.reproject_window, rk.MAX_WINDOW)
+    hl, sl = passes.reprojection_anchors(scene, cam, out, config.fov, H, row_base)
     (rgb_d, cnt_d), (rgb_s, cnt_s) = rk.reproject_frame_plain(prev_cam, hl, sl, ho, prev_d, prev_s, config.fov,
                                                               K, H, row_base, hist_halo)
-    vv = gmath.length(loc - prev_cam.loc)
-    d = accumulate(rgb_d, cnt_d, out["add_d"], vv, ho, config)
-    s = accumulate(rgb_s, cnt_s, out["add_s"], vv, ho, config)
+    vv = gmath.length(cam.loc - prev_cam.loc)
+    d = passes.accumulate(rgb_d, cnt_d, out["add_d"], vv, ho, config)
+    s = passes.accumulate(rgb_s, cnt_s, out["add_s"], vv, ho, config)
     return composite_from(out["alb"], out["ene"], d, s, config), d, s
 
 
@@ -1447,9 +1448,7 @@ def main() -> int:
             oid=ref["oid"].clone(),
         )
 
-    from kylespathtracer_tpu_torch.render.camera import ray_dirs
-
-    hl, sl = pipeline._anchors(scene, camera(1), ray_dirs(camera(1), W, H, cfg.fov), ref)
+    hl, sl = passes.reprojection_anchors(scene, camera(1), ref, cfg.fov, H)
     hist, hist_s = random_channel(), random_channel()
     K = min(cfg.reproject_window, rk.MAX_WINDOW)
     k2_args = (camera(0), hl, sl, ref["oid"], hist, hist_s, cfg.fov)
@@ -1471,17 +1470,19 @@ def main() -> int:
     if cnt_k.mean().item() <= 1.0:
         raise AssertionError("K2 check carried almost no history; the check is vacuous")
 
-    # K2 with its tail (`reproject_tail`), the launch the main path makes: on
-    # K1's planes and the same histories, the camera moved by TAIL_MOVE so the
-    # velocity clamp cuts counts, against `tail_plain` on the card.
-    tail_args = (camera(0), camera(1).loc + torch.tensor(TAIL_MOVE, device=dev), hl, sl, ref, hist, hist_s, cfg)
+    # K2 with its tail (`reproject_tail`), the launch the main path makes: the
+    # rays and anchors built in the kernel from K1's planes, the same
+    # histories, the camera moved by TAIL_MOVE so the velocity clamp cuts
+    # counts, against `tail_plain` on the card.
+    cam_t = Camera(loc=camera(1).loc + torch.tensor(TAIL_MOVE, device=dev), orient=camera(1).orient)
+    tail_args = (scene, cam_t, camera(0), ref, hist, hist_s, cfg)
     before = (rk.LAUNCHES, rk.TAIL_LAUNCHES)
     tail_out = rk.reproject_tail(*tail_args)
     torch.cuda.synchronize()
     tail_launches = (rk.LAUNCHES - before[0], rk.TAIL_LAUNCHES - before[1])
     tail_err = hold_tail(tail_out, tail_plain(*tail_args), f"{W}x{H} K={K}, K2 with its tail in {tail_launches[0]} "
                          "launch vs reproject_frame_plain + accumulate x2 + composite_from")
-    vv = gmath.length(tail_args[1] - camera(0).loc)
+    vv = gmath.length(cam_t.loc - camera(0).loc)
     floor = passes.count_floor(k2_ref[0][1])
     cut = (passes._temporal_clamp(k2_ref[0][0], floor, vv, cfg)[1] < floor).sum().item()
     vv = vv.item()
@@ -1933,7 +1934,6 @@ def main() -> int:
     # exchange assembles): two frames of the split and the mono frame from a
     # seeded history, against the unsharded frame.
     from kylespathtracer_tpu_torch.parallel import shard
-    from kylespathtracer_tpu_torch.render.camera import ray_dirs_window
 
     rows_t, halo_t = H // TILES, shard.BLOCK_ROWS
     log(f"phase 21: sharded renderer, {TILES} tiles of {rows_t} rows at {W}x{H} in this process "
@@ -1968,7 +1968,7 @@ def main() -> int:
     torch.cuda.synchronize()
     k1r_ref = fk.frame_forward_plain(scene, cam1, 1, cfg, r0, rows_t)
     k1r_stats = frame_agreement(k1r, k1r_ref, f"K1 row mode, rows [{r0}, {r0 + rows_t})")
-    hl_t, sl_t = pipeline._anchors(scene, cam1, ray_dirs_window(cam1, W, H, r0, rows_t, cfg.fov), k1r_ref)
+    hl_t, sl_t = passes.reprojection_anchors(scene, cam1, k1r_ref, cfg.fov, H, r0)
     k2t_args = (hist0.camera, hl_t, sl_t, k1r_ref["oid"], win.diffuse, win.specular, cfg.fov)
     before = rk.TILE_LAUNCHES
     k2t_out = rk.reproject_window(*k2t_args, window=K, image_height=H, row_base=r0, hist_halo=halo_t)
@@ -1985,8 +1985,8 @@ def main() -> int:
         torch.testing.assert_close(got[1], want[1], atol=1e-4, rtol=0)
     # K2 tile mode with its tail, the sharded split frame's launch, the
     # camera moved by TAIL_MOVE.
-    tail_t_args = (hist0.camera, cam1.loc + torch.tensor(TAIL_MOVE, device=dev), hl_t, sl_t, k1r_ref,
-                   win.diffuse, win.specular, cfg)
+    cam1_t = Camera(loc=cam1.loc + torch.tensor(TAIL_MOVE, device=dev), orient=cam1.orient)
+    tail_t_args = (scene, cam1_t, hist0.camera, k1r_ref, win.diffuse, win.specular, cfg)
     tail_t_kw = dict(image_height=H, row_base=r0, hist_halo=halo_t)
     before = (rk.LAUNCHES, rk.TILE_LAUNCHES, rk.TAIL_LAUNCHES)
     tail_t_out = rk.reproject_tail(*tail_t_args, **tail_t_kw)

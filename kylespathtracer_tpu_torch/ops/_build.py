@@ -60,13 +60,13 @@ _F = ctypes.c_float
 # planes), csrc/geometry_kernel.cu:GeoOut (K3's depth, curv, normal, oid)
 # and csrc/shade_kernel.cu:ShadeIO (K4's G-buffer in and estimator pair
 # out: normal, depth, ray_dir, obj_id, seed, est_d, est_s), and
-# csrc/reproject_kernel.cu:SplitTail (K2's tail: loc, add_d, add_s, alb,
-# ene, image; temporal, two_t, t_m1, brightness).
+# csrc/reproject_kernel.cu:SplitTail (K2's tail: loc, orient, light, depth,
+# curv, add_d, add_s, alb, ene, image; temporal, two_t, t_m1, brightness).
 TABLE_PARTS = struct.Struct("=19Q19i")
 FRAME_OUT = struct.Struct("=7Q")
 GEO_OUT = struct.Struct("=4Q")
 SHADE_IO = struct.Struct("=7Q")
-SPLIT_TAIL = struct.Struct("=6Q4f")
+SPLIT_TAIL = struct.Struct("=10Q4f")
 
 
 _SIGNATURES = {
@@ -76,7 +76,7 @@ _SIGNATURES = {
         _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I,
         _I, _I, _I, _F, _I, _P, _P,
     ),
-    # hl, sl, ho, prev loc, prev orient, hist d rgb/cnt/oid, hist s
+    # hl, sl (null with the tail), ho, prev loc, prev orient, hist d rgb/cnt/oid, hist s
     # rgb/cnt/oid, out d_rgb, d_cnt, s_rgb, s_cnt, fov, asp, rows, H, W, K,
     # row_base, hist_row0, tail (SPLIT_TAIL or null), stream
     "kpt_reproject_frame": (

@@ -105,7 +105,11 @@ in a process of its own: with --path K7 and K4 on the cells above, with
 --geometry K3 on its three cells, with
 --frame K1 (frame 3), K8 (frame 1 on a seeded history) and K2 (the
 split frame's reprojection of both channel sets, query heads included,
-K = 8, on the same histories) at 1920×1080, full frame.
+K = 8, on the same histories: alone on the anchors, `reproject_window`,
+and as the split frame launches it, `reproject_tail`, which builds the
+rays and anchors from K1's planes and runs the tail; in a checkout before
+that, its rays and anchors as tensor ops and its K2 with the tail) at
+1920×1080, full frame.
 
 With `--parent CSRC` (the csrc directory of another checkout) it first
 compiles the kernels that the group leaves alone from both trees and says
@@ -459,15 +463,40 @@ def frame_cells(dev, rng):
     return scene, cam, prev, cfg, channel(), channel()
 
 
+def _plain_anchors(scene, cam, cfg, ref) -> tuple:
+    """The split frame's anchors (render/passes.py:reprojection_anchors) of
+    K1's planes `ref` on `cam`, as tensor ops through names that `--turns`
+    finds in an older checkout too → (hl, sl)."""
+    from kylespathtracer_tpu_torch.render import passes
+    from kylespathtracer_tpu_torch.render.camera import ray_dirs
+
+    rd = ray_dirs(cam, cfg.width, cfg.height, cfg.fov)
+    hl = cam.loc + rd * ref["depth"][..., None]
+    return hl, passes.specular_anchor(scene, hl, rd, ref["curv"])
+
+
 def k2_args(scene, cam, prev, cfg, hd, hs) -> tuple:
     """K2's arguments for the split frame's reprojection (the anchors of
     K1's frame 1 on `cam`, K = 8) → reproject_window(*args)."""
-    from kylespathtracer_tpu_torch.render import pipeline
-    from kylespathtracer_tpu_torch.render.camera import ray_dirs
-
     ref = fk.frame_forward(scene, cam, 1, cfg)
-    hl, sl = pipeline._anchors(scene, cam, ray_dirs(cam, cfg.width, cfg.height, cfg.fov), ref)
+    hl, sl = _plain_anchors(scene, cam, cfg, ref)
     return prev, hl, sl, ref["oid"], hd, hs, cfg.fov, 8
+
+
+def k2_tail_call(scene, cam, prev, cfg, hd, hs):
+    """The split frame's K2 launch after K1's frame 1 on `cam` (K = 8 as
+    `k2_args`) → a function that makes it: `reproject_tail`, which builds
+    the rays and anchors in the kernel. In a checkout whose `reproject_tail`
+    takes the anchors (before the kernel built them), the function runs
+    that checkout's split-frame route from K1's planes: the rays and the
+    anchors as tensor ops, then its K2 with the tail."""
+    import inspect
+
+    cfg = dataclasses.replace(cfg, reproject_window=8)
+    ref = fk.frame_forward(scene, cam, 1, cfg)
+    if "scene" in inspect.signature(rk.reproject_tail).parameters:
+        return lambda: rk.reproject_tail(scene, cam, prev, ref, hd, hs, cfg)
+    return lambda: rk.reproject_tail(prev, cam.loc, *_plain_anchors(scene, cam, cfg, ref), ref, hd, hs, cfg)
 
 
 def frame_times(dev, rng) -> callable:
@@ -644,7 +673,8 @@ def tree_times(group: str) -> dict:
         k2 = k2_args(scene, cam, prev, cfg, hd, hs)
         jobs = (("K1 1920x1080", lambda: fk.frame_forward(scene, cam, 3, cfg), "frame_kernel", 20),
                 ("K8 1920x1080", lambda: fh.frame_hist(scene, cam, prev, hd, hs, 1, cfg), "frame_hist_kernel", 20),
-                ("K2 1920x1080", lambda: rk.reproject_window(*k2), "reproject_kernel", 50))
+                ("K2 1920x1080", lambda: rk.reproject_window(*k2), "reproject_kernel", 50),
+                ("K2 tail 1920x1080", k2_tail_call(scene, cam, prev, cfg, hd, hs), "reproject_kernel", 50))
     out = {"build_s": build_s, "tree": str(Path(pk.__file__).resolve().parents[2]), "times": {}}
     for key, fn, kernel, reps in jobs:
         out["times"][key] = {"with_wrapper": cuda_ms(fn, reps=reps, warmup=2), "alone": kernel_ms(fn, kernel, reps)}

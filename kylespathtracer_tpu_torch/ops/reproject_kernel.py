@@ -13,12 +13,16 @@ makes no host copy. On CPU tensors it runs the plain version: the query
 head `_queries` (render/reproject.py:reproject_query) and the tap sum
 `reproject_window_plain`, which the kernel repeats operation for operation.
 
-`reproject_tail` is the split temporal frame from K1's outputs on: both
-reprojections, then per channel set the count floor, velocity clamp and
-accumulate (render/passes.py:accumulate) against the camera's speed, then
-the ACES composite (render/composite.py:composite_from) → (image, the new
-history). On CUDA tensors it is the same single launch of K2 with the tail
-as its epilogue, which writes the new history and the image and nothing
+`reproject_tail` is the split temporal frame from K1's outputs on: the
+primary rays (render/camera.py:ray_dirs_window) and both reprojection
+anchors (render/passes.py:reprojection_anchors) from K1's depth and
+curvature, both reprojections, then per channel set the count floor,
+velocity clamp and accumulate (render/passes.py:accumulate) against the
+camera's speed, then the ACES composite (render/composite.py:
+composite_from) → (image, the new history). On CUDA tensors it is the same
+single launch of K2, which builds the rays and anchors in its head and runs
+the tail as its epilogue: it reads K1's planes, both cameras, the light and
+the histories, and writes the new history and the image and nothing
 between; on CPU tensors it runs those plain functions one after another,
 the twin the kernel repeats operation for operation.
 
@@ -38,11 +42,13 @@ from kylespathtracer_tpu_torch.core import gmath
 from kylespathtracer_tpu_torch.ops import _build
 from kylespathtracer_tpu_torch.render import reproject as rep_mod
 from kylespathtracer_tpu_torch.render.composite import composite_from
-from kylespathtracer_tpu_torch.render.passes import Channel, accumulate
+from kylespathtracer_tpu_torch.render.passes import Channel, accumulate, reprojection_anchors
 
 # Launches of the CUDA kernel by `reproject_window` and `reproject_tail` in
 # this process (one a split frame, both channel sets), the tile-mode
-# launches among them, and the launches that ran the tail (`reproject_tail`).
+# launches among them, and the launches that built the primary rays and
+# both anchors in the kernel and ran the tail (`reproject_tail`; the two
+# always engage together).
 LAUNCHES = 0
 TILE_LAUNCHES = 0
 TAIL_LAUNCHES = 0
@@ -198,10 +204,9 @@ def reproject_window(
 
 
 def reproject_tail(
+    scene,
+    camera,
     prev_cam,
-    loc: torch.Tensor,
-    hl: torch.Tensor,
-    sl: torch.Tensor,
     out: dict,
     prev_d: Channel,
     prev_s: Channel,
@@ -210,33 +215,41 @@ def reproject_tail(
     row_base: int = 0,
     hist_halo: int = 0,
 ):
-    """The split temporal frame from K1's `out` on → (sRGB image
-    f32[rows,W,3], new diffuse Channel, new specular Channel): both
-    reprojections (window `config.reproject_window`; the tile as in
-    `reproject_window`), each accumulated onto this frame's estimate with the
-    velocity clamp of the camera's move from prev_cam.loc to `loc`, then the
-    composite. The new channels' oid is out["oid"]. On CUDA tensors one
-    launch of K2 with its tail; on CPU tensors the plain functions."""
+    """The split temporal frame from K1's `out` on, for `camera` (this
+    frame's) and `prev_cam` (the history's) → (sRGB image f32[rows,W,3], new
+    diffuse Channel, new specular Channel): the anchors of
+    render/passes.py:reprojection_anchors (the light is `scene.light`), both
+    reprojections (window
+    `config.reproject_window`; the tile as in `reproject_window`), each
+    accumulated onto this frame's estimate with the velocity clamp of the
+    camera's move from prev_cam.loc to camera.loc, then the composite. The
+    new channels' oid is out["oid"]. On CUDA tensors one launch of K2,
+    which builds the rays and anchors itself; on CPU tensors the plain
+    functions."""
     ho = out["oid"]
     K, H = _window(ho, prev_d, prev_s, config.reproject_window, image_height, hist_halo)
     if ho.device.type == "cpu":
+        hl, sl = reprojection_anchors(scene, camera, out, config.fov, H, row_base)
         (rgb_d, cnt_d), (rgb_s, cnt_s) = reproject_frame_plain(prev_cam, hl, sl, ho, prev_d, prev_s, config.fov,
                                                                K, H, row_base, hist_halo)
-        vv = gmath.length(loc - prev_cam.loc)
+        vv = gmath.length(camera.loc - prev_cam.loc)
         d = accumulate(rgb_d, cnt_d, out["add_d"], vv, ho, config)
         s = accumulate(rgb_s, cnt_s, out["add_s"], vv, ho, config)
         return composite_from(out["alb"], out["ene"], d, s, config), d, s
-    (rgb_d, cnt_d), (rgb_s, cnt_s), image = _launch(prev_cam, hl, sl, ho, prev_d, prev_s, config.fov, K, H,
-                                                    row_base, hist_halo, tail=(loc, out, config))
+    (rgb_d, cnt_d), (rgb_s, cnt_s), image = _launch(prev_cam, None, None, ho, prev_d, prev_s, config.fov, K, H,
+                                                    row_base, hist_halo, tail=(scene, camera, out, config))
     return image, Channel(rgb=rgb_d, cnt=cnt_d, oid=ho), Channel(rgb=rgb_s, cnt=cnt_s, oid=ho)
 
 
 def _launch(prev_cam, hl, sl, ho, prev_d: Channel, prev_s: Channel, fov, K: int, H: int, row_base: int,
             hist_halo: int, tail=None):
     """One launch of K2 for both channel sets, after checking every tensor
-    it reads; no tensor op, so nothing waits on the device. `tail` (loc,
-    K1's out, config) adds the tail: the outputs are then the new history,
-    and the image is returned third (else None)."""
+    it reads; no tensor op, so nothing waits on the device. Without `tail`
+    the kernel reads the anchors hl, sl. `tail` (scene, camera, K1's out,
+    config) replaces them: the kernel builds them from the camera, the
+    scene's light and K1's depth and curvature, and runs the tail; the
+    outputs are then the new history, and the image is returned third
+    (else None)."""
     global LAUNCHES, TILE_LAUNCHES, TAIL_LAUNCHES
     rows, W = ho.shape
     window = rows + 2 * hist_halo
@@ -246,8 +259,9 @@ def _launch(prev_cam, hl, sl, ho, prev_d: Channel, prev_s: Channel, fov, K: int,
                          f"{hist_halo}-row halo do not fit a {H}-row image")
     i32, f32 = torch.int32, torch.float32
     _check = _build.check_tensor
-    _check("hl", hl, f32, (rows, W, 3), device)
-    _check("sl", sl, f32, (rows, W, 3), device)
+    if tail is None:
+        _check("hl", hl, f32, (rows, W, 3), device)
+        _check("sl", sl, f32, (rows, W, 3), device)
     _check("ho", ho, i32, (rows, W), device)
     _check("prev_cam.loc", prev_cam.loc, f32, (3,), device)
     _check("prev_cam.orient", prev_cam.orient, f32, (2,), device)
@@ -261,17 +275,21 @@ def _launch(prev_cam, hl, sl, ho, prev_d: Channel, prev_s: Channel, fov, K: int,
     cnt_s = torch.empty((rows, W), dtype=f32, device=device)
     image = tail_struct = None
     if tail is not None:
-        loc, out, config = tail
-        _check("loc", loc, f32, (3,), device)
-        for key, n in (("add_d", 3), ("add_s", 3), ("alb", 3), ("ene", 2)):
-            _check(f"out[{key!r}]", out[key], f32, (rows, W, n), device)
+        scene, camera, out, config = tail
+        _check("camera.loc", camera.loc, f32, (3,), device)
+        _check("camera.orient", camera.orient, f32, (2,), device)
+        _check("scene.light", scene.light, f32, (4,), device)
+        planes = ("depth", "curv", "add_d", "add_s", "alb", "ene")
+        for key, n in zip(planes, ((), (), (3,), (3,), (3,), (2,))):
+            _check(f"out[{key!r}]", out[key], f32, (rows, W, *n), device)
         image = torch.empty((rows, W, 3), dtype=f32, device=device)
         T = float(config.temporal)
         tail_struct = _build.SPLIT_TAIL.pack(
-            *(t.data_ptr() for t in (loc, out["add_d"], out["add_s"], out["alb"], out["ene"], image)),
+            *(t.data_ptr() for t in (camera.loc, camera.orient, scene.light, *(out[k] for k in planes), image)),
             T, T * 2.0, T - 1.0, float(config.brightness))
     err = _build.load().kpt_reproject_frame(
-        hl.data_ptr(), sl.data_ptr(), ho.data_ptr(), prev_cam.loc.data_ptr(), prev_cam.orient.data_ptr(),
+        None if hl is None else hl.data_ptr(), None if sl is None else sl.data_ptr(), ho.data_ptr(),
+        prev_cam.loc.data_ptr(), prev_cam.orient.data_ptr(),
         *(t.data_ptr() for ch in (prev_d, prev_s) for t in (ch.rgb, ch.cnt, ch.oid)),
         rgb_d.data_ptr(), cnt_d.data_ptr(), rgb_s.data_ptr(), cnt_s.data_ptr(),
         float(fov), W / H, rows, H, W, int(K), int(row_base), int(row_base - hist_halo), tail_struct,

@@ -164,8 +164,6 @@ def _render_row_block(scene, camera, prev_hist: History, frame, config, row0: in
     other pipeline is the pass pipeline's math on the tile (the G-buffer,
     analytic or sphere-traced, the exact gather, mis.dual_mis)."""
     W, H = config.width, config.height
-    rd = ray_dirs_window(camera, W, H, row0, rows, config.fov)
-
     fused = config.pipeline == "fused"
     if fused:
         if not config.no_history and config.reproject_backend == "window":
@@ -180,7 +178,7 @@ def _render_row_block(scene, camera, prev_hist: History, frame, config, row0: in
                 image = comp_mod.composite_from(o["alb"], o["ene"], d, s, config)
                 return image, History(diffuse=d, specular=s, camera=camera)
             if aligned:
-                return split_temporal_frame(scene, camera, prev_hist, frame, config, rd,
+                return split_temporal_frame(scene, camera, prev_hist, frame, config,
                                             row_base=row0, rows=rows, hist_halo=halo)
             warnings.warn(
                 f"fused tiled path needs rows ({rows}) divisible by "
@@ -196,6 +194,9 @@ def _render_row_block(scene, camera, prev_hist: History, frame, config, row0: in
         gb = gb_mod.geometry_pass(scene, camera, config, row0, rows)
         oid, depth, curv = gb.obj_id, gb.depth, gb.curv
 
+    # The differentiable tile and the pass pipeline read the rays here; the
+    # split frame's K2 builds its own.
+    rd = ray_dirs_window(camera, W, H, row0, rows, config.fov)
     hl = camera.loc + rd * depth[..., None]
     if config.no_history:
         rep_rgb_d = rep_rgb_s = torch.zeros(oid.shape + (3,), dtype=torch.float32, device=oid.device)

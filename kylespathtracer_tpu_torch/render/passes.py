@@ -23,6 +23,7 @@ from kylespathtracer_tpu_torch import DEFAULT_DEVICE
 from kylespathtracer_tpu_torch.core import gmath, sampler
 from kylespathtracer_tpu_torch.render import mis as mis_mod
 from kylespathtracer_tpu_torch.render import reproject as rep_mod
+from kylespathtracer_tpu_torch.render.camera import ray_dirs_window
 from kylespathtracer_tpu_torch.scene import intersect as isect
 from kylespathtracer_tpu_torch.scene import materials as mat_mod
 from kylespathtracer_tpu_torch.scene import sdf as sdf_mod
@@ -109,6 +110,20 @@ def specular_anchor(scene, hl, rd, curv):
     light_dist = gmath.length(hl - scene.light[:3])
     fac = gmath.EPS / torch.sqrt(torch.clamp(curv, min=gmath.EPS))
     return hl + rd * (light_dist * fac)[..., None]
+
+
+def reprojection_anchors(scene, camera, out: dict, fov: float, H: int, row_base: int = 0):
+    """The fused frames' reprojection anchors from the frame kernel's depth
+    and curvature planes `out` (image rows [row_base, row_base+rows) of an
+    H-row image) → (hl, sl) f32[rows,W,3]: the primary rays
+    (render/camera.py:ray_dirs_window), the hit point hl = camera.loc +
+    rd·depth and its curvature-pushed specular anchor (specular.frag:45-49).
+    K2 with its tail builds the same two in its head, operation for
+    operation (ops/reproject_kernel.py:reproject_tail)."""
+    rows, W = out["depth"].shape
+    rd = ray_dirs_window(camera, W, H, row_base, rows, fov)
+    hl = camera.loc + rd * out["depth"][..., None]
+    return hl, specular_anchor(scene, hl, rd, out["curv"])
 
 
 def _history(config, camera, prev_camera, prev: Channel, anchor, ho):

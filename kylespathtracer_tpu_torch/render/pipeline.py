@@ -5,10 +5,10 @@ Port of kylespathtracer_tpu/render/pipeline.py:
     render_frame(scene, camera, history, frame, config) → (image, history)
 
 `pipeline="fused"`: the temporal frame (`reproject_backend="window"`) is,
-with `temporal_fusion="split"`, one frame-kernel launch (K1), the
-reprojection anchors, and one launch of K2 that does the rest for both
-channel sets: query heads, windowed reprojection, count floor, velocity
-clamp, accumulate and the ACES composite; with
+with `temporal_fusion="split"`, one frame-kernel launch (K1) and one launch
+of K2 that does the rest for both channel sets: the primary rays and the
+reprojection anchors, query heads, windowed reprojection, count floor,
+velocity clamp, accumulate and the ACES composite; with
 `"mono"`, one launch of the mono temporal kernel (K8) and the composite.
 Both are forward-only, as the JAX paths are. The differentiable frame
 (`no_history=True`, or `reproject_backend="xla"`) runs K1 through
@@ -38,7 +38,6 @@ from kylespathtracer_tpu_torch.ops import frame_grad as fg
 from kylespathtracer_tpu_torch.ops import frame_hist as fh
 from kylespathtracer_tpu_torch.ops import frame_kernel as fk
 from kylespathtracer_tpu_torch.ops import reproject_kernel as rk
-from kylespathtracer_tpu_torch.render import camera as cam_mod
 from kylespathtracer_tpu_torch.render import composite as comp_mod
 from kylespathtracer_tpu_torch.render import gbuffer as gb_mod
 from kylespathtracer_tpu_torch.render import reproject as rep_mod
@@ -47,8 +46,8 @@ from kylespathtracer_tpu_torch.render.passes import (
     Channel,
     accumulate,
     channel_from_numpy,
+    reprojection_anchors,
     shade_passes,
-    specular_anchor,
 )
 from kylespathtracer_tpu_torch.scene.types import Scene
 from kylespathtracer_tpu_torch.utils.metrics import span
@@ -56,7 +55,7 @@ from kylespathtracer_tpu_torch.utils.metrics import span
 # The split temporal frame's profiler spans, in frame order; children of
 # the `frame` span of render_frame (the tiled renderer's tiles have no
 # `frame` span around them).
-STAGES = ("frame.ray_dirs", "frame.k1", "frame.anchors", "frame.reproject")
+STAGES = ("frame.k1", "frame.reproject")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -115,9 +114,7 @@ def render_frame(
             return differentiable_frame(scene, camera, history, frame, config)
         if config.temporal_fusion == "mono":
             return mono_temporal_frame(scene, camera, history, frame, config)
-        with span("frame.ray_dirs"):
-            rd = cam_mod.ray_dirs(camera, config.width, config.height, config.fov)
-        return split_temporal_frame(scene, camera, history, frame, config, rd)
+        return split_temporal_frame(scene, camera, history, frame, config)
 
 
 def pass_frame(scene: Scene, camera: Camera, history: History, frame, config):
@@ -157,8 +154,7 @@ def differentiable_frame(scene: Scene, camera: Camera, history: History, frame, 
         image = comp_mod.composite_from(out["alb"], out["ene"], d, s, config)
         return image, History(diffuse=d, specular=s, camera=camera)
 
-    rd = cam_mod.ray_dirs(camera, config.width, config.height, config.fov)
-    hl, sl = _anchors(scene, camera, rd, out)
+    hl, sl = reprojection_anchors(scene, camera, out, config.fov, config.height)
     vv = gmath.length(camera.loc - history.camera.loc)
     prev = history.camera
 
@@ -174,26 +170,19 @@ def differentiable_frame(scene: Scene, camera: Camera, history: History, frame, 
     return image, History(diffuse=d, specular=s, camera=camera)
 
 
-def _anchors(scene: Scene, camera: Camera, rd: torch.Tensor, out: dict):
-    """The reprojection anchors: the hit point and the curvature-pushed
-    specular anchor (specular.frag:45-49)."""
-    hl = camera.loc + rd * out["depth"][..., None]
-    return hl, specular_anchor(scene, hl, rd, out["curv"])
-
-
 def split_temporal_frame(
     scene: Scene,
     camera: Camera,
     prev_hist: History,
     frame,
     config,
-    rd: torch.Tensor,  # primary ray dirs f32[rows,W,3] (normalize_fast)
     row_base: int = 0,
     rows: int | None = None,
     hist_halo: int = 0,
 ):
-    """Frame kernel + the anchors + one launch of K2 for the rest: both
-    channel sets' windowed reprojection, count floor, velocity clamp and
+    """Frame kernel + one launch of K2 for the rest: the primary rays and
+    both reprojection anchors from K1's depth and curvature, both channel
+    sets' windowed reprojection, count floor, velocity clamp and
     accumulate, and the ACES composite (ops/reproject_kernel.py:
     reproject_tail; on CPU tensors its plain twin).
 
@@ -204,11 +193,9 @@ def split_temporal_frame(
     tile = rows is not None
     with span("frame.k1"):
         out = fk.frame_forward(scene, camera, frame, config, row_base, rows)
-    with span("frame.anchors"):
-        hl, sl = _anchors(scene, camera, rd, out)
     with span("frame.reproject"):
         image, d, s = rk.reproject_tail(
-            prev_hist.camera, camera.loc, hl, sl, out, prev_hist.diffuse, prev_hist.specular, config,
+            scene, camera, prev_hist.camera, out, prev_hist.diffuse, prev_hist.specular, config,
             image_height=config.height if tile else None, row_base=row_base, hist_halo=hist_halo,
         )
     return image, History(diffuse=d, specular=s, camera=camera)

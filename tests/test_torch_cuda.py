@@ -729,8 +729,6 @@ def test_split_frame_reprojects_in_one_launch_without_a_sync(dev):
     """A split temporal frame launches K2 once, and the reprojection stage
     (reproject_window on the frame's own anchors) waits on nothing: no host
     copy, no synchronize."""
-    from kylespathtracer_tpu_torch.render.camera import ray_dirs
-
     scene = default_scene(device=dev)
     cfg = RenderConfig(width=160, height=96, pipeline="fused")
     cam = Camera.create(loc=(3.0, 2.0, -3.0), orient=(0.0, 0.7), device=dev)
@@ -743,7 +741,7 @@ def test_split_frame_reprojects_in_one_launch_without_a_sync(dev):
         assert rk.LAUNCHES == before + 1
     cam = Camera(loc=cam.loc, orient=cam.orient + torch.tensor([0.0, 1e-3], device=dev))
     out = fk.frame_forward(scene, cam, 2, cfg)
-    hl, sl = pipeline._anchors(scene, cam, ray_dirs(cam, cfg.width, cfg.height, cfg.fov), out)
+    hl, sl = passes.reprojection_anchors(scene, cam, out, cfg.fov, cfg.height)
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -756,13 +754,22 @@ def test_split_frame_reprojects_in_one_launch_without_a_sync(dev):
 
 
 def _tail_operands(dev, rows, W, seed):
-    """K1's planes that the split frame's tail reads, on the card: the
+    """K1's planes that K2 with its tail reads, on the card: the object IDs,
+    depth and curvature, shaped as K1 writes them (an eighth of the pixels
+    misses: ID 0, depth ZFAR − EPS, curvature 0; of the hits a third lie on
+    planes, curvature 0, the rest on spheres of radius 0.3-3, whose 1e-3/r
+    lies on both sides of EPS, where the clamp to EPS engages or not), the
     estimates, albedo (a sixth of it zero, where the composite's sqrt is
     masked) and energies."""
     rng = np.random.default_rng(seed)
     f = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+    miss = rng.random((rows, W)) < 1 / 8
+    oid = np.where(miss, 0, rng.integers(1, 4, (rows, W)))
+    depth = np.where(miss, np.float32(50.0) - np.float32(1e-3), rng.uniform(2.0, 8.0, (rows, W)))
+    curv = np.where(miss | (rng.random((rows, W)) < 1 / 3), 0.0, 1e-3 / rng.uniform(0.3, 3.0, (rows, W)))
     alb = np.where(rng.random((rows, W, 3)) < 1 / 6, 0.0, rng.uniform(0.0, 1.0, (rows, W, 3)))
-    return {"add_d": f(rng.uniform(0.0, 2.0, (rows, W, 3))), "add_s": f(rng.uniform(0.0, 2.0, (rows, W, 3))),
+    return {"oid": torch.from_numpy(oid.astype(np.int32)).to(dev), "depth": f(depth), "curv": f(curv),
+            "add_d": f(rng.uniform(0.0, 2.0, (rows, W, 3))), "add_s": f(rng.uniform(0.0, 2.0, (rows, W, 3))),
             "alb": f(alb), "ene": f(rng.uniform(0.0, 1.5, (rows, W, 2)))}
 
 
@@ -780,10 +787,12 @@ TAIL_CASES = {"frame": (0, 360, 0, False), "tile": (64, 64, 8, False), "still": 
 
 @pytest.mark.parametrize("case", list(TAIL_CASES))
 def test_reproject_tail_kernel_matches_plain_bitwise(dev, case):
-    """One launch of K2 with its tail (both sets' query heads and tap sums,
-    count floor, velocity clamp, accumulate, the ACES composite) against the
-    plain route on the card: `reproject_frame_plain`, `accumulate` for each
-    set, `composite_from`. The new history and the image are bitwise, on a
+    """One launch of K2 with its tail (the primary rays and both anchors
+    built from K1's depth and curvature, both sets' query heads and tap
+    sums, count floor, velocity clamp, accumulate, the ACES composite)
+    against the plain route on the card: `reprojection_anchors` (the rays of
+    `ray_dirs_window`, then the anchors), `reproject_frame_plain`,
+    `accumulate` for each set, `composite_from`. The new history and the image are bitwise, on a
     moving camera whose clamp engages and on a still one; in tile mode
     counted as a tile launch."""
     from kylespathtracer_tpu_torch.core import gmath
@@ -791,30 +800,36 @@ def test_reproject_tail_kernel_matches_plain_bitwise(dev, case):
 
     H, W = 360, 640
     row0, rows, halo, still = TAIL_CASES[case]
-    prev, hl, sl, ho, pd, ps, fov = _reproject_case(dev, H, W, row0, rows, halo, 2)
+    scene = default_scene(device=dev)
+    prev, _, _, _, pd, ps, fov = _reproject_case(dev, H, W, row0, rows, halo, 2)
     loc = prev.loc.clone() if still else prev.loc + torch.tensor([0.02, -0.01, 0.015], device=dev)
-    cfg = RenderConfig(width=W, height=H, pipeline="fused", fov=fov, reproject_window=8 if halo else 4)
-    out = {"oid": ho, **_tail_operands(dev, rows, W, 3)}
+    cam = Camera(loc=loc, orient=torch.tensor([0.0, 0.7], device=dev))
+    # TEMPORALSMOOTHING 8: half the carried counts lie past the still
+    # camera's limit T.
+    cfg = RenderConfig(width=W, height=H, pipeline="fused", fov=fov, reproject_window=8 if halo else 4, temporal=8)
+    out = _tail_operands(dev, rows, W, 3)
+    ho = out["oid"]
     tile = dict(image_height=H, row_base=row0, hist_halo=halo) if halo else {}
     before = (rk.LAUNCHES, rk.TILE_LAUNCHES, rk.TAIL_LAUNCHES)
-    image, d, s = rk.reproject_tail(prev, loc, hl, sl, out, pd, ps, cfg, **tile)
+    image, d, s = rk.reproject_tail(scene, cam, prev, out, pd, ps, cfg, **tile)
     torch.cuda.synchronize()
     assert (rk.LAUNCHES, rk.TILE_LAUNCHES, rk.TAIL_LAUNCHES) == (before[0] + 1, before[1] + bool(halo),
                                                                  before[2] + 1)
+    hl, sl = passes.reprojection_anchors(scene, cam, out, fov, H, row0)
     (rgb_d, cnt_d), (rgb_s, cnt_s) = rk.reproject_frame_plain(prev, hl, sl, ho, pd, ps, fov, cfg.reproject_window,
                                                               H, row0, halo)
     vv = gmath.length(loc - prev.loc)
     wd = passes.accumulate(rgb_d, cnt_d, out["add_d"], vv, ho, cfg)
     ws = passes.accumulate(rgb_s, cnt_s, out["add_s"], vv, ho, cfg)
     want = composite_from(out["alb"], out["ene"], wd, ws, cfg)
-    for got, ref in ((d, wd), (s, ws)):
-        assert torch.equal(got.rgb, ref.rgb) and torch.equal(got.cnt, ref.cnt)
+    for name, got, ref in (("diffuse", d, wd), ("specular", s, ws)):
+        assert torch.equal(got.rgb, ref.rgb), f"{name} rgb: {_ulps(got.rgb, ref.rgb).max().item()} ulps at most"
+        assert torch.equal(got.cnt, ref.cnt), f"{name} cnt: {_ulps(got.cnt, ref.cnt).max().item()} ulps at most"
         assert got.oid is ho
     assert image.shape == (rows, W, 3) and torch.isfinite(image).all()
     assert torch.equal(image, want), f"image: {_ulps(image, want).max().item()} ulps at most"
     # Moving, the clamp cuts counts under T; still, its limit is T itself,
-    # so it cuts exactly the counts past T, which only border taps' weights
-    # (beyond [0, 1]) carry there.
+    # so it cuts exactly the counts past T.
     floor = passes.count_floor(cnt_d)
     _, clamped = passes._temporal_clamp(rgb_d, floor, vv, cfg)
     cut = clamped < floor
@@ -822,15 +837,16 @@ def test_reproject_tail_kernel_matches_plain_bitwise(dev, case):
         assert vv.item() == 0 and cut.any() and torch.equal(cut, floor > cfg.temporal)
     else:
         assert vv.item() > 0 and (cut & (floor <= cfg.temporal)).any()
-    assert cnt_d.mean().item() > 0.5, "no history carried; vacuous"
+    assert cnt_d.mean().item() > 0.5 and cnt_s.mean().item() > 0.5, "no history carried; vacuous"
 
 
 def test_split_frame_runs_its_tail_in_k2_without_a_sync(dev):
-    """A split temporal frame launches K2 once, with its tail, and from K1's
-    outputs to the image and the new history (the anchors, then K2) nothing
-    waits on the device: no host copy, no synchronize. That route is the
-    frame's: the same image and history as render_frame's."""
-    from kylespathtracer_tpu_torch.render.camera import ray_dirs
+    """A split temporal frame is two launches, K1 and K2 (counted by
+    LAUNCHES of both and K2's TAIL_LAUNCHES), and no other CUDA kernel in a
+    profiler trace of three frames; from K1's launch to the image and the
+    new history nothing waits on the device: no host copy, no synchronize."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
 
     scene = default_scene(device=dev)
     cfg = RenderConfig(width=160, height=96, pipeline="fused")
@@ -838,28 +854,40 @@ def test_split_frame_runs_its_tail_in_k2_without_a_sync(dev):
     hist = pipeline.init_history(cfg, cam)
     step = lambda c: Camera(loc=c.loc + torch.tensor([2e-3, 0.0, -1e-3], device=dev),
                             orient=c.orient + torch.tensor([0.0, 1e-3], device=dev))
+    counts = lambda: (fk.LAUNCHES, rk.LAUNCHES, rk.TAIL_LAUNCHES)
     for i in range(2):
         cam = step(cam)
-        before = (rk.LAUNCHES, rk.TAIL_LAUNCHES)
+        before = counts()
         _, hist = pipeline.render_frame(scene, cam, hist, i, cfg)
         torch.cuda.synchronize()
-        assert (rk.LAUNCHES, rk.TAIL_LAUNCHES) == (before[0] + 1, before[1] + 1)
-    cam = step(cam)
-    rd = ray_dirs(cam, cfg.width, cfg.height, cfg.fov)
-    out = fk.frame_forward(scene, cam, 2, cfg)
+        assert counts() == tuple(n + 1 for n in before)
+    cams = []
+    for _ in range(3):
+        cam = step(cam)
+        cams.append(cam)
     torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        hl, sl = pipeline._anchors(scene, cam, rd, out)
-        image, d, s = rk.reproject_tail(hist.camera, cam.loc, hl, sl, out, hist.diffuse, hist.specular, cfg)
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
-    img_f, hist_f = pipeline.render_frame(scene, cam, hist, 2, cfg)
-    torch.cuda.synchronize()
-    assert torch.equal(image, img_f)
-    for a, b in ((d, hist_f.diffuse), (s, hist_f.specular)):
-        assert torch.equal(a.rgb, b.rgb) and torch.equal(a.cnt, b.cnt) and torch.equal(a.oid, b.oid)
-    assert d.cnt.max().item() > 2, "history not carried"
+    before = counts()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILER_MARGIN_S)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            for i, c in enumerate(cams, start=2):
+                image, hist = pipeline.render_frame(scene, c, hist, i, cfg)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        time.sleep(PROFILER_MARGIN_S)
+    assert counts() == tuple(n + 3 for n in before)
+    # The spans' own events on the device's timeline left out. The session's
+    # first kernel is at times placed before the session opens and left out
+    # of the trace (see PROFILER_MARGIN_S), so each kernel shows 2 or 3 times.
+    spans = ("frame", *pipeline.STAGES)
+    on_card = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA and e.name not in spans]
+    k1 = sum("kpt::frame_kernel(" in n for n in on_card)
+    k2 = sum("kpt::reproject_kernel(" in n for n in on_card)
+    assert k1 + k2 == len(on_card) and 2 <= k1 <= 3 and 2 <= k2 <= 3, on_card
+    assert image.shape == (96, 160, 3) and torch.isfinite(image).all()
+    assert hist.diffuse.cnt.max().item() > 2, "history not carried"
 
 
 def test_mono_tile_kernel_matches_plain(dev):

@@ -206,19 +206,18 @@ SPLIT_CASES = {"frame": (0, H, 0, False), "tile": (8, 16, 8, False), "still": (0
 def test_split_frame_on_cpu_runs_the_plain_tail_after_k1(case):
     """On CPU tensors the split frame counts no K2 launch, with or without
     its tail, and its image and history are exactly K1's plain frame, the
-    anchors, `reproject_window`, `accumulate` for each set and
-    `composite_from`, as the frame was composed before K2 took the tail:
-    the full frame through render_frame on a camera that moved (the
+    rays and anchors (`reprojection_anchors`),
+    `reproject_window`, `accumulate` for each set and `composite_from`, as
+    the frame was composed before K2 took the rays, the anchors and the
+    tail: the full frame through render_frame on a camera that moved (the
     velocity clamp cuts counts), the sharded renderer's middle tile on its
     history window, and a camera that only turns (the clamp's limit is T)."""
     from kylespathtracer_tpu_torch.core import gmath
     from kylespathtracer_tpu_torch.parallel.shard import tile_window
     from kylespathtracer_tpu_torch.render.camera import Camera as TCamera
-    from kylespathtracer_tpu_torch.render.camera import ray_dirs as t_ray_dirs
-    from kylespathtracer_tpu_torch.render.camera import ray_dirs_window
     from kylespathtracer_tpu_torch.render.composite import composite_from
     from kylespathtracer_tpu_torch.render.passes import _temporal_clamp as t_clamp
-    from kylespathtracer_tpu_torch.render.passes import accumulate
+    from kylespathtracer_tpu_torch.render.passes import accumulate, reprojection_anchors
     from kylespathtracer_tpu_torch.render.passes import count_floor as t_floor
 
     row0, rows, halo, still = SPLIT_CASES[case]
@@ -232,20 +231,18 @@ def test_split_frame_on_cpu_runs_the_plain_tail_after_k1(case):
     cam = TCamera(loc=hist.camera.loc + step, orient=cam.orient)
     before = (rk.LAUNCHES, rk.TILE_LAUNCHES, rk.TAIL_LAUNCHES)
     if halo:
-        rd = ray_dirs_window(cam, W, H, row0, rows, cfg_t.fov)
         hist = tile_window(hist, row0, rows, halo)
-        img, new = pipeline.split_temporal_frame(scene_t, cam, hist, 1, cfg_t, rd, row_base=row0, rows=rows,
+        img, new = pipeline.split_temporal_frame(scene_t, cam, hist, 1, cfg_t, row_base=row0, rows=rows,
                                                  hist_halo=halo)
         out = fk.frame_forward(scene_t, cam, 1, cfg_t, row0, rows)
         tile = dict(image_height=H, row_base=row0, hist_halo=halo)
     else:
-        rd = t_ray_dirs(cam, W, H, cfg_t.fov)
         img, new = pipeline.render_frame(scene_t, cam, hist, 1, cfg_t)
         out = fk.frame_forward(scene_t, cam, 1, cfg_t)
         tile = {}
     assert (rk.LAUNCHES, rk.TILE_LAUNCHES, rk.TAIL_LAUNCHES) == before
 
-    hl, sl = pipeline._anchors(scene_t, cam, rd, out)
+    hl, sl = reprojection_anchors(scene_t, cam, out, cfg_t.fov, H, row0)
     (rgb_d, cnt_d), (rgb_s, cnt_s) = rk.reproject_window(hist.camera, hl, sl, out["oid"], hist.diffuse,
                                                          hist.specular, cfg_t.fov, window=cfg_t.reproject_window,
                                                          **tile)

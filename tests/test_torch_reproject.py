@@ -200,3 +200,40 @@ def test_reproject_window_without_a_tail_returns_the_tap_sums(case):
         assert rgb.shape == (rows, Wi, 3) and cnt.shape == (rows, Wi)
         assert torch.equal(rgb, rgb_p) and torch.equal(cnt, cnt_p)
     assert got[0][1].max().item() > 0, "no history carried; the test is vacuous"
+
+
+# The image rows (row0, rows) of a 48×24 frame whose anchors K2's twin builds.
+ANCHOR_ROWS = {"frame": (0, 24), "tile": (8, 8)}
+
+
+@pytest.mark.parametrize("case", list(ANCHOR_ROWS))
+def test_twin_anchors_are_the_rays_and_specular_anchor_computed_apart(case):
+    """The anchors that K2 with its tail builds in its head, as its CPU twin
+    builds them from K1's planes (`reprojection_anchors`), are exactly the
+    primary rays of `ray_dirs_window` (those rows of `ray_dirs`), the hit
+    point loc + rd·depth and `specular_anchor`, computed one after another
+    here, on a view of spheres with misses, curvature 0 and under EPS
+    (where the clamp to EPS engages) and over it."""
+    from kylespathtracer_tpu_torch.ops import frame_kernel as fk
+    from kylespathtracer_tpu_torch.render.camera import ray_dirs as t_ray_dirs
+    from kylespathtracer_tpu_torch.render.camera import ray_dirs_window
+    from kylespathtracer_tpu_torch.render.passes import reprojection_anchors, specular_anchor
+    from kylespathtracer_tpu_torch.scene.scene import sphere_scene
+
+    W, H = 48, 24
+    row0, rows = ANCHOR_ROWS[case]
+    scene = sphere_scene([[5.5, 1.0, 0.0], [4.0, 0.5, 1.0], [6.0, 2.5, -1.5]], [1.0, 0.5, 0.7],
+                         [[0.8, 0.2, 0.2], [0.2, 0.8, 0.2], [0.2, 0.2, 0.8]], device="cpu")
+    cam = to_torch_camera(CAM)
+    cfg = RenderConfig(width=W, height=H)
+    out = fk.frame_forward(scene, cam, 1, cfg, row0, rows)
+    hl, sl = reprojection_anchors(scene, cam, out, cfg.fov, H, row0)
+    rd = ray_dirs_window(cam, W, H, row0, rows, cfg.fov)
+    assert torch.equal(rd, t_ray_dirs(cam, W, H, cfg.fov)[row0:row0 + rows])
+    want_hl = cam.loc + rd * out["depth"][..., None]
+    assert hl.shape == (rows, W, 3)
+    assert torch.equal(hl, want_hl)
+    assert torch.equal(sl, specular_anchor(scene, want_hl, rd, out["curv"]))
+    curv = out["curv"]
+    assert (out["oid"] == 0).any() and (out["oid"] > 0).any(), "no miss or no hit; vacuous"
+    assert (curv == 0).any() and ((curv > 0) & (curv < 1e-3)).any() and (curv > 1e-3).any(), "a curvature untested"
