@@ -16,6 +16,12 @@ purpose, as in the JAX package: here the sphere roots take sqrt(max(disc,
 full `intersect`; the kernel takes sqrt(max(disc, 1e-12)), 1/max(ior,
 1e-6), `_powi` and the occlusion test `_light_visible`.
 
+Each `render_pathtraced` call is one `pathtrace` span holding its stages in
+order (STAGES): `pathtrace.paths`, the radiance image (K7's wrapper and
+launch on the card), then `pathtrace.tonemap`, exposure, ACES and sRGB; so a
+profiler trace splits the image's device time, launches and idle time by
+stage. Outside a profiler a span is one boolean check (utils/metrics.py:span).
+
 The integrator ("xla") is differentiable end to end: `intersect` carries
 the implicit-function backward of scene/sdf.py, so pixel gradients reach
 the scene's tables. The path kernel is forward only, as the JAX package's
@@ -35,6 +41,11 @@ from kylespathtracer_tpu_torch.scene import materials as mat_mod
 from kylespathtracer_tpu_torch.scene import normals as nrm_mod
 from kylespathtracer_tpu_torch.scene import sdf as sdf_mod
 from kylespathtracer_tpu_torch.scene.types import Scene, bsdf_table
+from kylespathtracer_tpu_torch.utils.metrics import span
+
+# The profiler spans of render_pathtraced's stages, in order; children of
+# its `pathtrace` span.
+STAGES = ("pathtrace.paths", "pathtrace.tonemap")
 
 _PAIRS_PER_BOUNCE = 3  # (nee u1,u2), (bsdf u1,u2), (bsdf u3, unused)
 _M32 = 0xFFFFFFFF
@@ -208,5 +219,9 @@ def pathtrace(scene: Scene, camera: Camera, config, frame=0) -> torch.Tensor:
 def render_pathtraced(scene: Scene, camera: Camera, config, frame=0) -> torch.Tensor:
     """Tonemapped sRGB image f32[H, W, 3] in [0, 1]: exposure → ACES →
     sRGB (reference passthrough.frag:27,45)."""
-    hdr = pathtrace(scene, camera, config, frame)
-    return color_mod.linear_srgb(color_mod.aces_fitted(hdr * config.brightness))
+    with span("pathtrace"):
+        with span("pathtrace.paths"):
+            hdr = pathtrace(scene, camera, config, frame)
+        with span("pathtrace.tonemap"):
+            img = color_mod.linear_srgb(color_mod.aces_fitted(hdr * config.brightness))
+    return img

@@ -4,7 +4,7 @@ Port of kylespathtracer_tpu/utils/metrics.py: every step emits a JSONL
 record (`MetricsLogger`), a block can be traced with torch.profiler
 (`profiler_trace`) and every span of the port goes through `span` (the
 frame and its stages, render/pipeline.py:STAGES; the optimizer step,
-diff/inverse.py:FIT_STAGES), `Timer` and `time_fn` time device work
+diff/inverse.py:FIT_STAGES; the path-traced image, render/wavefront.py:STAGES), `Timer` and `time_fn` time device work
 behind a synchronize and `cuda_ms` with CUDA events. `slope_fit` is the arithmetic of the benches' slope
 timings (bench.py, bench_ceiling.py) and `card_line` names the card beside
 every measurement.

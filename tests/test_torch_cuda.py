@@ -454,6 +454,30 @@ def test_path_kernel_matches_plain(dev, case):
     assert pk.LAUNCHES == before + 3
 
 
+def test_path_kernel_on_config3_at_1080p_matches_the_benchmark_reference(dev):
+    """render_pathtraced on BASELINE config 3 at 1920×1080, 4 spp, depth 6
+    (the benchmark's cell pathtrace.spp4_1080): one K7 launch, within the
+    limits of the cell's check against its plain reference
+    (kpt_bench/reference/path.py)."""
+    from kpt_bench import harness
+    from kpt_bench.kinds import pathtrace as loop
+    from kpt_bench.reference import frame as rf
+    from kpt_bench.reference import path as rp
+
+    cell = harness.load_cell("pathtrace.spp4_1080")
+    scene, cam = _config3(dev)
+    before = pk.LAUNCHES
+    img = wavefront.render_pathtraced(scene, cam, RenderConfig(width=1920, height=1080, spp=4, max_depth=6), 4242)
+    torch.cuda.synchronize()
+    assert pk.LAUNCHES == before + 1
+    tree = loop.scene_tree(cell.config["scene"])
+    kinds, iors = rp.material_tables(tree, dev)
+    rc = dict(cell.render, width=1920, height=1080, spp=4, max_depth=6)
+    ref = rp.render(rf.scene_tables(tree, dev), kinds, iors, cam.loc, cam.orient, 4242, rc, 270)
+    got, lim = loop.compare(img, ref), cell.traffic["limits"]
+    assert all(got[k] <= float(lim[k]) for k in loop.CHECKS), (got, lim)
+
+
 
 def _seeded_history(oid, seed):
     rng = np.random.default_rng(seed)

@@ -2,9 +2,11 @@
 frame of render_frame is one `frame` span holding the split temporal
 frame's stages in order (render/pipeline.py:STAGES), each optimizer
 step of `fit` one `fit.step` span holding `fit.value_and_grad` (a
-`fit.view` a view) and then `fit.update` (diff/inverse.py:FIT_STAGES);
-with no profiler active a span never reaches `record_function`, and the
-frame is bitwise the same with and without one. CPU, 16×8."""
+`fit.view` a view) and then `fit.update` (diff/inverse.py:FIT_STAGES),
+each path-traced image one `pathtrace` span holding `pathtrace.paths` and
+then `pathtrace.tonemap` (render/wavefront.py:STAGES); with no profiler
+active a span never reaches `record_function`, and the frame and the image
+are bitwise the same with and without one. CPU, 16×8."""
 
 import json
 
@@ -12,9 +14,10 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from kylespathtracer_tpu_torch.diff import inverse
-from kylespathtracer_tpu_torch.render import pipeline
+from kylespathtracer_tpu_torch.render import pipeline, wavefront
 from kylespathtracer_tpu_torch.render.camera import Camera
-from kylespathtracer_tpu_torch.scene.scene import default_scene
+from kylespathtracer_tpu_torch.scene.scene import default_scene, sphere_scene
+from kylespathtracer_tpu_torch.scene.types import BSDF
 from kylespathtracer_tpu_torch.utils.config import RenderConfig
 from kylespathtracer_tpu_torch.utils.metrics import span
 
@@ -39,9 +42,18 @@ def _fit(steps=2, views=3):
     return inverse.fit(start, target, cams, CFG, steps=steps)
 
 
-def _spans(fn, tmp_path) -> list:
-    """The program's spans (`frame*`, `fit.*`; torch's own, such as
-    Optimizer.step's, left out) of fn() under torch.profiler → [(name,
+def _pathtraced():
+    """One path-traced image of a mirror, a glass and a diffuse sphere."""
+    scene = sphere_scene([[-1.5, 1.0, 6.0], [1.5, 1.2, 6.5], [0.0, 0.8, 4.5]], [1.0, 1.2, 0.8],
+                         [[0.9, 0.9, 0.9], [0.7, 0.8, 0.9], [0.9, 0.6, 0.5]],
+                         kinds=[BSDF.MIRROR, BSDF.DIELECTRIC, BSDF.DIFFUSE], device="cpu")
+    cam = Camera.create(loc=(0.0, 2.0, -2.0), orient=(-0.1, 0.0), device="cpu")
+    return wavefront.render_pathtraced(scene, cam, RenderConfig(width=W, height=H, spp=1, max_depth=3), 7)
+
+
+def _spans(fn, tmp_path, prefixes=("frame", "fit.")) -> list:
+    """The program's spans (named with one of `prefixes`; torch's own, such
+    as Optimizer.step's, left out) of fn() under torch.profiler → [(name,
     start, end)] by start, a parent before its children."""
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         fn()
@@ -49,7 +61,7 @@ def _spans(fn, tmp_path) -> list:
     prof.export_chrome_trace(str(path))
     ev = json.loads(path.read_text())["traceEvents"]
     rows = [(e["name"], float(e["ts"]), float(e["ts"]) + float(e["dur"])) for e in ev
-            if e.get("ph") == "X" and e.get("cat") == "user_annotation" and e["name"].startswith(("frame", "fit."))]
+            if e.get("ph") == "X" and e.get("cat") == "user_annotation" and e["name"].startswith(prefixes)]
     return sorted(rows, key=lambda r: (r[1], -r[2]))
 
 
@@ -77,6 +89,30 @@ def test_each_optimizer_step_holds_its_views_then_the_update(tmp_path):
         assert [c[0] for c in kids] == list(inverse.FIT_STAGES)
         assert [c[0] for c in _children(rows, kids[0])] == ["fit.view"] * 3
         assert _children(rows, kids[1]) == []
+
+
+def test_a_path_traced_image_is_one_span_holding_its_two_stages_in_order(tmp_path):
+    rows = _spans(_pathtraced, tmp_path, ("pathtrace",))
+    assert [r[0] for r in rows] == ["pathtrace", *wavefront.STAGES]
+    assert [c[0] for c in _children(rows, rows[0])] == list(wavefront.STAGES)
+    assert wavefront.STAGES == ("pathtrace.paths", "pathtrace.tonemap")
+
+
+def test_no_profiler_no_record_function_and_the_same_image(monkeypatch):
+    calls = []
+    real = torch.profiler.record_function
+
+    def counting(name, *a, **k):
+        calls.append(name)
+        return real(name, *a, **k)
+
+    monkeypatch.setattr(torch.profiler, "record_function", counting)
+    img = _pathtraced()
+    assert calls == []
+    with profile(activities=[ProfilerActivity.CPU]):
+        img_p = _pathtraced()
+    assert calls == ["pathtrace", *wavefront.STAGES]
+    assert torch.equal(img, img_p)
 
 
 def test_no_profiler_no_record_function_and_the_same_frame(monkeypatch):
