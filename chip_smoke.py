@@ -21,7 +21,8 @@ it and read just after:
   aimed at the rounded box, each held bitwise to its plain version, the
   first also against the G-buffer module);
 - the multi-bounce path tracer (`render.wavefront.render_pathtraced` and
-  the `pathtrace` CLI at 1920×1080, 4 spp, depth 6, K7; phase 16), after
+  the `pathtrace` CLI at 1920×1080, 4 spp, depth 6, K7 tonemapping in its
+  epilogue, its image bitwise the plain tonemap of K7's HDR; phase 16), after
   K7 is held against its plain version (phase 14) and against the port's
   XLA-style integrator on the JAX package's config 3 (phase 15);
 - the mono temporal frame (`render_animation` at 1920×1080 with
@@ -1360,7 +1361,7 @@ def main() -> int:
 
     from kylespathtracer_tpu_torch import bench_ceiling, bench_configs
     from kylespathtracer_tpu_torch.app import cli, driver
-    from kylespathtracer_tpu_torch.core import gmath
+    from kylespathtracer_tpu_torch.core import color, gmath
     from kylespathtracer_tpu_torch.diff import inverse
     from kylespathtracer_tpu_torch.ops import _build
     from kylespathtracer_tpu_torch.ops.adjoint_variants import BOX_AIMED
@@ -1780,14 +1781,15 @@ def main() -> int:
     cfg_pt = RenderConfig(width=W, height=H, spp=4, max_depth=6)
     log(f"phase 16: render_pathtraced and the pathtrace CLI at {W}x{H}, 4 spp, depth 6 (cell: "
         "bench.py's wavefront cell, default scene, camera (3,2,-3) orient (0,0.7), frame 0)")
-    pk.LAUNCHES = 0
+    pk.LAUNCHES = pk.TONEMAP_LAUNCHES = 0
     img = wavefront.render_pathtraced(scene, camera(), cfg_pt, 0)
     torch.cuda.synchronize()
     path_launches = pk.LAUNCHES
-    log(f"  render_pathtraced: launches {path_launches}; image {tuple(img.shape)} range "
-        f"[{img.min().item():.4f}, {img.max().item():.4f}], mean {img.mean().item():.4f}")
-    if path_launches != 1:
-        raise AssertionError(f"render_pathtraced did not run through K7 once: {path_launches}")
+    log(f"  render_pathtraced: launches {path_launches}, tonemapped {pk.TONEMAP_LAUNCHES}; image "
+        f"{tuple(img.shape)} range [{img.min().item():.4f}, {img.max().item():.4f}], mean {img.mean().item():.4f}")
+    if (path_launches, pk.TONEMAP_LAUNCHES) != (1, 1):
+        raise AssertionError(f"render_pathtraced did not run through K7's tonemap once: {path_launches}, "
+                             f"{pk.TONEMAP_LAUNCHES}")
     if img.shape != (H, W, 3) or not torch.isfinite(img).all() or img.min() < 0 or img.max() > 1:
         raise AssertionError("render_pathtraced: image not finite in [0, 1] or of the wrong shape")
     with tempfile.TemporaryDirectory() as tmp:
@@ -1808,6 +1810,11 @@ def main() -> int:
     img_pt = pk.pathtrace(scene, camera(), cfg_pt, 0)
     stats = pk.check_agreement(img_pt, ref_pt, f"K7 vs plain {W}x{H}")
     log(f"  K7 vs plain, {W}x{H} 4 spp depth 6: {stats}; bitwise {torch.equal(img_pt, ref_pt)}")
+    tonemapped = color.linear_srgb(color.aces_fitted(img_pt * cfg_pt.brightness))
+    log(f"  render_pathtraced vs the plain tonemap of K7's HDR: largest |diff| "
+        f"{(img - tonemapped).abs().max().item()}")
+    if not torch.equal(img, tonemapped):
+        raise AssertionError("render_pathtraced: K7's tonemap is not bitwise the plain chain")
     k7_err = max(k7_err, stats["max"])
 
     # Phase 17: K8 against its plain version at 1920x1080.

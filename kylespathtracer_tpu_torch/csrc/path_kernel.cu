@@ -9,12 +9,18 @@
 // glossy, mirror or dielectric) that continues the path. The sampler is the
 // PCG-rotated R2 sequence in uint32: sample n = frame·spp + s, stream
 // pid·0x85EBCA6B + bounce·3 + pair. The samples are summed in order and the
-// sum divided by spp once → out[height][width][3] (HDR radiance).
+// sum divided by spp once → out[height][width][3]: the HDR radiance or, when
+// the launch asks for it (`PathParams::tonemap`), its display image, times
+// the exposure, then tonemap.cuh:aces_srgb (K2's tonemap, the plain
+// core/color.py chain of render/wavefront.py:render_pathtraced operation for
+// operation) → sRGB. The choice is uniform over the launch and taken after
+// the sample loop, so the path loop is the same code either way.
 //
 // What bounds it on an H100: arithmetic. Each path segment is one trace,
 // one occlusion test, a normal, a material row and a BSDF (~1,200
 // operations on the default scene, 744 of them the rounded box's, in the
-// count of the JAX kernel's work) against 12 bytes of output per pixel, so
+// count of the JAX kernel's work) against 12 bytes of output per pixel (HDR
+// or sRGB; the tonemap adds ~60 operations and 3 powf a pixel), so
 // the device memory is idle; the path state (ray, throughput, radiance,
 // MIS bookkeeping) lives in registers for all bounces, and the scene and
 // material tables in shared memory, gathered from the scene's own tensors
@@ -37,6 +43,7 @@
 // decisions (a lobe, a TIR test, a Fresnel roulette) away from the plain
 // version's, and one such decision changes a whole path.
 #include "frame_body.cuh"
+#include "tonemap.cuh"
 
 namespace kpt {
 
@@ -49,6 +56,8 @@ constexpr int GLOSSY = 1, MIRROR = 2, DIELECTRIC = 3;  // BSDF kinds; 0 and the 
 struct PathParams {
   FrameParams F;  // scene counts, width, height, fov, frame
   int spp, max_depth, gloss;
+  int tonemap;       // 0: out is the HDR radiance; else its sRGB display image
+  float brightness;  // the exposure the tonemap multiplies by
 };
 
 // core/sampler.r2_pair: the n-th R2 point, PCG-rotated by the stream.
@@ -309,6 +318,12 @@ __device__ void path_sample(const Tables& T, const int* kinds, const float* iors
   }
 }
 
+// tonemap.cuh:aces_srgb out of line. Inlined after the sample loop, it moved
+// the loop's register allocation and cost ~4% of a 1080p launch; called, the
+// loop spills 64 bytes instead of 136, and a tonemapped launch takes about
+// what an HDR launch took without the tonemap's code (PERF.md §6, K7).
+__device__ __noinline__ void aces_srgb_call(float (&v)[3]) { aces_srgb(v); }
+
 // Eight resident blocks of 128 threads per SM: 64 registers a thread.
 __global__ void __launch_bounds__(BLOCK, 8) path_kernel(TableParts tp, const int* __restrict__ kinds,
                                                         const float* __restrict__ iors, PathParams P,
@@ -344,20 +359,27 @@ __global__ void __launch_bounds__(BLOCK, 8) path_kernel(TableParts tp, const int
     g_census[((size_t)s * F.height + y) * F.width + x] = census;
 #endif
   }
+  float v[3];
+  for (int c = 0; c < 3; ++c) v[c] = acc[c] / (float)P.spp;
+  if (P.tonemap) {
+    for (int c = 0; c < 3; ++c) v[c] = v[c] * P.brightness;
+    aces_srgb_call(v);
+  }
   const size_t o = ((size_t)y * (size_t)F.width + (size_t)x) * 3;
-  for (int c = 0; c < 3; ++c) out[o + c] = acc[c] / (float)P.spp;
+  for (int c = 0; c < 3; ++c) out[o + c] = v[c];
 }
 
 }  // namespace kpt
 
 extern "C" int kpt_pathtrace(const kpt::TableParts* tp, const int* kinds, const float* iors, int nP, int nS, int nB,
                              int nK, int width, int height, float fov, int frame, int spp, int max_depth, int gloss,
-                             float* out, void* stream) {
+                             int tonemap, float brightness, float* out, void* stream) {
   kpt::PathParams P{};
   P.F.nP = nP; P.F.nS = nS; P.F.nB = nB; P.F.nK = nK;
   P.F.width = width; P.F.height = height; P.F.fov = fov; P.F.frame = frame;
   P.F.rows = height;
   P.spp = spp; P.max_depth = max_depth; P.gloss = gloss;
+  P.tonemap = tonemap; P.brightness = brightness;
   const size_t shmem = kpt::table_smem(nP, nS, nB, nK, false) + (size_t)nK * (sizeof(int) + sizeof(float));
   const dim3 grid((width + kpt::TILE_W - 1) / kpt::TILE_W, (height + kpt::TILE_H - 1) / kpt::TILE_H);
   kpt::path_kernel<<<grid, kpt::BLOCK, shmem, (cudaStream_t)stream>>>(*tp, kinds, iors, P, out);

@@ -29,7 +29,8 @@
 // then goes through `accumulate` (reproject_core.cuh, K8's too) against the
 // clamp limit of the camera's speed, which one thread a block computes from
 // both cameras' positions on the device; the results are the new history,
-// and their composite with K1's albedo and energies is the sRGB image.
+// and their composite with K1's albedo and energies, tonemapped by
+// tonemap.cuh:aces_srgb (K7's too), is the sRGB image.
 //
 // Rounding: the rays, the anchors, the head and the tail repeat the split
 // frame's plain code operation for operation, each rounded on its own (this
@@ -67,6 +68,7 @@
 // Neighbouring threads read neighbouring history texels, so the taps of a
 // warp fall in a few cache lines served by L1/L2.
 #include "reproject_core.cuh"
+#include "tonemap.cuh"
 
 namespace kpt {
 
@@ -161,10 +163,6 @@ __device__ __forceinline__ Vec3 load3(const float* __restrict__ v, size_t p) {
   return {v[3 * p], v[3 * p + 1], v[3 * p + 2]};
 }
 
-// torch.clamp's bounds, which keep a NaN.
-__device__ __forceinline__ float clamp_min(float v, float lo) { return v != v ? v : fmaxf(v, lo); }
-__device__ __forceinline__ float clamp01(float v) { return v != v ? v : fminf(fmaxf(v, 0.0f), 1.0f); }
-
 // The primary ray of image pixel (x, y) as render/camera.py:ray_dirs_window
 // computes it: ndc_grid's centre (a true division by W and H, the aspect
 // asp = W/H rounded to float), the focal z fov, gmath.normalize_fast, then
@@ -205,33 +203,6 @@ __device__ __forceinline__ void store(const float* rgb, float cnt, size_t p, flo
   out_rgb[3 * p + 1] = rgb[1];
   out_rgb[3 * p + 2] = rgb[2];
   out_cnt[p] = cnt;
-}
-
-// A row of core/color.py:_mat3, left to right.
-__device__ __forceinline__ float mat_row(const float (&v)[3], float m0, float m1, float m2) {
-  return (v[0] * m0 + v[1] * m1) + v[2] * m2;
-}
-
-// core/color.py:aces_fitted, then linear_srgb, on one pixel's rgb in place.
-__device__ __forceinline__ void aces_srgb(float (&v)[3]) {
-  const float c[3] = {mat_row(v, 0.59719f, 0.35458f, 0.04823f), mat_row(v, 0.07600f, 0.90834f, 0.01566f),
-                      mat_row(v, 0.02840f, 0.13383f, 0.83777f)};
-  float q[3];
-#pragma unroll
-  for (int k = 0; k < 3; ++k) {
-    const float a = c[k] * (c[k] + 0.0245786f) - 0.000090537f;
-    const float b = c[k] * (0.983729f * c[k] + 0.4329510f) + 0.238081f;
-    q[k] = a / b;
-  }
-  const float o[3] = {mat_row(q, 1.60475f, -0.53108f, -0.07367f), mat_row(q, -0.10208f, 1.10813f, -0.00605f),
-                      mat_row(q, -0.00327f, -0.07276f, 1.07602f)};
-#pragma unroll
-  for (int k = 0; k < 3; ++k) {
-    const float x = clamp01(o[k]);
-    const float lo = 12.92f * x;
-    const float hi = 1.055f * powf(clamp_min(x, 1e-10f), (float)(1.0 / 2.4)) - 0.055f;
-    v[k] = x <= 0.0031308f ? lo : hi;
-  }
 }
 
 // render/composite.py:composite_from on one pixel: the new history of both

@@ -28,7 +28,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("frame_kernel.cu", "reproject_kernel.cu", "frame_grad.cu", "loss_kernel.cu",
            "geometry_kernel.cu", "path_kernel.cu", "frame_hist.cu", "shade_kernel.cu", "ceiling_kernel.cu")
 HEADERS = ("dual.cuh", "shade_core.cuh", "frame_core.cuh", "frame_adjoint.cuh", "reproject_core.cuh",
-           "frame_body.cuh")
+           "frame_body.cuh", "tonemap.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC",
@@ -99,9 +99,9 @@ _SIGNATURES = {
     # parts, nP, nS, nB, nK, width, height, fov, out, stream
     "kpt_geometry_pass": (_P, _I, _I, _I, _I, _I, _I, _F, _P, _P),
     # parts, kinds, iors, nP, nS, nB, nK, width, height, fov, frame, spp,
-    # max_depth, gloss, out, stream
+    # max_depth, gloss, tonemap, brightness, out, stream
     "kpt_pathtrace": (
-        _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _I, _P, _P,
+        _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _I, _I, _I, _I, _F, _P, _P,
     ),
     # parts, prev loc, prev orient, nP, nS, nB, nK, width, height, fov,
     # frame, smp, decorrelate, biased, soft_beta, gloss, K, inv_asp,

@@ -10,7 +10,10 @@ component-plane math as plain tensor ops (the shade core's `_trace`,
 `_light_visible`, `_surface` and the frame's `_normal_curv`);
 `pathtrace_plain` runs it over the whole image (≙ `pathtrace_jnp`);
 `pathtrace` launches csrc/path_kernel.cu on a CUDA tensor (≙
-`pathtrace_pallas`) and runs `pathtrace_plain` on a CPU tensor.
+`pathtrace_pallas`) and runs `pathtrace_plain` on a CPU tensor. Given an
+exposure (`brightness`), `pathtrace` returns the tonemapped sRGB image
+instead of the HDR radiance: K7 tonemaps in its epilogue, in the same
+operations as the plain chain that the CPU route runs after it.
 
 The render/wavefront.py integrator is the JAX package's XLA oracle of the
 same estimator; the two differ on purpose in a few guards (see there).
@@ -20,14 +23,16 @@ from __future__ import annotations
 
 import torch
 
-from kylespathtracer_tpu_torch.core import gmath, sampler
+from kylespathtracer_tpu_torch.core import color, gmath, sampler
 from kylespathtracer_tpu_torch.ops import _build
 from kylespathtracer_tpu_torch.ops import frame_kernel as fk
 from kylespathtracer_tpu_torch.ops import shade_kernel as sk
 from kylespathtracer_tpu_torch.scene.types import BSDF, Scene, bsdf_table
 
-# Launches of the CUDA kernel by `pathtrace` in this process.
+# Launches of the CUDA kernel by `pathtrace` in this process, and those of
+# them that wrote the tonemapped sRGB image (`brightness` given).
 LAUNCHES = 0
+TONEMAP_LAUNCHES = 0
 
 _INV_PI = 1.0 / gmath.PI
 _DELTA_PDF = 1e8
@@ -280,29 +285,35 @@ def pathtrace_plain(scene: Scene, camera, config, frame=0, tally=None) -> torch.
     return acc / spp
 
 
-def pathtrace(scene: Scene, camera, config, frame=0) -> torch.Tensor:
+def pathtrace(scene: Scene, camera, config, frame=0, brightness=None) -> torch.Tensor:
     """HDR radiance image f32[H, W, 3]: `config.spp` samples per pixel at
-    depth `config.max_depth`, one launch. The scene's device picks the
-    route: CUDA launches the kernel (or raises), CPU runs `pathtrace_plain`.
+    depth `config.max_depth`, one launch. With a `brightness`, the image
+    times it, ACES fitted and sRGB instead (in [0, 1]). The scene's device
+    picks the route: CUDA launches the kernel (or raises), which tonemaps
+    in its epilogue; CPU runs `pathtrace_plain`, then core/color.py.
     Forward only: an input that requires grad raises (`path_backend="xla"`
     differentiates)."""
     fk.forward_only("the path kernel (K7)", 'path_backend="xla"', scene, camera)
     device = scene.device
     if device.type == "cpu":
-        return pathtrace_plain(scene, camera, config, frame)
-    launch, out = path_launch(scene, camera, config, frame)
+        img = pathtrace_plain(scene, camera, config, frame)
+        return img if brightness is None else color.linear_srgb(color.aces_fitted(img * brightness))
+    launch, out = path_launch(scene, camera, config, frame, brightness=brightness)
     launch()
     return out
 
 
-def path_launch(scene: Scene, camera, config, frame=0, lib=None):
+def path_launch(scene: Scene, camera, config, frame=0, lib=None, brightness=None):
     """`pathtrace`'s CUDA route in two steps → (launch, out): the arguments
     are checked and the image allocated here; launch() launches K7 once
-    into it and counts it. The kernel gathers the scene's tables from the
-    scene's own tensors (`frame_kernel.table_parts`) and the BSDF kinds and
-    iors from `_tables`; nothing is packed. ops/adjoint_variants.py times
-    launch() alone beside `pathtrace`. `lib`:
-    another build of the kernel (`census`), whose launches are not counted."""
+    into it and counts it. `brightness` None: out is the HDR radiance; a
+    number: K7 multiplies the radiance by it and writes the ACES-fitted sRGB
+    image (core/color.py's chain, operation for operation), and the launch
+    also counts in TONEMAP_LAUNCHES. The kernel gathers the scene's tables
+    from the scene's own tensors (`frame_kernel.table_parts`) and the BSDF
+    kinds and iors from `_tables`; nothing is packed. ops/adjoint_variants.py
+    times launch() alone beside `pathtrace`. `lib`: another build of the
+    kernel (`census`), whose launches are not counted."""
     device = scene.device
     if device.type != "cuda":
         raise ValueError(f"pathtrace: unsupported device {device}")
@@ -315,19 +326,21 @@ def path_launch(scene: Scene, camera, config, frame=0, lib=None):
     parts = fk.table_parts(scene, camera)
     kinds, iors = _tables(scene)
     out = torch.empty((H, W, 3), dtype=torch.float32, device=device)
+    tonemap = brightness is not None
     args = (*fk._counts(scene), scene.materials.num_ids, W, H, float(config.fov), fk._wrap32(int(frame)),
-            spp, depth, int(gloss))
+            spp, depth, int(gloss), int(tonemap), float(brightness) if tonemap else 0.0)
     stream = torch.cuda.current_stream(device).cuda_stream
 
     # launch() reads the tensors itself, so it keeps alive what the kernel
     # reads and writes after the caller has dropped them.
     def launch():
-        global LAUNCHES
+        global LAUNCHES, TONEMAP_LAUNCHES
         err = (lib or _build.load()).kpt_pathtrace(fk.table_parts_struct(*parts), kinds.data_ptr(),
                                                     iors.data_ptr(), *args, out.data_ptr(), stream)
         _build.check(err, "kpt_pathtrace")
         if lib is None:
             LAUNCHES += 1
+            TONEMAP_LAUNCHES += tonemap
 
     return launch, out
 

@@ -17,10 +17,13 @@ full `intersect`; the kernel takes sqrt(max(disc, 1e-12)), 1/max(ior,
 1e-6), `_powi` and the occlusion test `_light_visible`.
 
 Each `render_pathtraced` call is one `pathtrace` span holding its stages in
-order (STAGES): `pathtrace.paths`, the radiance image (K7's wrapper and
-launch on the card), then `pathtrace.tonemap`, exposure, ACES and sRGB; so a
+order (STAGES): `pathtrace.paths`, the radiance image, then
+`pathtrace.tonemap`, exposure, ACES and sRGB in plain tensor ops; so a
 profiler trace splits the image's device time, launches and idle time by
-stage. Outside a profiler a span is one boolean check (utils/metrics.py:span).
+stage. On the card with the path kernel ("auto", "pallas") K7 tonemaps in
+its epilogue: `pathtrace.paths` is K7's wrapper and its one launch, which
+writes the sRGB image, and there is no `pathtrace.tonemap`. Outside a
+profiler a span is one boolean check (utils/metrics.py:span).
 
 The integrator ("xla") is differentiable end to end: `intersect` carries
 the implicit-function backward of scene/sdf.py, so pixel gradients reach
@@ -44,7 +47,8 @@ from kylespathtracer_tpu_torch.scene.types import Scene, bsdf_table
 from kylespathtracer_tpu_torch.utils.metrics import span
 
 # The profiler spans of render_pathtraced's stages, in order; children of
-# its `pathtrace` span.
+# its `pathtrace` span. On the card's path-kernel route the first alone: K7
+# writes the tonemapped image.
 STAGES = ("pathtrace.paths", "pathtrace.tonemap")
 
 _PAIRS_PER_BOUNCE = 3  # (nee u1,u2), (bsdf u1,u2), (bsdf u3, unused)
@@ -218,9 +222,16 @@ def pathtrace(scene: Scene, camera: Camera, config, frame=0) -> torch.Tensor:
 
 def render_pathtraced(scene: Scene, camera: Camera, config, frame=0) -> torch.Tensor:
     """Tonemapped sRGB image f32[H, W, 3] in [0, 1]: exposure → ACES →
-    sRGB (reference passthrough.frag:27,45)."""
+    sRGB (reference passthrough.frag:27,45). On the card with the path
+    kernel, one K7 launch that tonemaps in its epilogue, the same operations
+    as the plain chain; elsewhere the HDR image, then the plain chain."""
+    fused = scene.device.type == "cuda" and config.path_backend in ("auto", "pallas")
     with span("pathtrace"):
         with span("pathtrace.paths"):
+            if fused:
+                from kylespathtracer_tpu_torch.ops import path_kernel as pk
+
+                return pk.pathtrace(scene, camera, config, frame, brightness=config.brightness)
             hdr = pathtrace(scene, camera, config, frame)
         with span("pathtrace.tonemap"):
             img = color_mod.linear_srgb(color_mod.aces_fitted(hdr * config.brightness))

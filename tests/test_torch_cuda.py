@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from kylespathtracer_tpu_torch import bench_ceiling
+from kylespathtracer_tpu_torch.core import color
 from kylespathtracer_tpu_torch.diff import inverse
 from kylespathtracer_tpu_torch.ops import ceiling_kernel as ck
 from kylespathtracer_tpu_torch.ops import frame_grad as fg
@@ -477,6 +478,62 @@ def test_path_kernel_on_config3_at_1080p_matches_the_benchmark_reference(dev):
     got, lim = loop.compare(img, ref), cell.traffic["limits"]
     assert all(got[k] <= float(lim[k]) for k in loop.CHECKS), (got, lim)
 
+
+
+
+@pytest.mark.parametrize("size", [(320, 180), (1920, 1080)])
+def test_render_pathtraced_tonemaps_in_k7(dev, size):
+    """On the card render_pathtraced is one K7 launch that writes the sRGB
+    image (LAUNCHES and TONEMAP_LAUNCHES each rise by 1), bitwise the plain
+    tonemap (core/color.py) of K7's HDR image on config 3 at 4 spp, depth 6;
+    without a brightness K7 still writes the HDR image, bitwise its plain
+    version."""
+    W, H = size
+    scene, cam = _config3(dev)
+    cfg = RenderConfig(width=W, height=H, spp=4, max_depth=6)
+    before = (pk.LAUNCHES, pk.TONEMAP_LAUNCHES)
+    img = wavefront.render_pathtraced(scene, cam, cfg, 7)
+    torch.cuda.synchronize()
+    assert (pk.LAUNCHES, pk.TONEMAP_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    hdr = pk.pathtrace(scene, cam, cfg, 7)
+    torch.cuda.synchronize()
+    assert (pk.LAUNCHES, pk.TONEMAP_LAUNCHES) == (before[0] + 2, before[1] + 1)
+    plain = color.linear_srgb(color.aces_fitted(hdr * cfg.brightness))
+    assert torch.equal(img, plain), (img - plain).abs().max().item()
+    assert torch.equal(hdr, pk.pathtrace_plain(scene, cam, cfg, 7))
+    # Not vacuous: black, mid-tone and near-white components, HDR beyond 1.
+    assert (img == 0).any() and ((img > 0.1) & (img < 0.9)).float().mean() > 0.02 and img.max() > 0.95
+    assert hdr.max() > 1
+
+
+def test_path_traced_image_is_k7_alone_under_the_profiler(dev):
+    """Under the profiler each render_pathtraced `pathtrace` span holds
+    `pathtrace.paths` alone (no `pathtrace.tonemap`), and the only kernel on
+    the card is K7."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    scene, cam = _config3(dev)
+    cfg = RenderConfig(width=320, height=180, spp=4, max_depth=6)
+    wavefront.render_pathtraced(scene, cam, cfg, 0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILER_MARGIN_S)
+        for i in range(3):
+            wavefront.render_pathtraced(scene, cam, cfg, i)
+        torch.cuda.synchronize()
+        time.sleep(PROFILER_MARGIN_S)
+    host = [e for e in prof.events() if e.device_type == DeviceType.CPU]
+    spans = [e for e in host if e.name == "pathtrace"]
+    assert len(spans) == 3
+    for e in spans:
+        assert [c.name for c in e.cpu_children if c.name.startswith("pathtrace")] == ["pathtrace.paths"]
+    assert not any(e.name == "pathtrace.tonemap" for e in prof.events())
+    # The spans' own events on the device's timeline left out; the session's
+    # first kernel is at times left out of the trace (see PROFILER_MARGIN_S).
+    names = ("pathtrace", *wavefront.STAGES)
+    on_card = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA and e.name not in names]
+    assert 2 <= len(on_card) <= 3 and all(n.startswith("kpt::path_kernel(") for n in on_card), on_card
 
 
 def _seeded_history(oid, seed):

@@ -10,6 +10,7 @@ import dataclasses
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from _torch_helpers import (PATH_CASES, assert_path_bar, np_, to_torch_camera, to_torch_config,
                             to_torch_scene)
@@ -38,3 +39,20 @@ def test_pathtrace_plain_later_frame_and_glossy():
     ref = np.asarray(jpk.pathtrace_jnp(scene, cam, cfg, jnp.asarray(5, jnp.int32)))
     img = np_(pk.pathtrace_plain(to_torch_scene(scene), to_torch_camera(cam), to_torch_config(cfg), 5))
     assert_path_bar(img, ref)
+
+
+def test_pathtrace_with_a_brightness_is_render_pathtraceds_image():
+    """Given an exposure, `pathtrace` returns render_pathtraced's sRGB image
+    bit for bit (on the CPU: the plain version, then core/color.py's chain),
+    and without one the HDR image; a CPU tensor counts no kernel launch."""
+    from kylespathtracer_tpu_torch.render import wavefront
+
+    scene, cam, cfg = PATH_CASES["dielectric"]()
+    scene, cam, cfg = to_torch_scene(scene), to_torch_camera(cam), to_torch_config(cfg)
+    before = (pk.LAUNCHES, pk.TONEMAP_LAUNCHES)
+    img = pk.pathtrace(scene, cam, cfg, 2, brightness=cfg.brightness)
+    assert (pk.LAUNCHES, pk.TONEMAP_LAUNCHES) == before
+    assert torch.equal(img, wavefront.render_pathtraced(scene, cam, cfg, 2))
+    hdr = pk.pathtrace(scene, cam, cfg, 2)
+    assert torch.equal(hdr, pk.pathtrace_plain(scene, cam, cfg, 2)) and hdr.max() > 1
+    assert img.min() >= 0 and img.max() <= 1 and not torch.equal(img, hdr)
